@@ -1,0 +1,117 @@
+"""Typed, env-layered configuration for the ETA serving path.
+
+The fields the ETA path reads, carried over from
+``routest_tpu/core/config.py`` with the same environment variable names
+and defaults (``ETA_MODEL_PATH``, ``PORT``, ``RTPU_*``), plus the
+port's own ``ROUTEST_DEVICE``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import warnings
+from typing import Mapping, Optional, Tuple
+
+
+def _env(env: Mapping[str, str], *names: str,
+         default: Optional[str] = None) -> Optional[str]:
+    for name in names:
+        value = env.get(name)
+        if value:
+            return value
+    return default
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    # Path to the serving artifact. Honors the reference's
+    # ETA_MODEL_PATH override (``Flaskr/ml.py:7``).
+    model_path: Optional[str] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    host: str = "127.0.0.1"
+    port: int = 5000
+    # Scoring device: "cuda" (the default — the hand kernel serves) or
+    # "cpu" (the kernel's plain PyTorch version; tests and CPU hosts).
+    device: str = "cuda"
+    # Dynamic batcher: requests coalesce until ``max_batch`` rows or
+    # ``max_wait_ms`` elapse, whichever first.
+    max_batch: int = 4096
+    max_wait_ms: float = 2.0
+    # Bucketed pad sizes (``RTPU_BATCH_BUCKETS``, comma-separated): every
+    # device batch is padded up to one of these, and each is warmed at
+    # startup.
+    batch_buckets: Tuple[int, ...] = (8, 64, 512, 1024, 2048, 4096)
+    # Serving fast lane: a content-addressed prediction cache +
+    # singleflight in front of the batcher, and an adaptive flush window
+    # inside it. Entries are keyed by (row bytes, model generation), so
+    # the cache is semantically invisible and defaults ON.
+    fastlane_cache: bool = True
+    fastlane_cache_size: int = 8192
+    fastlane_cache_ttl_s: float = 300.0
+    fastlane_singleflight: bool = True
+    fastlane_max_rows: int = 1024
+    adaptive_wait: bool = True
+    min_wait_ms: float = 0.0
+    # Health version stamp (RENDER_GIT_COMMIT / GIT_COMMIT_SHA).
+    version: Optional[str] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    model: ModelConfig = ModelConfig()
+    serve: ServeConfig = ServeConfig()
+
+
+def load_config(env: Optional[Mapping[str, str]] = None) -> Config:
+    """Build a Config from environment variables (same names and
+    defaults as the JAX package's ``load_config`` serve/model part)."""
+    env = dict(env if env is not None else os.environ)
+
+    def _int(name: str, default: int) -> int:
+        raw = env.get(name)
+        return int(raw) if raw else default
+
+    def _float(name: str, default: float) -> float:
+        raw = env.get(name)
+        return float(raw) if raw else default
+
+    def _buckets(name: str, default: Tuple[int, ...]) -> Tuple[int, ...]:
+        # Ops knob: malformed entries keep the default (boot must not
+        # abort on a typo).
+        raw = env.get(name)
+        if not raw:
+            return default
+        try:
+            vals = tuple(sorted({int(v) for v in raw.split(",") if v.strip()}))
+            return vals if vals and all(v > 0 for v in vals) else default
+        except ValueError:
+            warnings.warn(f"{name}={raw!r} is not a bucket list; "
+                          f"using {default}")
+            return default
+
+    model = ModelConfig(
+        model_path=_env(env, "ETA_MODEL_PATH", "RTPU_MODEL_PATH"),
+    )
+    serve = ServeConfig(
+        host=env.get("RTPU_HOST", "127.0.0.1"),
+        port=_int("PORT", _int("RTPU_PORT", 5000)),
+        device=env.get("ROUTEST_DEVICE") or "cuda",
+        max_batch=_int("RTPU_MAX_BATCH", 4096),
+        max_wait_ms=_float("RTPU_MAX_WAIT_MS", 2.0),
+        batch_buckets=_buckets("RTPU_BATCH_BUCKETS",
+                               ServeConfig.batch_buckets),
+        fastlane_cache=env.get("RTPU_FASTLANE_CACHE", "1") != "0",
+        fastlane_cache_size=_int("RTPU_FASTLANE_CACHE_SIZE", 8192),
+        fastlane_cache_ttl_s=_float("RTPU_FASTLANE_CACHE_TTL_S", 300.0),
+        fastlane_singleflight=env.get(
+            "RTPU_FASTLANE_SINGLEFLIGHT", "1") != "0",
+        fastlane_max_rows=_int("RTPU_FASTLANE_MAX_ROWS", 1024),
+        adaptive_wait=env.get("RTPU_FASTLANE_ADAPTIVE", "1") != "0",
+        min_wait_ms=_float("RTPU_FASTLANE_MIN_WAIT_MS", 0.0),
+        version=_env(env, "RENDER_GIT_COMMIT", "GIT_COMMIT_SHA"),
+    )
+    return Config(model=model, serve=serve)

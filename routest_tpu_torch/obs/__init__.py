@@ -1,0 +1,8 @@
+"""Observability: the process-wide metrics registry.
+
+Tracing, the timeline, SLOs and the flight recorder of
+``routest_tpu/obs`` arrive with the observability slice.
+"""
+
+from routest_tpu_torch.obs.registry import (MetricsRegistry,  # noqa: F401
+                                            get_registry)

@@ -1,0 +1,43 @@
+"""Server entry point: ``python -m routest_tpu_torch.serve``.
+
+Serves the ETA endpoints on ``RTPU_HOST``:``PORT`` (default
+127.0.0.1:5000) from the artifact at ``ETA_MODEL_PATH`` (default
+``artifacts/eta_mlp.msgpack``), scoring on the card through the fused
+kernel. ``ROUTEST_DEVICE=cpu`` serves on the CPU through the kernel's
+plain version. A missing artifact is a hard error: training a bootstrap
+model waits for the training slice. SIGTERM/SIGINT drain in-flight
+requests before exit.
+"""
+
+from __future__ import annotations
+
+import os
+
+from routest_tpu_torch.core.config import load_config
+from routest_tpu_torch.serve.app import create_app
+from routest_tpu_torch.serve.ml_service import EtaService
+from routest_tpu_torch.serve.wsgi import run_with_graceful_shutdown
+from routest_tpu_torch.train.checkpoint import default_model_path
+from routest_tpu_torch.utils.logging import get_logger
+
+_log = get_logger("routest_tpu_torch.serve.boot")
+
+
+def main() -> None:
+    config = load_config()
+    path = default_model_path(config.model)
+    if not os.path.exists(path):
+        raise SystemExit(f"no ETA model artifact at {path} "
+                         f"(set ETA_MODEL_PATH to an RTPU1 artifact)")
+    eta = EtaService(config.serve, model_path=path)
+    _log.info("model_loaded", path=path, available=eta.available,
+              scoring=eta.scoring_info(), error=eta.load_error)
+    app = create_app(config, eta_service=eta)
+    _log.info("serve_listening", host=config.serve.host,
+              port=config.serve.port)
+    run_with_graceful_shutdown(app, config.serve.host, config.serve.port)
+    _log.info("serve_stopped")
+
+
+if __name__ == "__main__":
+    main()

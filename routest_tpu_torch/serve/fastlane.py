@@ -1,0 +1,300 @@
+"""Serving fast lane: content-addressed prediction cache + singleflight.
+
+The Clipper observation (PAPERS.md): an inference tier's cheapest
+prediction is the one it already computed. ETA scoring here is a pure
+function of the encoded 12-feature row — identical rows through the
+same model artifact produce identical minutes — so a prediction can be
+cached and deduplicated with NO semantic drift:
+
+- **Cache** — an LRU with lazy TTL expiry, keyed by ``(generation,
+  row bytes)``. The generation is OPAQUE to this module — any hashable
+  value whose change must retire every cached prediction. The serving
+  layer passes ``(model generation, live-metric epoch)``: the model
+  half is a process-wide counter bumped every time ``EtaService``
+  brings a serving state live (startup and every successful
+  ``reload_if_changed()``), the epoch half is the live-traffic metric
+  generation (0 until live traffic is ported, as in the JAX package
+  while ``RTPU_LIVE`` is off) — so
+  neither a hot-reload nor a metric flip leaves a window where new
+  serving state answers with old numbers. Keys are the raw row bytes
+  (48 B for the ABI row), not a digest: exact equality, zero collision
+  risk, and the dict's own hashing is the content address.
+- **Singleflight** — N concurrent requests for the same uncached row
+  cost ONE batcher submit: the first becomes the leader and computes;
+  the rest park on an event and read the leader's result
+  (``rtpu_cache_coalesced_total`` counts them). A leader failure
+  propagates the error to every waiter and caches NOTHING — a chaos
+  fault at ``device.compute`` must never poison the cache, and the next
+  request retries against the (recovered) device.
+
+Per-ROW granularity: a batch request's repeated rows hit the cache and
+coalesce individually; only the novel remainder reaches the batcher
+(in one submit). Requests above ``max_rows`` bypass the fast lane
+entirely — a 131k-row all-unique batch would pay hashing for pure LRU
+thrash — and go straight to the batcher as before.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import OrderedDict
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from routest_tpu_torch.obs import get_registry
+
+
+class _Inflight:
+    """One in-progress computation other threads can wait on."""
+
+    __slots__ = ("event", "value", "error")
+
+    def __init__(self) -> None:
+        self.event = threading.Event()
+        self.value: Optional[np.ndarray] = None
+        self.error: Optional[BaseException] = None
+
+
+class FastLane:
+    """Per-row prediction cache with inflight coalescing.
+
+    ``predict(rows, generation, compute)`` is the whole API: rows is the
+    (N, F) float32 feature batch, ``compute`` scores a (M, F) subset
+    through the batcher. Thread-safe; ``compute`` runs OUTSIDE the lock.
+    """
+
+    # A leader that wedges (device hang) must not pin waiters forever;
+    # mirrors the batcher's own hard cap.
+    WAIT_HARD_CAP_S = 60.0
+
+    def __init__(self, capacity: int = 8192, ttl_s: float = 300.0,
+                 cache: bool = True, singleflight: bool = True,
+                 max_rows: int = 1024) -> None:
+        self.capacity = max(1, int(capacity))
+        self.ttl_s = float(ttl_s)
+        self.cache = cache          # False: singleflight only, no reuse
+        self.singleflight = singleflight
+        self.max_rows = int(max_rows)
+        self._lock = threading.Lock()
+        # (generation, row bytes) -> (stored_monotonic, row result);
+        # generation is any hashable (the serving layer passes a
+        # (model generation, metric epoch) tuple)
+        self._cache: "OrderedDict[Tuple, Tuple[float, np.ndarray]]" = OrderedDict()
+        self._inflight: Dict[Tuple, _Inflight] = {}
+        reg = get_registry()
+        self._m_hits = reg.counter(
+            "rtpu_cache_hits_total", "Prediction rows served from cache.")
+        self._m_misses = reg.counter(
+            "rtpu_cache_misses_total",
+            "Prediction rows that had to be computed.")
+        self._m_coalesced = reg.counter(
+            "rtpu_cache_coalesced_total",
+            "Prediction rows served by waiting on another request's "
+            "in-flight computation (singleflight).")
+        self._m_evictions = reg.counter(
+            "rtpu_cache_evictions_total", "Cache entries evicted by LRU.")
+        self._m_bypass = reg.counter(
+            "rtpu_cache_bypass_total",
+            "Requests that skipped the fast lane (over max_rows).")
+        self._m_size = reg.gauge(
+            "rtpu_cache_entries", "Live prediction-cache entries.")
+        self._m_wire_blob = reg.counter(
+            "rtpu_wire_copies_avoided_total",
+            "Prediction rows whose key bytes came straight from a wire "
+            "frame's buffer (no tobytes re-serialization of the batch).")
+
+    # ── bookkeeping ───────────────────────────────────────────────────
+
+    def accepts(self, n_rows: int) -> bool:
+        return 0 < n_rows <= self.max_rows
+
+    def invalidate(self) -> None:
+        """Drop every entry (hot-reload hygiene; correctness already
+        comes from the generation in the key)."""
+        with self._lock:
+            self._cache.clear()
+            self._m_size.set(0)
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {"entries": len(self._cache),
+                    "capacity": self.capacity,
+                    "inflight": len(self._inflight)}
+
+    def _cache_get(self, key, now: float) -> Optional[np.ndarray]:
+        """Lock held. TTL-lazy lookup + LRU touch."""
+        hit = self._cache.get(key)
+        if hit is None:
+            return None
+        stored, value = hit
+        if self.ttl_s > 0 and now - stored > self.ttl_s:
+            del self._cache[key]
+            self._m_size.set(len(self._cache))
+            return None
+        self._cache.move_to_end(key)
+        return value
+
+    def _cache_put(self, key, value: np.ndarray, now: float) -> None:
+        """Lock held."""
+        self._cache[key] = (now, value)
+        self._cache.move_to_end(key)
+        evicted = 0
+        while len(self._cache) > self.capacity:
+            self._cache.popitem(last=False)
+            evicted += 1
+        if evicted:
+            self._m_evictions.inc(evicted)
+        self._m_size.set(len(self._cache))
+
+    # ── the hot path ──────────────────────────────────────────────────
+
+    def predict(self, rows: np.ndarray, generation,
+                compute: Callable[[np.ndarray], np.ndarray],
+                span=None, blob=None) -> np.ndarray:
+        """``span`` (optional): a trace span to stamp with THIS
+        request's cache provenance (hits/misses/coalesced) — a
+        tail-sampled slow trace then says whether the fast lane helped
+        or the rows paid full device price.
+
+        ``blob`` (optional): a bytes-like holding exactly ``rows``'s
+        contiguous float32 bytes — the wire path passes the request
+        frame's feature payload (a zero-copy view of the socket read)
+        so key extraction below reuses it instead of re-serializing
+        the batch with ``tobytes()``. Ignored unless its length
+        matches, so a caller can pass it unconditionally."""
+        rows = np.ascontiguousarray(rows, np.float32)
+        n = len(rows)
+        if not self.accepts(n):
+            self._m_bypass.inc()
+            if span is not None:
+                span.set_attr("cache", "bypass")
+            return compute(rows)
+        # ONE tobytes for the whole batch, then per-row slices: a
+        # per-row rows[i].tobytes() loop was measurable fixed overhead
+        # at the 1024-row request size (docs/PERFORMANCE.md "Scoring
+        # artifact" — the fast lane sits on the decomposition's fixed-
+        # cost side, so per-row python here is paid by every request).
+        width = rows.shape[1] * rows.itemsize
+        if blob is not None and len(blob) == n * width:
+            self._m_wire_blob.inc(n)
+            mv = memoryview(blob)
+            # bytes() per slice: keys must OWN their 48 B, not pin the
+            # whole request buffer for the cache entry's lifetime.
+            keys = [(generation, bytes(mv[i * width:(i + 1) * width]))
+                    for i in range(n)]
+        else:
+            buf = rows.tobytes()
+            keys = [(generation, buf[i * width:(i + 1) * width])
+                    for i in range(n)]
+        out: List[Optional[np.ndarray]] = [None] * n
+        # Classification under ONE lock pass: cache hit, join an
+        # in-flight computation, or become the leader for a novel key.
+        # Duplicate rows WITHIN this request collapse onto one leader
+        # slot too (lead_index), so the compute batch holds unique rows.
+        joins: List[Tuple[int, _Inflight]] = []
+        lead_keys: List[Tuple[int, bytes]] = []
+        lead_index: Dict[Tuple[int, bytes], int] = {}
+        lead_rows: List[int] = []          # row index supplying the bytes
+        follower_of: List[Tuple[int, int]] = []  # (row idx, lead slot)
+        hits = misses = coalesced = 0
+        now = time.monotonic()
+        with self._lock:
+            for i, key in enumerate(keys):
+                cached = self._cache_get(key, now) if self.cache else None
+                if cached is not None:
+                    out[i] = cached
+                    hits += 1
+                    continue
+                slot = lead_index.get(key)
+                if slot is not None:       # duplicate inside this request
+                    follower_of.append((i, slot))
+                    coalesced += 1
+                    continue
+                flight = self._inflight.get(key) if self.singleflight else None
+                if flight is not None:
+                    joins.append((i, flight))
+                    coalesced += 1
+                    continue
+                if self.singleflight:
+                    self._inflight[key] = _Inflight()
+                lead_index[key] = len(lead_keys)
+                lead_keys.append(key)
+                lead_rows.append(i)
+                misses += 1
+        if hits:
+            self._m_hits.inc(hits)
+        if misses:
+            self._m_misses.inc(misses)
+        if coalesced:
+            self._m_coalesced.inc(coalesced)
+        if span is not None:
+            span.set_attr("cache_hits", hits)
+            span.set_attr("cache_misses", misses)
+            span.set_attr("cache_coalesced", coalesced)
+
+        all_leads = len(lead_rows) == n
+        if lead_keys:
+            try:
+                # all_leads ⇒ lead_rows is 0..n-1 in order: pass the
+                # caller's batch straight through (no fancy-index copy
+                # on the all-unique workload).
+                preds = np.asarray(compute(
+                    rows if all_leads else rows[lead_rows]))
+            except BaseException as e:
+                # Chaos-safe: nothing cached, every waiter gets the
+                # error, the inflight slots disappear so the NEXT
+                # request computes fresh against a recovered device.
+                if self.singleflight:
+                    with self._lock:
+                        for key in lead_keys:
+                            flight = self._inflight.pop(key, None)
+                            if flight is not None:
+                                flight.error = e
+                                flight.event.set()
+                raise
+            now = time.monotonic()
+            # ONE owning host copy for the whole compute result; this
+            # request's answers (out rows, singleflight waiters) are
+            # row VIEWS of it — request-lifetime only. Cache entries
+            # still copy their row: a cached view would pin the whole
+            # (rows × width) base for as long as ONE hot row stays
+            # resident, turning an 8k-entry cache into hundreds of MB
+            # under skewed traffic.
+            owned = np.array(preds)
+            with self._lock:
+                for slot, key in enumerate(lead_keys):
+                    value = owned[slot]
+                    if self.cache:
+                        self._cache_put(key, np.array(value), now)
+                    out[lead_rows[slot]] = value
+                    if self.singleflight:
+                        flight = self._inflight.pop(key, None)
+                        if flight is not None:
+                            flight.value = value
+                            flight.event.set()
+            if all_leads and not joins:
+                # Nothing came from cache or a peer: the compute result
+                # IS the answer — skip the per-row restack.
+                return owned
+        for i, slot in follower_of:
+            out[i] = out[lead_rows[slot]]
+
+        if joins:
+            from routest_tpu_torch.serve.deadline import (DeadlineExceeded,
+                                                    current_deadline)
+
+            give_up = time.monotonic() + self.WAIT_HARD_CAP_S
+            dl = current_deadline()
+            if dl is not None:
+                give_up = min(give_up, dl)
+            for i, flight in joins:
+                remaining = give_up - time.monotonic()
+                if remaining <= 0 or not flight.event.wait(remaining):
+                    raise DeadlineExceeded(
+                        "fast-lane wait exceeded the request budget")
+                if flight.error is not None:
+                    raise flight.error
+                out[i] = flight.value
+        return np.stack(out, axis=0)

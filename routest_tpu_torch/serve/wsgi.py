@@ -1,0 +1,376 @@
+"""Minimal WSGI micro-framework on the standard library alone.
+
+The counterpart of ``routest_tpu/serve/wsgi.py`` without werkzeug, which
+the machine with the card does not have: a small :class:`Request` /
+:class:`Response` over the WSGI environ, method+path routing with
+``<param>`` captures, JSON request/response helpers with the same
+400/413/504 behaviour and error bodies, the reference's CORS policy
+(localhost:3000 + ``*.vercel.app``, ``Flaskr/__init__.py:14-23``), and a
+threaded ``wsgiref`` server that drains in-flight handlers on SIGTERM.
+The flight recorder, request stats and trace spans arrive with the
+observability slice.
+"""
+
+from __future__ import annotations
+
+import http
+import json
+import os
+import re
+import signal
+import socketserver
+import threading
+import time
+import uuid
+from typing import Any, Callable, Dict, List, Optional, Tuple
+from wsgiref.simple_server import WSGIRequestHandler, WSGIServer
+
+from routest_tpu_torch.obs import get_registry
+from routest_tpu_torch.serve.deadline import (DEADLINE_HEADER,
+                                              DeadlineExceeded,
+                                              bind_deadline,
+                                              parse_deadline_ms,
+                                              reset_deadline)
+from routest_tpu_torch.utils.logging import (get_logger, reset_request_id,
+                                             set_request_id)
+
+_PARAM_RE = re.compile(r"<([a-zA-Z_][a-zA-Z0-9_]*)>")
+# A caller-supplied correlation id is echoed only if it is shaped like
+# one (bounded, log-safe charset); anything else gets a fresh id.
+_REQUEST_ID_RE = re.compile(r"^[A-Za-z0-9._-]{1,64}$")
+
+# Origins the reference allows: the localhost dev origins plus the
+# configured production frontend (``ROUTEST_FRONTEND_ORIGIN``) get
+# credentialed CORS; the ``*.vercel.app`` wildcard stays reachable but
+# credential-less (any Vercel tenant can host an origin matching it).
+_CREDENTIALED_ORIGIN_RE = re.compile(
+    r"^https?://localhost:3000$|^https?://127\.0\.0\.1:3000$"
+)
+_PUBLIC_ORIGIN_RE = re.compile(r"^https://[a-z0-9-]+\.vercel\.app$")
+
+# Compact separators: the default pads every delimiter with a space —
+# pure wire bloat on multi-thousand-row batch responses.
+_JSON_SEPARATORS = (",", ":")
+
+
+class RequestEntityTooLarge(Exception):
+    """The request body exceeds ``RTPU_MAX_BODY_MB``; surfaces as 413."""
+
+
+class Request:
+    """The parts of the WSGI environ the handlers read."""
+
+    def __init__(self, environ: dict) -> None:
+        self.environ = environ
+        self.method = environ.get("REQUEST_METHOD", "GET").upper()
+        self.path = environ.get("PATH_INFO", "") or "/"
+        self._data: Optional[bytes] = None
+
+    @property
+    def content_length(self) -> Optional[int]:
+        raw = self.environ.get("CONTENT_LENGTH")
+        try:
+            return max(0, int(raw)) if raw else None
+        except ValueError:
+            return None
+
+    def header(self, name: str, default: str = "") -> str:
+        return self.environ.get(
+            "HTTP_" + name.upper().replace("-", "_"), default)
+
+    def get_data(self) -> bytes:
+        """The body (read once, then cached). Only ``Content-Length``
+        bytes are read; a declared length over the body ceiling raises
+        :class:`RequestEntityTooLarge` before any byte is read."""
+        if self._data is None:
+            n = self.content_length or 0
+            if n > _max_body_bytes():
+                raise RequestEntityTooLarge()
+            self._data = self.environ["wsgi.input"].read(n) if n else b""
+        return self._data
+
+
+class Response:
+    def __init__(self, body=b"", status: int = 200,
+                 content_type: str = "text/plain; charset=utf-8",
+                 headers: Optional[Dict[str, str]] = None) -> None:
+        self.body = body.encode() if isinstance(body, str) else bytes(body)
+        self.status_code = status
+        self.headers = {"Content-Type": content_type}
+        if headers:
+            self.headers.update(headers)
+
+    def __call__(self, environ, start_response):
+        try:
+            reason = http.HTTPStatus(self.status_code).phrase
+        except ValueError:
+            reason = "Unknown"
+        headers = dict(self.headers)
+        headers["Content-Length"] = str(len(self.body))
+        start_response(f"{self.status_code} {reason}", list(headers.items()))
+        return [self.body]
+
+
+def json_response(payload: Any, status: int = 200,
+                  headers: Optional[Dict[str, str]] = None) -> Response:
+    return Response(json.dumps(payload, separators=_JSON_SEPARATORS),
+                    status=status, content_type="application/json",
+                    headers=headers)
+
+
+class App:
+    """Route table + WSGI callable."""
+
+    def __init__(self) -> None:
+        self._routes: List[Tuple[str, str, re.Pattern, Callable]] = []
+        # Exact-match fast path: parameterless routes resolve with ONE
+        # dict lookup instead of a linear regex scan.
+        self._exact: Dict[Tuple[str, str], Tuple[Callable, str]] = {}
+        # Graceful-drain bookkeeping: handlers currently executing (the
+        # SIGTERM path waits for this to hit zero before exiting).
+        self._inflight = 0
+        self._inflight_lock = threading.Lock()
+        self._m_expired = get_registry().counter(
+            "rtpu_replica_expired_total",
+            "Requests rejected with 504: deadline already expired at "
+            "the replica edge.")
+
+    @property
+    def inflight(self) -> int:
+        with self._inflight_lock:
+            return self._inflight
+
+    def route(self, path: str, methods: Tuple[str, ...] = ("GET",)):
+        pattern = re.compile(
+            "^" + _PARAM_RE.sub(r"(?P<\1>[^/]+)", path) + "$"
+        )
+
+        def register(fn: Callable) -> Callable:
+            for m in methods:
+                self._routes.append((m.upper(), path, pattern, fn))
+                if "<" not in path:
+                    self._exact[(m.upper(), path)] = (fn, path)
+            return fn
+
+        return register
+
+    def _match(self, method: str, path: str):
+        hit = self._exact.get((method, path))
+        if hit is not None:
+            return hit[0], hit[1], {}, None
+        allowed: List[str] = []
+        for m, template, pattern, fn in self._routes:
+            match = pattern.match(path)
+            if match:
+                if m == method:
+                    return fn, template, match.groupdict(), None
+                allowed.append(m)
+        return None, None, {}, allowed
+
+    def __call__(self, environ, start_response):
+        request = Request(environ)
+        # Correlation id: honor a well-formed X-Request-ID, else mint
+        # one; bound to the logging context for the handler's duration
+        # and echoed on the response.
+        rid = request.header("X-Request-ID")
+        if not _REQUEST_ID_RE.match(rid):
+            rid = uuid.uuid4().hex[:16]
+        token = set_request_id(rid)
+        # Deadline propagation: an already-expired request is rejected
+        # with 504 here, before model or device work.
+        raw_deadline = request.header(DEADLINE_HEADER)
+        deadline_ms = parse_deadline_ms(raw_deadline) if raw_deadline else None
+        with self._inflight_lock:
+            self._inflight += 1
+        try:
+            dl_token = None
+            try:
+                if deadline_ms is not None and deadline_ms <= 0:
+                    self._m_expired.inc()
+                    response = json_response(
+                        {"error": "deadline exceeded",
+                         "deadline_ms": deadline_ms}, 504)
+                else:
+                    if deadline_ms is not None:
+                        dl_token = bind_deadline(deadline_ms)
+                    response = self._dispatch(request)
+            except Exception as e:  # last resort: one request, not the server
+                get_logger("routest_tpu_torch.serve").error(
+                    "handler_failed", path=request.path,
+                    error=f"{type(e).__name__}: {e}")
+                response = json_response(
+                    {"error": f"internal error: {e}"}, 500)
+            finally:
+                if dl_token is not None:
+                    reset_deadline(dl_token)
+                reset_request_id(token)
+            response.headers["X-Request-ID"] = rid
+            self._apply_cors(request, response)
+            return response(environ, start_response)
+        finally:
+            with self._inflight_lock:
+                self._inflight -= 1
+
+    def _dispatch(self, request: Request) -> Response:
+        if request.method == "OPTIONS":
+            return Response("", 204)
+        fn, _template, kwargs, allowed = self._match(request.method,
+                                                     request.path)
+        if fn is None:
+            if allowed:
+                return json_response({"error": "method not allowed"}, 405,
+                                     {"Allow": ", ".join(sorted(set(allowed)))})
+            return json_response({"error": "not found"}, 404)
+        try:
+            result = fn(request, **kwargs)
+        except RequestEntityTooLarge:
+            return json_response(
+                {"error": "request body too large "
+                          f"(max {_max_body_bytes() >> 20} MB)"}, 413)
+        except DeadlineExceeded:
+            # The budget ran out mid-handler (typically: the batcher
+            # dropped this request's rows at drain time).
+            self._m_expired.inc()
+            return json_response({"error": "deadline exceeded"}, 504)
+        if isinstance(result, Response):
+            return result
+        if isinstance(result, tuple):
+            payload, status = result
+            return json_response(payload, status)
+        return json_response(result)
+
+    @staticmethod
+    def _apply_cors(request: Request, response: Response) -> None:
+        origin = request.header("Origin")
+        if not origin:
+            return
+        credentialed = bool(_CREDENTIALED_ORIGIN_RE.match(origin)) or \
+            origin == os.environ.get("ROUTEST_FRONTEND_ORIGIN")
+        if not credentialed and not _PUBLIC_ORIGIN_RE.match(origin):
+            return
+        response.headers["Access-Control-Allow-Origin"] = origin
+        response.headers["Vary"] = "Origin"
+        response.headers["Access-Control-Allow-Methods"] = \
+            "GET, POST, DELETE, OPTIONS"
+        if credentialed:
+            response.headers["Access-Control-Allow-Headers"] = \
+                "Content-Type, Authorization, X-XSRF-TOKEN"
+            response.headers["Access-Control-Allow-Credentials"] = "true"
+        else:
+            response.headers["Access-Control-Allow-Headers"] = \
+                "Content-Type, Authorization"
+
+
+# (raw env value, parsed bytes): _max_body_bytes runs on every request,
+# so the int-parse is memoized on the raw string — a changed env var
+# still takes effect on the next request.
+_body_limit_memo: Tuple[Optional[str], int] = (None, 64 << 20)
+
+
+def _max_body_bytes() -> int:
+    """Request-body ceiling in bytes (``RTPU_MAX_BODY_MB``, default 64;
+    malformed or non-positive values keep the default)."""
+    global _body_limit_memo
+    raw = os.environ.get("RTPU_MAX_BODY_MB")
+    memo_raw, memo_bytes = _body_limit_memo
+    if raw == memo_raw:
+        return memo_bytes
+    try:
+        mb = int(raw)
+    except (TypeError, ValueError):
+        mb = 64
+    if mb <= 0:
+        mb = 64
+    _body_limit_memo = (raw, mb << 20)
+    return mb << 20
+
+
+_JSON_MISSING = object()
+
+
+def get_json(request: Request, silent: bool = True) -> Optional[dict]:
+    """Parse the request body as a JSON OBJECT. A syntactically valid
+    but non-object top level (``[1,2,3]``, ``"str"``, ``42``) coerces to
+    None exactly like malformed JSON, so handlers' ``or {}`` yields
+    their normal "missing field" 400s. Memoized on the request (dispatch
+    aliases such as ``/api/predict`` peek at the body, then delegate)."""
+    cached = getattr(request, "_rtpu_json", _JSON_MISSING)
+    if cached is not _JSON_MISSING:
+        return cached
+    raw = request.get_data()
+    try:
+        parsed = json.loads(raw.decode("utf-8")) if raw else None
+    except (ValueError, UnicodeDecodeError):
+        if silent:
+            request._rtpu_json = None
+            return None
+        raise
+    if not isinstance(parsed, dict):
+        parsed = None
+    request._rtpu_json = parsed
+    return parsed
+
+
+class _ThreadingWSGIServer(socketserver.ThreadingMixIn, WSGIServer):
+    daemon_threads = True
+
+
+class _QuietHandler(WSGIRequestHandler):
+    """One JSON log line per request is the app's job, not stderr's."""
+
+    def log_message(self, format, *args) -> None:  # noqa: A002
+        pass
+
+
+def make_server(app: App, host: str, port: int) -> WSGIServer:
+    """A threaded stdlib WSGI server for ``app`` (port 0 = any free
+    port; read it back from ``server.server_port``)."""
+    server = _ThreadingWSGIServer((host, port), _QuietHandler)
+    server.set_app(app)
+    return server
+
+
+def run_with_graceful_shutdown(app: App, host: str, port: int,
+                               drain_timeout_s: float = 30.0,
+                               ready_event: Optional[threading.Event] = None):
+    """Serve ``app`` until SIGTERM/SIGINT, then drain: stop accepting,
+    wait up to ``drain_timeout_s`` for in-flight handlers to finish,
+    then return. Must run on the main thread (signal handlers). Returns
+    the count of handlers still running at exit (0 = clean drain)."""
+    log = get_logger("routest_tpu_torch.serve.boot")
+    server = make_server(app, host, port)
+    stop = threading.Event()
+
+    def _on_signal(signum, frame):
+        stop.set()
+
+    previous = {sig: signal.signal(sig, _on_signal)
+                for sig in (signal.SIGTERM, signal.SIGINT)}
+
+    # shutdown() must come from a different thread than serve_forever().
+    def _stopper():
+        stop.wait()
+        server.shutdown()
+
+    threading.Thread(target=_stopper, daemon=True,
+                     name="serve-sigterm-drain").start()
+    if ready_event is not None:
+        ready_event.set()
+    try:
+        server.serve_forever()
+    finally:
+        stop.set()  # serve_forever can also end via server errors
+        server.server_close()
+        for sig, handler in previous.items():
+            signal.signal(sig, handler)
+    log.info("drain_started", inflight=app.inflight,
+             timeout_s=drain_timeout_s)
+    deadline = time.monotonic() + drain_timeout_s
+    while app.inflight > 0 and time.monotonic() < deadline:
+        time.sleep(0.05)
+    leftover = app.inflight
+    if leftover:
+        log.warning("drain_timeout", inflight=leftover)
+    else:
+        log.info("drain_finished")
+    return leftover

@@ -1,0 +1,213 @@
+"""Serving-artifact IO: the ``RTPU1`` ETA artifact, read without flax.
+
+The artifact the JAX package writes (``routest_tpu/train/checkpoint.py``
+``save_model``) is ``MAGIC`` + one JSON header line + the params pytree
+serialized by flax's msgpack. flax writes each array as msgpack ext
+type 1 whose payload is itself msgpack ``(shape, dtype_name, C-order
+bytes)``. The machine with the card has neither flax nor the ``msgpack``
+package, so this module carries a small msgpack decoder of its own
+(:func:`_unpackb`) covering what msgpack can encode, and rebuilds the
+arrays from those ext payloads bit for bit.
+
+Error texts for bad magic, format and version are the JAX package's,
+word for word.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import struct
+from typing import Any, Dict, Tuple
+
+import numpy as np
+
+MAGIC = b"RTPU1\n"
+ARTIFACT_VERSION = 2
+QUANTILE_ARTIFACT_VERSION = 3
+
+Params = Dict
+
+# flax/serialization.py ``_MsgpackExtType``.
+_EXT_NDARRAY = 1
+_EXT_NPSCALAR = 3
+
+
+def _ndarray_from_ext(data: bytes) -> np.ndarray:
+    """flax's ext payload → a numpy array with the stored bytes. bfloat16
+    leaves (numpy has no such dtype) widen exactly to float32."""
+    shape, dtype_name, buffer = _unpackb(data, raw=True)
+    name = dtype_name.decode() if isinstance(dtype_name, bytes) else dtype_name
+    if name == "bfloat16":
+        bits = np.frombuffer(buffer, dtype=np.uint16).astype(np.uint32) << 16
+        return bits.view(np.float32).reshape(shape, order="C")
+    return np.frombuffer(buffer, dtype=np.dtype(name)).reshape(
+        shape, order="C")
+
+
+class _Reader:
+    """Cursor over one msgpack buffer (the subset of the spec an
+    ``RTPU1`` artifact can contain is all of it but timestamps)."""
+
+    __slots__ = ("buf", "pos", "raw")
+
+    def __init__(self, buf: bytes, raw: bool) -> None:
+        self.buf = memoryview(buf)
+        self.pos = 0
+        self.raw = raw
+
+    def _take(self, n: int) -> bytes:
+        end = self.pos + n
+        if end > len(self.buf):
+            raise ValueError("truncated msgpack data")
+        out = bytes(self.buf[self.pos:end])
+        self.pos = end
+        return out
+
+    def _unpack(self, fmt: str):
+        return struct.unpack(fmt, self._take(struct.calcsize(fmt)))[0]
+
+    def _str(self, n: int):
+        data = self._take(n)
+        return data if self.raw else data.decode("utf-8")
+
+    def _ext(self, code: int, n: int):
+        data = self._take(n)
+        if code == _EXT_NDARRAY:
+            return _ndarray_from_ext(data)
+        if code == _EXT_NPSCALAR:
+            return _ndarray_from_ext(data)[()]
+        raise ValueError(f"unsupported msgpack ext type {code}")
+
+    def value(self) -> Any:
+        b = self._take(1)[0]
+        if b <= 0x7F:
+            return b
+        if b >= 0xE0:
+            return b - 0x100
+        if 0x80 <= b <= 0x8F:
+            return self._map(b & 0x0F)
+        if 0x90 <= b <= 0x9F:
+            return self._array(b & 0x0F)
+        if 0xA0 <= b <= 0xBF:
+            return self._str(b & 0x1F)
+        if b == 0xC0:
+            return None
+        if b == 0xC2:
+            return False
+        if b == 0xC3:
+            return True
+        if 0xC4 <= b <= 0xC6:                       # bin 8/16/32
+            return self._take(self._unpack(">" + "BHI"[b - 0xC4]))
+        if 0xC7 <= b <= 0xC9:                       # ext 8/16/32
+            n = self._unpack(">" + "BHI"[b - 0xC7])
+            return self._ext(self._unpack(">b"), n)
+        if b == 0xCA:
+            return self._unpack(">f")
+        if b == 0xCB:
+            return self._unpack(">d")
+        if 0xCC <= b <= 0xCF:                       # uint 8/16/32/64
+            return self._unpack(">" + "BHIQ"[b - 0xCC])
+        if 0xD0 <= b <= 0xD3:                       # int 8/16/32/64
+            return self._unpack(">" + "bhiq"[b - 0xD0])
+        if 0xD4 <= b <= 0xD8:                       # fixext 1/2/4/8/16
+            code = self._unpack(">b")
+            return self._ext(code, 1 << (b - 0xD4))
+        if 0xD9 <= b <= 0xDB:                       # str 8/16/32
+            return self._str(self._unpack(">" + "BHI"[b - 0xD9]))
+        if b in (0xDC, 0xDD):
+            return self._array(self._unpack(">H" if b == 0xDC else ">I"))
+        if b in (0xDE, 0xDF):
+            return self._map(self._unpack(">H" if b == 0xDE else ">I"))
+        raise ValueError(f"invalid msgpack type byte 0x{b:02x}")
+
+    def _array(self, n: int) -> list:
+        return [self.value() for _ in range(n)]
+
+    def _map(self, n: int) -> dict:
+        out = {}
+        for _ in range(n):
+            key = self.value()
+            out[key] = self.value()
+        return out
+
+
+def _unpackb(data: bytes, raw: bool = False) -> Any:
+    """Decode one msgpack object (``msgpack.unpackb`` with flax's ext
+    hook). ``raw=True`` keeps str payloads as bytes, as flax's inner
+    ndarray decode does."""
+    reader = _Reader(data, raw)
+    out = reader.value()
+    if reader.pos != len(reader.buf):
+        raise ValueError("trailing bytes after msgpack data")
+    return out
+
+
+def _read_artifact(path: str, magic: bytes, fmt: str, versions,
+                   kind: str, retrain_hint: str):
+    """Magic prefix + one-line JSON header + binary blob, with
+    format/version validation → (header, blob). Same error contract as
+    the JAX package's reader."""
+    with open(path, "rb") as f:
+        if f.read(len(magic)) != magic:
+            raise ValueError(f"{path}: not a {kind}")
+        header = json.loads(f.readline().decode())
+        blob = f.read()
+    if header.get("format") != fmt:
+        raise ValueError(f"{path}: unknown artifact format "
+                         f"{header.get('format')}")
+    if header.get("version") not in versions:
+        expected = "/".join(f"v{v}" for v in versions)
+        raise ValueError(
+            f"{path}: artifact version {header.get('version')} is "
+            f"incompatible (expects {expected}); {retrain_hint}")
+    return header, blob
+
+
+def read_params(path: str) -> Tuple[dict, Params]:
+    """→ (header, params): the artifact's header dict and its params
+    pytree as host numpy arrays (``params["layers"]`` a list of
+    ``{"w", "b"}``, ``params["norm"]`` ``{"mean", "std"}``)."""
+    header, blob = _read_artifact(
+        path, MAGIC, "routest_tpu.eta_mlp",
+        (ARTIFACT_VERSION, QUANTILE_ARTIFACT_VERSION),
+        kind="routest_tpu model artifact",
+        retrain_hint="retrain via scripts/train_eta.py")
+    if header.get("version") == QUANTILE_ARTIFACT_VERSION \
+            and not header.get("quantiles"):
+        raise ValueError(f"{path}: v{QUANTILE_ARTIFACT_VERSION} artifact "
+                         f"missing its quantiles header")
+    return header, _unpackb(blob)
+
+
+def load_model(path: str):
+    """→ (EtaMLP module on the CPU, params numpy pytree). The module is
+    built from the params by the weight carry-over
+    (``EtaMLP.from_numpy``) with the policy the header records."""
+    import dataclasses
+
+    import torch
+
+    from routest_tpu_torch.core.dtypes import DEFAULT_POLICY
+    from routest_tpu_torch.models.eta_mlp import EtaMLP
+
+    header, params = read_params(path)
+    compute = getattr(torch, header.get("compute_dtype", "bfloat16"))
+    policy = dataclasses.replace(DEFAULT_POLICY, compute_dtype=compute)
+    model = EtaMLP.from_numpy(params, hidden=tuple(header["hidden"]),
+                              quantiles=tuple(header.get("quantiles", ())),
+                              policy=policy)
+    return model, params
+
+
+def default_model_path(cfg=None) -> str:
+    """Resolution order: explicit ModelConfig.model_path (set from
+    ETA_MODEL_PATH by ``load_config``), then the env var directly, then
+    the in-repo artifact location."""
+    if cfg is not None and getattr(cfg, "model_path", None):
+        return cfg.model_path
+    return os.getenv("ETA_MODEL_PATH") or os.path.join(
+        os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+        "artifacts",
+        "eta_mlp.msgpack",
+    )
