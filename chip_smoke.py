@@ -9,25 +9,33 @@ of which fails the run:
 
 1. device: the card's name, and ``nvidia-smi``'s name and power limit;
 2. build: compile every kernel of the ETA path from ``routest_tpu_torch/
-   ops/csrc`` (into ``build/kernels/``), with the compiler's register and
-   shared-memory report;
-3. kernel vs its plain PyTorch version on the card, bf16 and f32, point
-   and quantile, at batches 0, 1, 7, 64, 4096 and 4099 of random rows
-   with unknown categories, negative distances and out-of-range hours;
+   ops/csrc`` (into ``build/kernels/``); each variant's registers and
+   spills from the compiler's report, and no spill allowed;
+3. kernel vs its plain PyTorch version on the card, bf16, int8 and f32,
+   point and quantile, at batches 0, 1, 7, 64, 4096 and 4099 of random
+   rows with unknown categories, negative distances and out-of-range
+   hours, with the batch's own tile and (tensor cores) the other one;
 4. the shipped artifacts (``artifacts/eta_mlp.msgpack`` and
-   ``eta_mlp_point.msgpack``) through the port's reader: kernel vs plain
-   version, and vs the ``EtaMLP`` module as an independent reference;
+   ``eta_mlp_point.msgpack``) through the port's reader, every variant:
+   kernel vs plain version, and vs the ``EtaMLP`` module as an
+   independent reference;
 5. serving: the port's app on a localhost port with ``EtaService`` on
    ``cuda``; ping, health, one ``/api/predict_eta``, one 4096-row
    columnar ``/api/predict_eta_batch`` and one ``items`` ``/api/predict``,
    checked for status, keys, finiteness, ``p10 <= eta <= p90``,
    agreement with the plain version, and the kernel's launch count over
-   exactly these requests;
-6. times at each serving bucket and two larger batches (CUDA events,
-   after warm-up): the kernel, the wrapper's host cost to enqueue it,
-   its plain version, and the least time the card could take
-   (``bound_ms``, from the H100 SXM's published 989 TFLOP/s bf16 and
-   3.35 TB/s).
+   exactly these requests; then one 4096-row ``/api/predict_eta_batch``
+   through an ``EtaService`` under ``RTPU_KERNEL_DTYPE=int8``, checked the
+   same way;
+6. times at each serving bucket and two larger batches, per variant: the
+   kernel's device time per launch (a CUDA graph of 20 launches, replayed,
+   timed with CUDA events), for bf16 and int8 with 16-, 32- and 64-row
+   tiles;
+   back-to-back eager launches and the wrapper's host cost to enqueue
+   one; the plain version; and the least time the card could take
+   (``bound_ms``: bytes at 3.35 TB/s or the model's operations at 989
+   TFLOP/s bf16 tensor cores, 67 TFLOP/s f32 CUDA cores — the H100 SXM
+   data sheet).
 
 The lines before the last are one ``{"kernels": [...]}`` JSON object
 and the card's name and power limit; the last line is
@@ -52,14 +60,25 @@ SERVING_BUCKETS = (8, 64, 512, 1024, 2048, 4096)
 # grows once tiles share an SM.
 SCALING_BATCHES = (8192, 16384)
 PHASE3_BATCHES = (0, 1, 7, 64, 4096, 4099)
-# (rtol, atol) per compute dtype: f32 differs from the plain version only
-# in summation order; bf16 may also flip one rounding of a hidden
-# activation — the classes of tests/test_ops_fused.py.
-TOL = {"float32": (1e-4, 1e-3), "bfloat16": (2e-2, 0.5)}
-H100_BF16_FLOPS = 989e12      # dense tensor-core peak, H100 SXM data sheet
+VARIANTS = ("bfloat16", "int8", "float32")
+# (rtol, atol) against an independent reference — the classes of
+# tests/test_ops_fused.py: f32 differs only in summation order; bf16 may
+# also flip one rounding of a hidden activation; int8 adds per-column
+# 8-bit weights.
+TOL = {"float32": (1e-4, 1e-3), "bfloat16": (2e-2, 0.5), "int8": (5e-2, 1.5)}
+# Kernel vs its plain version on the same packing: int8 dequantizes to
+# bf16 in both, so the arithmetic, and the class, is bf16's.
+PLAIN_TOL = dict(TOL, int8=TOL["bfloat16"])
+# Peak rates of the units each variant runs on (H100 SXM data sheet):
+# bf16 and int8 (dequantized to bf16) on the dense tensor cores, f32 on
+# the CUDA cores.
+PEAK_FLOPS = {"bfloat16": 989e12, "int8": 989e12, "float32": 67e12}
 H100_HBM_BYTES_S = 3.35e12
 KERNEL_SOURCE = "routest_tpu_torch/ops/csrc/fused_eta.cu"
 REPLACES = "routest_tpu/ops/fused_mlp.py:366"
+# The {"kernels": [...]} entry of each served variant.
+KERNEL_NAMES = {"bfloat16": "fused_eta_forward",
+                "int8": "fused_eta_forward_int8"}
 
 
 class PhaseError(Exception):
@@ -105,9 +124,9 @@ def random_rows(rng, n):
     return x
 
 
-def compare(got, want, dtype_name, n_q):
-    """→ (max_abs, max_rel); raises on a shape, finiteness, tolerance or
-    non-crossing failure."""
+def compare(got, want, tol, n_q):
+    """→ (max_abs, max_rel); raises on a shape, finiteness, ``(rtol,
+    atol)`` or non-crossing failure."""
     import numpy as np
 
     got = got.float().cpu().numpy()
@@ -116,7 +135,7 @@ def compare(got, want, dtype_name, n_q):
     if got.size == 0:
         return 0.0, 0.0
     check(np.isfinite(got).all(), "non-finite kernel output")
-    rtol, atol = TOL[dtype_name]
+    rtol, atol = tol
     err = np.abs(got - want)
     bad = err > atol + rtol * np.abs(want)
     check(not bad.any(), f"{int(bad.sum())} values beyond rtol {rtol} / "
@@ -151,6 +170,36 @@ def time_ms(fn, iters):
     return start.elapsed_time(stop) / iters, enqueue_ms
 
 
+def graph_ms(fn, reps=20, replays=10):
+    """→ device ms per call of ``fn``: ``reps`` calls captured in one CUDA
+    graph, replayed ``replays`` times between CUDA events. With no host
+    work between launches this is the kernel's own time (plus the
+    graph's launch gap), where back-to-back eager launches would measure
+    the wrapper's host cost whenever that is the longer of the two."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (reps * replays)
+
+
 def _request(port, method, path, body=None):
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
     try:
@@ -179,7 +228,21 @@ def phase_device():
     return name, smi_line
 
 
+# Compiled kernels by mangled-name fragment → (variant, rows per block).
+KERNEL_SYMBOLS = {"fused_eta_tc_kernelILb0ELi16E": ("bfloat16", 16),
+                  "fused_eta_tc_kernelILb1ELi16E": ("int8", 16),
+                  "fused_eta_tc_kernelILb0ELi32E": ("bfloat16", 32),
+                  "fused_eta_tc_kernelILb0ELi64E": ("bfloat16", 64),
+                  "fused_eta_tc_kernelILb1ELi32E": ("int8", 32),
+                  "fused_eta_tc_kernelILb1ELi64E": ("int8", 64),
+                  "fused_eta_f32_kernel": ("float32", 32)}
+
+
 def phase_build():
+    """Build, load, and read each compiled kernel's registers and spills
+    off ``-Xptxas -v``; a spill fails the phase."""
+    import re
+
     from routest_tpu_torch.ops import build
 
     t0 = time.perf_counter()
@@ -187,40 +250,74 @@ def phase_build():
     build.load_library()
     print(f"[build] fused_eta in {time.perf_counter() - t0:.1f} s -> "
           f"{os.path.relpath(path, ROOT)}")
+    if not report:
+        print("[build]   (library already built: no compiler report)")
+        return
+    current = None
+    seen = {}
     for line in report.splitlines():
-        if "registers" in line or "Compiling entry" in line or "spill" in line:
-            print(f"[build]   {line.strip()}")
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            current = next((v for k, v in KERNEL_SYMBOLS.items()
+                            if k in entry.group(1)), None)
+            continue
+        if current is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if spill:
+            seen.setdefault(current, {})["spills"] = (
+                int(spill.group(1)) + int(spill.group(2)))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            seen.setdefault(current, {})["registers"] = int(regs.group(1))
+    check(set(seen) == set(KERNEL_SYMBOLS.values()),
+          f"compiler report names {sorted(seen)}")
+    for (variant, tile), info in sorted(seen.items()):
+        print(f"[build]   {variant:8s} {tile}-row tile: "
+              f"{info.get('registers')} registers, "
+              f"{info.get('spills')} bytes spilled")
+        check(info.get("spills") == 0, f"{variant}/{tile} spills registers")
 
 
 def phase_random(rng):
+    """→ {variant: max abs kernel-vs-plain error}."""
     import torch
 
-    from routest_tpu_torch.ops.fused_mlp import (fused_eta_forward,
+    from routest_tpu_torch.ops.fused_mlp import (_TILES, fused_eta_forward,
                                                  fused_eta_forward_plain,
                                                  pack_eta_params)
 
+    worst = dict.fromkeys(VARIANTS, 0.0)
     for n_q in (0, 3):
         params = random_params(rng, 2 * max(1, n_q))
-        for dtype_name in ("bfloat16", "float32"):
+        for dtype_name in VARIANTS:
             packed = pack_eta_params(None, params, dtype=dtype_name,
                                      device="cuda")
-            worst = (0.0, 0.0)
+            # the batch's own tile, then (tensor cores) each tile by name
+            tiles = (None,) if dtype_name == "float32" else (None,) + _TILES
+            err_v = (0.0, 0.0)
             for b in PHASE3_BATCHES:
                 x = torch.from_numpy(random_rows(rng, b)).cuda()
-                got = fused_eta_forward(packed, x, n_q=n_q)
                 want = fused_eta_forward_plain(packed, x, n_q=n_q)
-                torch.cuda.synchronize()
-                check(tuple(got.shape) == ((b, n_q) if n_q else (b,)),
-                      f"batch {b}: shape {tuple(got.shape)}")
-                err = compare(got, want, dtype_name, n_q)
-                worst = max(worst[0], err[0]), max(worst[1], err[1])
+                for tile in tiles:
+                    got = fused_eta_forward(packed, x, n_q=n_q, tile=tile)
+                    torch.cuda.synchronize()
+                    check(tuple(got.shape) == ((b, n_q) if n_q else (b,)),
+                          f"batch {b}: shape {tuple(got.shape)}")
+                    err = compare(got, want, PLAIN_TOL[dtype_name], n_q)
+                    err_v = max(err_v[0], err[0]), max(err_v[1], err[1])
+            worst[dtype_name] = max(worst[dtype_name], err_v[0])
             print(f"[random] {dtype_name:8s} n_q={n_q} batches "
-                  f"{PHASE3_BATCHES}: max abs err {worst[0]:.3g}, max rel "
-                  f"err {worst[1]:.3g} (tol rtol/atol {TOL[dtype_name]})")
+                  f"{PHASE3_BATCHES}, tiles {tiles}: max abs err "
+                  f"{err_v[0]:.3g}, max rel err {err_v[1]:.3g} (tol "
+                  f"rtol/atol {PLAIN_TOL[dtype_name]})")
+    return worst
 
 
 def phase_artifacts(rng):
-    """→ max abs kernel-vs-plain error over the shipped artifacts."""
+    """→ {variant: max abs kernel-vs-plain error} over the shipped
+    artifacts."""
     import dataclasses
 
     import torch
@@ -231,53 +328,101 @@ def phase_artifacts(rng):
     from routest_tpu_torch.serve.ml_service import golden_batch
     from routest_tpu_torch.train.checkpoint import load_model
 
-    worst = 0.0
+    worst = dict.fromkeys(VARIANTS, 0.0)
     for name in ("eta_mlp.msgpack", "eta_mlp_point.msgpack"):
         model, params = load_model(os.path.join(ROOT, "artifacts", name))
         n_q = len(model.quantiles)
         inputs = {"golden": golden_batch(), "random4096": random_rows(rng, 4096)}
-        for dtype_name in ("bfloat16", "float32"):
+        for dtype_name in VARIANTS:
             packed = pack_eta_params(model, params, dtype=dtype_name,
                                      device="cuda")
+            # the module computes int8's reference in f32, as the JAX
+            # tests hold the int8 kernel to an f32 model
             reference = model.to("cuda")
             reference.policy = dataclasses.replace(
-                model.policy, compute_dtype=getattr(torch, dtype_name))
+                model.policy, compute_dtype=torch.float32
+                if dtype_name == "int8" else getattr(torch, dtype_name))
             for label, rows in inputs.items():
                 x = torch.from_numpy(rows).cuda()
                 got = fused_eta_forward(packed, x, n_q=n_q)
                 err = compare(got, fused_eta_forward_plain(packed, x, n_q=n_q),
-                              dtype_name, n_q)
+                              PLAIN_TOL[dtype_name], n_q)
                 with torch.no_grad():
                     ref = (reference.apply_quantiles(x) if n_q
                            else reference(x))
-                ref_err = compare(got, ref, dtype_name, n_q)
-                worst = max(worst, err[0])
+                ref_err = compare(got, ref, TOL[dtype_name], n_q)
+                worst[dtype_name] = max(worst[dtype_name], err[0])
                 print(f"[artifact] {name} {dtype_name:8s} {label:10s}: vs "
                       f"plain max abs {err[0]:.3g}; vs EtaMLP module max "
                       f"abs {ref_err[0]:.3g}")
     return worst
 
 
+class _Server:
+    """The port's app around ``svc`` on a localhost port, in a thread."""
+
+    def __init__(self, svc):
+        from routest_tpu_torch.core.config import Config
+        from routest_tpu_torch.serve.app import create_app
+        from routest_tpu_torch.serve.wsgi import make_server
+
+        self.server = make_server(create_app(Config(), eta_service=svc),
+                                  "127.0.0.1", 0)
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+        self.port = self.server.server_port
+
+    def __enter__(self):
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=30)
+
+
+def _batch_rows(batch):
+    """The ABI rows the port encodes for a columnar batch body."""
+    from routest_tpu_torch.data.features import encode_requests
+
+    pickups = [dt.datetime.fromisoformat(p) for p in batch["pickup_time"]]
+    return encode_requests(
+        weather=batch["weather"], traffic=batch["traffic"],
+        weekday=[p.weekday() for p in pickups], hour=[p.hour for p in pickups],
+        distance_km=[d / 1000.0 for d in batch["distance_m"]],
+        driver_age=[float(a) for a in batch["driver_age"]])
+
+
+def _check_batch(out, n):
+    """→ the ETA column of a 4096-row /api/predict_eta_batch answer,
+    after checking its columns, finiteness and band."""
+    import numpy as np
+
+    eta = np.asarray(out["eta_minutes_ml"], np.float64)
+    p10 = np.asarray(out["eta_minutes_ml_p10"], np.float64)
+    p90 = np.asarray(out["eta_minutes_ml_p90"], np.float64)
+    check(eta.shape == p10.shape == p90.shape == (n,)
+          and len(out["eta_completion_time_ml"]) == n, "batch columns")
+    check(np.isfinite(eta).all() and (p10 <= eta).all()
+          and (eta <= p90).all(), "batch band or finiteness")
+    return eta
+
+
 def phase_serving(rng):
-    """→ kernel launches over the served requests."""
+    """→ {variant: kernel launches over its served requests}."""
     import numpy as np
     import torch
 
-    from routest_tpu_torch.core.config import Config, ServeConfig
-    from routest_tpu_torch.data.features import encode_requests
+    from routest_tpu_torch.core.config import ServeConfig
     from routest_tpu_torch.ops.fused_mlp import (fused_eta_forward,
                                                  fused_eta_forward_plain)
-    from routest_tpu_torch.serve.app import create_app
     from routest_tpu_torch.serve.ml_service import EtaService
-    from routest_tpu_torch.serve.wsgi import make_server
 
     artifact = os.path.join(ROOT, "artifacts", "eta_mlp.msgpack")
+    os.environ.pop("RTPU_KERNEL_DTYPE", None)
     svc = EtaService(ServeConfig(), model_path=artifact, device="cuda")
     check(svc.available, f"EtaService not serving: {svc.load_error}")
-    server = make_server(create_app(Config(), eta_service=svc), "127.0.0.1", 0)
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
-    port = server.server_port
     n = 4096
     weather_pool = ["Cloudy", "Stormy", "Sunny", "Windy", "Fog"]
     traffic_pool = ["High", "Jam", "Low", "Medium", "Gridlock"]
@@ -289,7 +434,10 @@ def phase_serving(rng):
         "pickup_time": [f"2026-10-{12 + i % 7:02d}T{i % 24:02d}:15:00"
                         for i in range(n)],
     }
-    try:
+    rows = torch.from_numpy(_batch_rows(batch)).cuda()
+    launches = {}
+    with _Server(svc) as srv:
+        port = srv.port
         fused_eta_forward.launches = 0
         status, ping = _request(port, "GET", "/api/ping")
         check(status == 200 and ping.get("ok") is True, f"ping: {status}")
@@ -297,7 +445,8 @@ def phase_serving(rng):
         check(status == 200 and health["status"] == "ok",
               f"health: {status} {health}")
         scoring = health["checks"]["model"]["scoring"]
-        check(scoring["kernel"] == "cuda_fused", f"scoring: {scoring}")
+        check(scoring["kernel"] == "cuda_fused"
+              and scoring["dtype"] == "bfloat16", f"scoring: {scoring}")
         check(health["checks"]["engine"]["mesh"]["platform"] == "cuda",
               f"mesh: {health['checks']['engine']['mesh']}")
         status, one = _request(port, "POST", "/api/predict_eta", {
@@ -316,13 +465,7 @@ def phase_serving(rng):
         status, out = _request(port, "POST", "/api/predict_eta_batch", batch)
         check(status == 200 and out.get("count") == n,
               f"predict_eta_batch: {status}")
-        eta = np.asarray(out["eta_minutes_ml"], np.float64)
-        p10 = np.asarray(out["eta_minutes_ml_p10"], np.float64)
-        p90 = np.asarray(out["eta_minutes_ml_p90"], np.float64)
-        check(eta.shape == p10.shape == p90.shape == (n,)
-              and len(out["eta_completion_time_ml"]) == n, "batch columns")
-        check(np.isfinite(eta).all() and (p10 <= eta).all()
-              and (eta <= p90).all(), "batch band or finiteness")
+        eta = _check_batch(out, n)
         status, items = _request(port, "POST", "/api/predict", {"items": [
             {"summary": {"distance": 3_000}, "weather": "Sunny"},
             {"summary": {"distance": 18_000}, "traffic": "High",
@@ -331,65 +474,102 @@ def phase_serving(rng):
         check(status == 200 and items.get("count") == 3
               and all(np.isfinite(items["eta_minutes_ml"])),
               f"predict items: {status} {items}")
-        launches = fused_eta_forward.launches
-    finally:
-        server.shutdown()
-        server.server_close()
-        thread.join(timeout=30)
-    check(launches > 0, "the served requests launched no kernel")
+        launches["bfloat16"] = fused_eta_forward.launches
+    check(launches["bfloat16"] > 0, "the served requests launched no kernel")
+    # the batch answer against the plain version on the same rows
+    want = fused_eta_forward_plain(svc._packed, rows, n_q=3)[:, 1]
+    err = compare(torch.from_numpy(eta), want.double(),
+                  PLAIN_TOL["bfloat16"], 0)
+    print(f"[serving] bf16: ping/health/predict_eta/predict_eta_batch({n})/"
+          f"predict(items) ok; scoring {scoring}; launches "
+          f"{launches['bfloat16']}; batch vs plain max abs {err[0]:.3g}")
 
-    # The batch answer against the plain version on the same rows.
-    pickups = [dt.datetime.fromisoformat(p) for p in batch["pickup_time"]]
-    rows = encode_requests(
-        weather=batch["weather"], traffic=batch["traffic"],
-        weekday=[p.weekday() for p in pickups], hour=[p.hour for p in pickups],
-        distance_km=[d / 1000.0 for d in batch["distance_m"]],
-        driver_age=[float(a) for a in batch["driver_age"]])
-    want = fused_eta_forward_plain(svc._packed, torch.from_numpy(rows).cuda(),
-                                   n_q=3)[:, 1]
-    err = compare(torch.from_numpy(eta), want.double(), "bfloat16", 0)
-    print(f"[serving] ping/health/predict_eta/predict_eta_batch({n})/"
-          f"predict(items) ok; scoring {scoring}; launches {launches}; "
-          f"batch vs plain max abs {err[0]:.3g}")
+    os.environ["RTPU_KERNEL_DTYPE"] = "int8"
+    try:
+        svc8 = EtaService(ServeConfig(), model_path=artifact, device="cuda")
+    finally:
+        os.environ.pop("RTPU_KERNEL_DTYPE", None)
+    check(svc8.available, f"int8 EtaService not serving: {svc8.load_error}")
+    with _Server(svc8) as srv:
+        status, health = _request(srv.port, "GET", "/api/health")
+        scoring8 = health["checks"]["model"]["scoring"]
+        check(status == 200 and scoring8["kernel"] == "cuda_fused"
+              and scoring8["dtype"] == "int8", f"int8 scoring: {scoring8}")
+        fused_eta_forward.launches = 0
+        status, out = _request(srv.port, "POST", "/api/predict_eta_batch",
+                               batch)
+        launches["int8"] = fused_eta_forward.launches
+        check(status == 200 and out.get("count") == n,
+              f"int8 predict_eta_batch: {status}")
+        eta8 = _check_batch(out, n)
+    check(launches["int8"] > 0, "the int8 request launched no kernel")
+    want8 = fused_eta_forward_plain(svc8._packed, rows, n_q=3)[:, 1]
+    err8 = compare(torch.from_numpy(eta8), want8.double(),
+                   PLAIN_TOL["int8"], 0)
+    print(f"[serving] int8: predict_eta_batch({n}) ok; scoring {scoring8}; "
+          f"launches {launches['int8']}; batch vs plain max abs "
+          f"{err8[0]:.3g}; vs the bf16 service max abs "
+          f"{float(np.abs(eta8 - eta).max()):.3g} (not a check)")
     return launches
 
 
 def phase_times(rng):
-    """Per-bucket times for the served variant (bf16, quantile)."""
+    """Per-bucket times of every variant on the served artifact
+    (quantile): → {variant: [row per batch]}."""
     import torch
 
-    from routest_tpu_torch.ops.fused_mlp import (fused_eta_forward,
+    from routest_tpu_torch.ops.fused_mlp import (_TILES, fused_eta_forward,
                                                  fused_eta_forward_plain,
-                                                 pack_eta_params)
+                                                 pack_eta_params, tile_rows)
     from routest_tpu_torch.train.checkpoint import load_model
 
     model, params = load_model(os.path.join(ROOT, "artifacts",
                                             "eta_mlp.msgpack"))
     n_q = len(model.quantiles)
-    packed = pack_eta_params(model, params, dtype="bfloat16", device="cuda")
-    weight_bytes = sum(t.numel() * t.element_size()
-                       for t in packed["w"] + packed["b"])
-    mac = sum(w.shape[0] * w.shape[1] for w in packed["w"])
-    rows = []
-    for b in SERVING_BUCKETS + SCALING_BATCHES:
-        x = torch.from_numpy(random_rows(rng, b)).cuda()
-        iters = max(20, min(2000, 200_000 // b))
-        ms, enqueue_ms = time_ms(
-            lambda: fused_eta_forward(packed, x, n_q=n_q), iters)
-        plain_ms, _ = time_ms(
-            lambda: fused_eta_forward_plain(packed, x, n_q=n_q), iters)
-        flop_s = 2.0 * b * mac / H100_BF16_FLOPS
-        byte_s = (b * 12 * 4 + b * n_q * 4 + weight_bytes) / H100_HBM_BYTES_S
-        rows.append({"batch": b, "ms": ms, "enqueue_ms": enqueue_ms,
-                     "plain_ms": plain_ms,
-                     "bound_ms": max(flop_s, byte_s) * 1e3,
-                     "bound_by": "operations" if flop_s >= byte_s else "bytes",
-                     "serving_bucket": b in SERVING_BUCKETS})
-        print(f"[times] batch {b:5d}: kernel {ms:.4f} ms (host enqueue "
-              f"{enqueue_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
-              f"{rows[-1]['bound_ms']:.6f} ms ({rows[-1]['bound_by']})")
-    print(json.dumps({"timings": rows}))
-    return rows
+    # the model's own operations: its unpadded layers, 2 per multiply-add
+    mac = sum(layer["w"].shape[0] * layer["w"].shape[1]
+              for layer in params["layers"])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    table = {}
+    for dtype_name in VARIANTS:
+        packed = pack_eta_params(model, params, dtype=dtype_name,
+                                 device="cuda")
+        stored = [t for key in ("w", "b", "scale")
+                  for t in packed.get(key, ())]
+        weight_bytes = sum(t.numel() * t.element_size() for t in stored)
+        dims = [packed["w"][0].shape[0]] + [w.shape[1] for w in packed["w"]]
+        rows = table[dtype_name] = []
+        for b in SERVING_BUCKETS + SCALING_BATCHES:
+            x = torch.from_numpy(random_rows(rng, b)).cuda()
+            tile = (32 if dtype_name == "float32" else
+                    tile_rows(b, dims, packed["w"][0].dtype, sms))
+            tiles = (tile,) if dtype_name == "float32" else _TILES
+            by_tile = {t: graph_ms(lambda: fused_eta_forward(
+                packed, x, n_q=n_q, tile=t)) for t in tiles}
+            eager_ms, enqueue_ms = time_ms(
+                lambda: fused_eta_forward(packed, x, n_q=n_q),
+                max(20, min(500, 50_000 // b)))
+            plain_ms, _ = time_ms(
+                lambda: fused_eta_forward_plain(packed, x, n_q=n_q),
+                max(5, min(50, 20_000 // b)))
+            flop_s = 2.0 * b * mac / PEAK_FLOPS[dtype_name]
+            byte_s = (b * 12 * 4 + b * n_q * 4 + weight_bytes) / H100_HBM_BYTES_S
+            rows.append({"batch": b, "tile": tile, "ms": by_tile[tile],
+                         "ms_by_tile": by_tile, "eager_ms": eager_ms,
+                         "enqueue_ms": enqueue_ms, "plain_ms": plain_ms,
+                         "bound_ms": max(flop_s, byte_s) * 1e3,
+                         "bound_by": ("operations" if flop_s >= byte_s
+                                      else "bytes"),
+                         "serving_bucket": b in SERVING_BUCKETS})
+            r = rows[-1]
+            tiles_txt = ", ".join(f"{t}-row {ms:.5f}"
+                                  for t, ms in by_tile.items())
+            print(f"[times] {dtype_name:8s} batch {b:5d}: kernel "
+                  f"{r['ms']:.5f} ms ({tiles_txt}); eager {eager_ms:.5f} ms, "
+                  f"host enqueue {enqueue_ms:.5f} ms; plain {plain_ms:.4f} "
+                  f"ms; bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
+    print(json.dumps({"timings": table}))
+    return table
 
 
 def main() -> int:
@@ -414,26 +594,31 @@ def main() -> int:
         phase = "build"
         phase_build()
         phase = "random"
-        phase_random(rng)
+        err_random = phase_random(rng)
         phase = "artifacts"
-        max_err = phase_artifacts(rng)
+        err_artifacts = phase_artifacts(rng)
         phase = "serving"
         launches = phase_serving(rng)
         phase = "times"
-        rows = phase_times(rng)
+        table = phase_times(rng)
     except Exception as e:
         print(f"chip_smoke: phase {phase} FAILED: {type(e).__name__}: {e}",
               file=sys.stderr)
         return 1
-    # the 4096-row bucket the batch endpoint fills
-    main_row = next(r for r in rows if r["batch"] == SERVING_BUCKETS[-1])
-    print(json.dumps({"kernels": [{
-        "name": "fused_eta_forward", "route": "cuda",
-        "source": KERNEL_SOURCE, "replaces": REPLACES,
-        "launches": launches, "max_abs_err": max_err,
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": None, "batch": main_row["batch"]}]}))
+    kernels = []
+    for variant, kernel_name in KERNEL_NAMES.items():
+        # the 4096-row bucket the batch endpoint fills
+        row = next(r for r in table[variant]
+                   if r["batch"] == SERVING_BUCKETS[-1])
+        kernels.append({
+            "name": kernel_name, "route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": REPLACES, "launches": launches[variant],
+            "max_abs_err": max(err_random[variant], err_artifacts[variant]),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None, "batch": row["batch"], "tile": row["tile"],
+            "eager_ms": row["eager_ms"], "enqueue_ms": row["enqueue_ms"]})
+    print(json.dumps({"kernels": kernels}))
     print(f"{smi_line}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

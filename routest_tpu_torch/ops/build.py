@@ -26,6 +26,14 @@ BUILD_DIR = os.path.join(_REPO, "build", "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# ctypes signature of the C entry ``rtpu_fused_eta_forward``: x, out,
+# batch, weight / bias pointer arrays (f32), slab stream (bf16 / int8),
+# dims, n_layers, n_q, variant, tile, stream. A pointer or stream passed without argtypes
+# would be cut to 32 bits.
+_PTR, _I32 = ctypes.c_void_p, ctypes.c_int
+FUSED_ETA_ARGTYPES = (_PTR, _PTR, _I32, _PTR, _PTR, _PTR, _PTR, _I32, _I32,
+                      _I32, _I32, _PTR)
+
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
@@ -66,17 +74,16 @@ def build(name: str = "fused_eta") -> Tuple[str, str]:
 
 def load_library() -> ctypes.CDLL:
     """The fused-ETA kernel library, built on first call, with its
-    ``argtypes`` declared (a pointer or stream passed without them
-    would be cut to 32 bits)."""
+    ``argtypes`` declared (:data:`FUSED_ETA_ARGTYPES`)."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build("fused_eta")[0])
-            ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.rtpu_fused_eta_forward.argtypes = [
-                ptr, ptr, i32, ptr, ptr, ptr, i32, i32, i32, ptr]
-            lib.rtpu_fused_eta_forward.restype = i32
-            lib.rtpu_cuda_error_string.argtypes = [i32]
+            lib.rtpu_fused_eta_forward.argtypes = list(FUSED_ETA_ARGTYPES)
+            lib.rtpu_fused_eta_forward.restype = _I32
+            lib.rtpu_cuda_error_string.argtypes = [_I32]
             lib.rtpu_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
