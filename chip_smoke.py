@@ -29,13 +29,12 @@ of which fails the run:
    same way;
 6. times at each serving bucket and two larger batches, per variant: the
    kernel's device time per launch (a CUDA graph of 20 launches, replayed,
-   timed with CUDA events), for bf16 and int8 with 16-, 32- and 64-row
-   tiles;
-   back-to-back eager launches and the wrapper's host cost to enqueue
-   one; the plain version; and the least time the card could take
-   (``bound_ms``: bytes at 3.35 TB/s or the model's operations at 989
-   TFLOP/s bf16 tensor cores, 67 TFLOP/s f32 CUDA cores — the H100 SXM
-   data sheet).
+   timed with CUDA events), for bf16 and int8 with 16- and 32-row
+   tiles; back-to-back eager launches and the wrapper's host cost to
+   enqueue one; the plain version; and the least time the card could
+   take (``bound_ms``: the model's bytes at 3.35 TB/s or its operations
+   at 989 TFLOP/s bf16 tensor cores, 67 TFLOP/s f32 CUDA cores — the
+   H100 SXM data sheet).
 
 The lines before the last are one ``{"kernels": [...]}`` JSON object
 and the card's name and power limit; the last line is
@@ -232,15 +231,16 @@ def phase_device():
 KERNEL_SYMBOLS = {"fused_eta_tc_kernelILb0ELi16E": ("bfloat16", 16),
                   "fused_eta_tc_kernelILb1ELi16E": ("int8", 16),
                   "fused_eta_tc_kernelILb0ELi32E": ("bfloat16", 32),
-                  "fused_eta_tc_kernelILb0ELi64E": ("bfloat16", 64),
                   "fused_eta_tc_kernelILb1ELi32E": ("int8", 32),
-                  "fused_eta_tc_kernelILb1ELi64E": ("int8", 64),
                   "fused_eta_f32_kernel": ("float32", 32)}
+# Bytes of one stored weight element, per variant.
+WEIGHT_BYTES = {"bfloat16": 2, "int8": 1, "float32": 4}
 
 
 def phase_build():
     """Build, load, and read each compiled kernel's registers and spills
-    off ``-Xptxas -v``; a spill fails the phase."""
+    off ``-Xptxas -v`` (this build's, or the one kept with the library
+    when it was already built); a spill fails the phase."""
     import re
 
     from routest_tpu_torch.ops import build
@@ -250,9 +250,7 @@ def phase_build():
     build.load_library()
     print(f"[build] fused_eta in {time.perf_counter() - t0:.1f} s -> "
           f"{os.path.relpath(path, ROOT)}")
-    if not report:
-        print("[build]   (library already built: no compiler report)")
-        return
+    check("Compiling entry function" in report, "no compiler report")
     current = None
     seen = {}
     for line in report.splitlines():
@@ -526,23 +524,27 @@ def phase_times(rng):
     model, params = load_model(os.path.join(ROOT, "artifacts",
                                             "eta_mlp.msgpack"))
     n_q = len(model.quantiles)
-    # the model's own operations: its unpadded layers, 2 per multiply-add
+    # the model's own work, from its unpadded layers: 2 operations per
+    # multiply-add, one weight per multiply-add, and an f32 bias (and for
+    # int8 an f32 scale) per output column
     mac = sum(layer["w"].shape[0] * layer["w"].shape[1]
               for layer in params["layers"])
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cols = sum(layer["w"].shape[1] for layer in params["layers"])
     table = {}
     for dtype_name in VARIANTS:
         packed = pack_eta_params(model, params, dtype=dtype_name,
                                  device="cuda")
-        stored = [t for key in ("w", "b", "scale")
-                  for t in packed.get(key, ())]
-        weight_bytes = sum(t.numel() * t.element_size() for t in stored)
-        dims = [packed["w"][0].shape[0]] + [w.shape[1] for w in packed["w"]]
+        weight_bytes = (mac * WEIGHT_BYTES[dtype_name]
+                        + cols * 4 * (2 if dtype_name == "int8" else 1))
+        launch = packed["launch"]
+        if launch.slabs is not None:
+            print(f"[times] {dtype_name:8s} model bytes {weight_bytes} "
+                  f"(bound); slab stream per block {launch.slabs.numel()} B")
         rows = table[dtype_name] = []
         for b in SERVING_BUCKETS + SCALING_BATCHES:
             x = torch.from_numpy(random_rows(rng, b)).cuda()
             tile = (32 if dtype_name == "float32" else
-                    tile_rows(b, dims, packed["w"][0].dtype, sms))
+                    tile_rows(b, launch.dims, launch.dtype, launch.sms))
             tiles = (tile,) if dtype_name == "float32" else _TILES
             by_tile = {t: graph_ms(lambda: fused_eta_forward(
                 packed, x, n_q=n_q, tile=t)) for t in tiles}

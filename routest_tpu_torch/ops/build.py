@@ -54,21 +54,30 @@ def find_nvcc() -> str:
 
 def build(name: str = "fused_eta") -> Tuple[str, str]:
     """Compile ``csrc/<name>.cu`` unless its keyed library exists →
-    (library path, compiler report: ``-Xptxas -v`` register and
-    shared-memory use, empty when the library was already built)."""
+    (library path, compiler report: ``-Xptxas -v`` register, spill and
+    shared-memory use). The report is kept beside the library
+    (``….so.ptxas.txt``) and read back when the library was already
+    built."""
     src = os.path.join(_CSRC, f"{name}.cu")
     with open(src, "rb") as f:
         key = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
     lib_path = os.path.join(BUILD_DIR, f"lib{name}-{key.hexdigest()[:16]}.so")
-    if os.path.exists(lib_path):
-        return lib_path, ""
+    report_path = f"{lib_path}.ptxas.txt"
+    # the report lands before the library, so a library implies its report
+    if os.path.exists(lib_path) and os.path.exists(report_path):
+        with open(report_path) as f:
+            return lib_path, f.read()
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib_path}.tmp{os.getpid()}"
     proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
-    os.replace(tmp, lib_path)  # concurrent builders: last rename wins
+    with open(f"{report_path}.tmp{os.getpid()}", "w") as f:
+        f.write(proc.stderr)
+    # concurrent builders: last rename wins
+    os.replace(f"{report_path}.tmp{os.getpid()}", report_path)
+    os.replace(tmp, lib_path)
     return lib_path, proc.stderr
 
 

@@ -15,8 +15,8 @@
 // is one block's latency: its chain of slab copies, products, barriers and
 // epilogues. Weight traffic is not: every block streams the whole packed
 // trunk (~256 KB bf16, ~143 KB int8) from L2, where it stays resident, and
-// 64-row tiles, which halve that traffic, are slower at serving batches
-// (PERF.md). What the design does about it:
+// 64-row tiles, which halve that traffic, measured slower at every serving
+// batch (PERF.md). What the design does about it:
 //   * bf16 and int8 run every layer's product on the tensor cores with
 //     mma.sync.m16n8k16 (bf16 operands, f32 accumulators in registers), fed
 //     by ldmatrix. mma.sync rather than wgmma: it takes 16-row tiles, which
@@ -42,8 +42,8 @@
 //     stride of (width + 8) elements so ldmatrix rows fall in distinct banks.
 //     Bias and tanh-GELU run on the accumulator registers in f32 and round
 //     to bf16 once, where _kernel :274-277 does.
-//   * 16 warps per block, each owning whole 16-column pairs of a pass; 16-,
-//     32- or 64-row tiles, chosen per batch by the wrapper (tile_rows).
+//   * 16 warps per block, each owning whole 16-column pairs of a pass; 16- or
+//     32-row tiles, chosen per batch by the wrapper (tile_rows).
 //   * The f32 variant (parity/debug, never served by default) stays on a
 //     CUDA-core kernel: TF32 keeps ~3 decimal digits and cannot meet the f32
 //     class (rtol 1e-4 / atol 1e-3).
@@ -576,8 +576,8 @@ int launch(Kernel kernel, int tile, size_t smem, const float* x, float* out,
 
 // variant: 0 f32 (CUDA cores; weights and biases through w_ptrs, b_ptrs),
 // 1 bf16, 2 int8 (tensor cores; everything through the slab stream).
-// tile: rows per block of the tensor-core kernel, 16, 32 or 64 (the f32
-// kernel always takes 32).
+// tile: rows per block of the tensor-core kernel, 16 or 32 (the f32 kernel
+// always takes 32).
 extern "C" int rtpu_fused_eta_forward(const float* x, float* out, int batch,
                                       const uint64_t* w_ptrs,
                                       const uint64_t* b_ptrs,
@@ -590,7 +590,7 @@ extern "C" int rtpu_fused_eta_forward(const float* x, float* out, int batch,
       dims[0] != kK0 || dims[n_layers] < 2 * (n_q > 0 ? n_q : 1) ||
       (variant != kF32 && !tc) || (tc && slabs == nullptr) ||
       (!tc && (w_ptrs == nullptr || b_ptrs == nullptr)) ||
-      (tc && tile != 16 && tile != 32 && tile != 64))
+      (tc && tile != 16 && tile != 32))
     return (int)cudaErrorInvalidValue;
   Layers L;
   L.slabs = static_cast<const unsigned char*>(slabs);
@@ -619,9 +619,7 @@ extern "C" int rtpu_fused_eta_forward(const float* x, float* out, int batch,
     case 32: return launch(fused_eta_tc_kernel<false, 16>, 16, smem, x, out, batch, L, n_q, s);
     case 33: return launch(fused_eta_tc_kernel<true, 16>, 16, smem, x, out, batch, L, n_q, s);
     case 64: return launch(fused_eta_tc_kernel<false, 32>, 32, smem, x, out, batch, L, n_q, s);
-    case 65: return launch(fused_eta_tc_kernel<true, 32>, 32, smem, x, out, batch, L, n_q, s);
-    case 128: return launch(fused_eta_tc_kernel<false, 64>, 64, smem, x, out, batch, L, n_q, s);
-    default: return launch(fused_eta_tc_kernel<true, 64>, 64, smem, x, out, batch, L, n_q, s);
+    default: return launch(fused_eta_tc_kernel<true, 32>, 32, smem, x, out, batch, L, n_q, s);
   }
 }
 

@@ -42,7 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import os
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -76,14 +76,17 @@ _PASS_COLS = 256     # output columns one pass accumulates
 _LDW = _PASS_COLS + 8   # widest slab row: bf16 elements
 _LDQ = _PASS_COLS + 16  # widest slab row: int8 bytes
 _TILE_F32 = 32       # CUDA-core kernel: rows per block
-_TILES = (16, 32, 64)  # tensor-core kernel: rows per block it is built for
+_TILES = (16, 32)    # tensor-core kernel: rows per block it is built for
 _MAX_SMEM = 232_448  # H100: dynamic shared memory one block may use
 
 # C entry's variant codes.
 _VARIANT_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 # "w", "b" (and for int8 "scale"): tuples of tensors; "n_heads": int;
-# "launch": the cached launch arguments.
+# on the card, "launch": the kernel's arguments (:class:`_Launch`). A
+# packing is immutable: its tensors are not edited in place and its
+# entries not replaced — on the card the tensor-core kernel reads the
+# copy of the weights made when it was packed (the slab stream).
 Packed = Dict[str, object]
 
 _DTYPE_ALIASES = {
@@ -131,9 +134,9 @@ def pack_eta_params(model, params, dtype: str = None,
     int8, quantized per output column (``s = max|col|/127``, 1 for an
     all-zero column) with the f32 scales under ``"scale"``; biases are
     always f32 — they add into the f32 accumulator. ``"n_heads"`` keeps
-    the last layer's width before padding. The containers are tuples:
-    a packing is not edited in place (the launch arguments cached on it
-    by :func:`fused_eta_forward` hold its pointers).
+    the last layer's width before padding. On a CUDA device the kernel's
+    arguments are built here, once, under ``"launch"``; a packing the
+    kernel cannot take raises there.
     """
     variant = resolve_kernel_dtype(model, dtype)
     compute = torch.float32 if variant == "float32" else torch.bfloat16
@@ -178,6 +181,8 @@ def pack_eta_params(model, params, dtype: str = None,
                       "n_heads": int(params["layers"][-1]["w"].shape[1])}
     if variant == "int8":
         packed["scale"] = tuple(scales)
+    if torch.device(device).type == "cuda":
+        packed["launch"] = _launch_args(packed)
     return packed
 
 
@@ -360,67 +365,55 @@ def _slab_stream(packed: Packed) -> torch.Tensor:
     return torch.cat(parts)
 
 
-class _LaunchArgs:
-    """The C entry's per-packing arguments, built once and cached on the
-    packing (``packed["launch"]``): it lives exactly as long as the
-    packing and the tensors whose pointers it holds. The f32 kernel reads
-    the packed weights and biases through pointer arrays; the
-    tensor-core kernel reads everything from :func:`_slab_stream`."""
+class _Launch(NamedTuple):
+    """The C entry's per-packing arguments (``packed["launch"]``), built
+    once by :func:`pack_eta_params` on the card. The f32 kernel reads the
+    packed weights and biases through the pointer arrays ``c_w``/``c_b``;
+    the tensor-core kernel reads everything from ``slabs``
+    (:func:`_slab_stream`)."""
 
-    __slots__ = ("w", "b", "scale", "dims", "dtype", "device", "n_layers",
-                 "slabs", "slabs_ptr", "c_w", "c_b", "c_dims", "code",
-                 "sms", "__weakref__")
-
-    def __init__(self, packed: Packed) -> None:
-        self.dims, self.dtype = _check_packing(packed)
-        self.w, self.b = packed["w"], packed["b"]
-        self.scale = packed.get("scale")
-        self.device = self.w[0].device
-        self.sms = (torch.cuda.get_device_properties(self.device)
-                    .multi_processor_count
-                    if self.device.type == "cuda" else None)
-        self.n_layers = len(self.w)
-        self.code = _VARIANT_CODE[self.dtype]
-        self.c_dims = (ctypes.c_int * len(self.dims))(*self.dims)
-        if self.dtype == torch.float32:
-            self.slabs = self.slabs_ptr = None
-            self.c_w = (ctypes.c_uint64 * self.n_layers)(
-                *[t.data_ptr() for t in self.w])
-            self.c_b = (ctypes.c_uint64 * self.n_layers)(
-                *[t.data_ptr() for t in self.b])
-        else:
-            self.slabs = _slab_stream(packed)
-            self.slabs_ptr = self.slabs.data_ptr()
-            self.c_w = self.c_b = None
-
-    def matches(self, packed: Packed) -> bool:
-        return (self.w is packed["w"] and self.b is packed["b"]
-                and self.scale is packed.get("scale"))
+    dims: List[int]
+    dtype: torch.dtype
+    device: torch.device
+    sms: Optional[int]
+    code: int
+    c_dims: ctypes.Array
+    c_w: Optional[ctypes.Array]
+    c_b: Optional[ctypes.Array]
+    slabs: Optional[torch.Tensor]
+    slabs_ptr: Optional[int]
 
 
-def _launch_args(packed: Packed) -> _LaunchArgs:
-    """The cached :class:`_LaunchArgs` of ``packed``, rebuilt when one of
-    its tuples was replaced."""
-    args = packed.get("launch")
-    if args is None or not args.matches(packed):
-        args = _LaunchArgs(packed)
-        packed["launch"] = args
-    return args
+def _launch_args(packed: Packed) -> _Launch:
+    """Check ``packed`` (:func:`_check_packing`) → its :class:`_Launch`."""
+    dims, dtype = _check_packing(packed)
+    ws, bs = packed["w"], packed["b"]
+    device = ws[0].device
+    sms = (torch.cuda.get_device_properties(device).multi_processor_count
+           if device.type == "cuda" else None)
+    c_dims = (ctypes.c_int * len(dims))(*dims)
+    if dtype == torch.float32:
+        ptrs = ctypes.c_uint64 * len(ws)
+        return _Launch(dims, dtype, device, sms, _VARIANT_CODE[dtype], c_dims,
+                       ptrs(*[t.data_ptr() for t in ws]),
+                       ptrs(*[t.data_ptr() for t in bs]), None, None)
+    slabs = _slab_stream(packed)
+    return _Launch(dims, dtype, device, sms, _VARIANT_CODE[dtype], c_dims,
+                   None, None, slabs, slabs.data_ptr())
 
 
 def tile_rows(batch: int, dims: List[int], dtype: torch.dtype,
               sms: int) -> int:
     """Rows per block of the tensor-core kernel (the f32 kernel always
-    takes 32), as measured on the H100 (``PERF.md``): the smallest tile
-    that still gives every block an SM of its own — a block's latency is
-    the kernel's time, and a 16-row block takes ~0.8× a 32-row one —
-    and past one wave the 64-row tile, which halves the blocks (and the
-    weight copies) behind each SM; a tile that does not fit in shared
-    memory steps down."""
-    tile = next((t for t in _TILES[:-1] if batch <= t * sms), _TILES[-1])
-    while tile > _TILES[0] and _smem_bytes(dims, dtype, tile) > _MAX_SMEM:
-        tile //= 2
-    return tile
+    takes 32), as measured on the H100 (``PERF.md``): 16 while every
+    block still has an SM of its own — a block's latency is the kernel's
+    time, and a 16-row block takes ~0.8× a 32-row one — else 32, which
+    halves the blocks behind each SM; 16 wherever 32 rows do not fit in
+    shared memory."""
+    small, large = _TILES
+    if batch <= small * sms or _smem_bytes(dims, dtype, large) > _MAX_SMEM:
+        return small
+    return large
 
 
 def fused_eta_forward(packed: Packed, x: torch.Tensor, *, n_q: int = 0,
@@ -430,8 +423,9 @@ def fused_eta_forward(packed: Packed, x: torch.Tensor, *, n_q: int = 0,
 
     A CPU tensor goes through :func:`fused_eta_forward_plain`; a CUDA
     tensor through the kernel (``csrc/fused_eta.cu``), launched on the
-    current stream without synchronising. ``tile`` overrides the
-    tensor-core kernel's rows per block (16, 32 or 64; default
+    current stream without synchronising; the packing must come from
+    :func:`pack_eta_params` on the card. ``tile`` overrides the
+    tensor-core kernel's rows per block (16 or 32; default
     :func:`tile_rows`), for measuring and checking each one. An empty
     batch returns without a launch.
     ``fused_eta_forward.launches`` counts kernel launches."""
@@ -439,7 +433,10 @@ def fused_eta_forward(packed: Packed, x: torch.Tensor, *, n_q: int = 0,
         return fused_eta_forward_plain(packed, x, n_q=n_q)
     if x.device.type != "cuda":
         raise ValueError(f"no fused_eta_forward for device {x.device}")
-    args = _launch_args(packed)
+    args = packed.get("launch")
+    if args is None:
+        raise ValueError(f"x is on {x.device}; the packing was not made on "
+                         f"the card (pack_eta_params(..., device='cuda'))")
     _check_x(x)
     if x.device != args.device:
         raise ValueError(f"x is on {x.device}, the packing on {args.device}")
@@ -466,7 +463,7 @@ def fused_eta_forward(packed: Packed, x: torch.Tensor, *, n_q: int = 0,
     # Stream object on every call
     rc = lib.rtpu_fused_eta_forward(
         x.data_ptr(), out.data_ptr(), b_rows, args.c_w, args.c_b,
-        args.slabs_ptr, args.c_dims, args.n_layers, n_q, args.code, tile,
+        args.slabs_ptr, args.c_dims, len(args.dims) - 1, n_q, args.code, tile,
         torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError(

@@ -291,49 +291,52 @@ def test_launch_dims_int8_takes_scales(hidden):
 
 def test_launch_args_cached_on_their_packing():
     """The C entry's arguments (dims array, slab stream or pointer
-    arrays) are built once per packing, live on it, and die with it;
-    replacing one of its tuples rebuilds them."""
+    arrays) are built once, by ``pack_eta_params`` on the card, and live
+    on the packing (``packed["launch"]``), so they die with it. On the
+    CPU the plain version runs and nothing is built."""
     import gc
     import weakref
 
     _, params, _ = _jax_model((64, 32), (0.1, 0.5, 0.9))
     packed = tops.pack_eta_params(None, params, dtype="int8")
+    assert "launch" not in packed
     args = tops._launch_args(packed)
-    assert tops._launch_args(packed) is args and packed["launch"] is args
     assert list(args.c_dims) == args.dims == [80, 64, 32, 16]
     assert args.code == 2 and args.slabs.dtype == torch.uint8
     assert args.slabs_ptr == args.slabs.data_ptr() and args.sms is None
-    packed["b"] = tuple(b.clone() for b in packed["b"])
-    fresh = tops._launch_args(packed)
-    assert fresh is not args
+    assert args.c_w is None and args.c_b is None
+    assert torch.equal(args.slabs, tops._slab_stream(packed))
     f32 = tops.pack_eta_params(None, params, dtype="f32")
     f32_args = tops._launch_args(f32)
     assert f32_args.slabs is None and f32_args.code == 0
     assert list(f32_args.c_w) == [w.data_ptr() for w in f32["w"]]
     assert list(f32_args.c_b) == [b.data_ptr() for b in f32["b"]]
-    refs = [weakref.ref(fresh), weakref.ref(fresh.slabs),
-            weakref.ref(f32_args)]
-    del args, fresh, packed, f32_args, f32
+    packed["launch"] = args         # where pack_eta_params keeps it
+    ref = weakref.ref(args.slabs)
+    del args, packed
     gc.collect()
-    assert all(ref() is None for ref in refs)
+    assert ref() is None
+    unscaled = {k: v for k, v in f32.items()}
+    unscaled["w"] = tuple(w.to(torch.int8) for w in f32["w"])
+    with pytest.raises(ValueError, match="scale"):  # checked when built
+        tops._launch_args(unscaled)
 
 
 def test_tile_rule():
-    """The smallest tile that gives every block an SM of its own, then
-    64-row tiles, stepping down where shared memory is short."""
+    """16-row tiles while every block has an SM of its own, then 32-row
+    tiles; 16 wherever a 32-row tile does not fit in shared memory."""
     served = [80, 256, 256, 128, 16]
     for dtype in (torch.bfloat16, torch.int8):
         assert tops.tile_rows(1, served, dtype, 132) == 16
         assert tops.tile_rows(2112, served, dtype, 132) == 16
         assert tops.tile_rows(2113, served, dtype, 132) == 32
         assert tops.tile_rows(4224, served, dtype, 132) == 32
-        assert tops.tile_rows(4225, served, dtype, 132) == 64
-        assert tops.tile_rows(16384, served, dtype, 132) == 64
-        assert tops._smem_bytes(served, dtype, 64) <= tops._MAX_SMEM
-    wide = [80, 768, 16]            # a 64-row tile would not fit
-    assert tops._smem_bytes(wide, torch.bfloat16, 32) <= tops._MAX_SMEM
-    assert tops._smem_bytes(wide, torch.bfloat16, 64) > tops._MAX_SMEM
-    assert tops.tile_rows(16384, wide, torch.bfloat16, 132) == 32
+        assert tops.tile_rows(16384, served, dtype, 132) == 32
+        assert tops._smem_bytes(served, dtype, 32) <= tops._MAX_SMEM
+    wide = [80, 1536, 16]           # a 32-row tile would not fit
+    assert tops._smem_bytes(wide, torch.bfloat16, 16) <= tops._MAX_SMEM
+    assert tops._smem_bytes(wide, torch.bfloat16, 32) > tops._MAX_SMEM
+    assert tops.tile_rows(16384, wide, torch.bfloat16, 132) == 16
     assert tops.tile_rows(100, wide, torch.bfloat16, 132) == 16
 
 
@@ -345,7 +348,7 @@ def test_slab_stream_layout(dtype, hidden):
     and bias of the packing, with zero row padding, and ends exactly."""
     _, params, _ = _jax_model(hidden, (0.1, 0.5, 0.9))
     packed = tops.pack_eta_params(None, params, dtype=dtype)
-    stream = tops._launch_args(packed).slabs
+    stream = tops._slab_stream(packed)
     quant = dtype == "int8"
     elt = 1 if quant else 2
     pad = 16 if quant else 8
@@ -372,6 +375,38 @@ def test_slab_stream_layout(dtype, hidden):
                     assert torch.equal(got, b[c0:c0 + cols])
                     off += 4 * cols
     assert off == stream.numel()
+
+
+def test_build_keeps_compiler_report_beside_library(monkeypatch, tmp_path):
+    """The register/spill report of a build is kept with its library and
+    comes back when the library is already built, so a spill check holds
+    on every run, not only the one that compiled."""
+    import os
+    import stat
+    import sys
+
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        f"#!{sys.executable}\n"
+        "import sys\n"
+        "open(sys.argv[sys.argv.index('-o') + 1], 'w').write('lib')\n"
+        "sys.stderr.write(\"ptxas info    : Used 48 registers\\n\")\n")
+    fake.chmod(fake.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setattr(kbuild, "BUILD_DIR", str(tmp_path / "kernels"))
+    monkeypatch.setattr(kbuild, "find_nvcc", lambda: str(fake))
+    path, report = kbuild.build("fused_eta")
+    assert "Used 48 registers" in report
+    assert open(path).read() == "lib"
+    assert open(path + ".ptxas.txt").read() == report
+
+    def no_compiler():
+        raise AssertionError("rebuilt a library that was already built")
+
+    monkeypatch.setattr(kbuild, "find_nvcc", no_compiler)
+    assert kbuild.build("fused_eta") == (path, report)
+    os.remove(path + ".ptxas.txt")          # a library without its report
+    monkeypatch.setattr(kbuild, "find_nvcc", lambda: str(fake))
+    assert kbuild.build("fused_eta") == (path, report)
 
 
 def test_build_without_nvcc_raises_clearly(monkeypatch):
@@ -414,9 +449,10 @@ def test_kernel_source_and_flags():
     # slab rows pad by 8 bf16 / 16 int8 elements (_LDW, _LDQ at full width)
     assert "return kQuant ? cols + %d : (cols + %d) * 2;" % (
         tops._LDQ - tops._PASS_COLS, tops._LDW - tops._PASS_COLS) in text
-    for tile in tops._TILES:
-        assert "fused_eta_tc_kernel<false, %d>" % tile in text
-        assert "fused_eta_tc_kernel<true, %d>" % tile in text
+    # the tiles the kernel is instantiated for are the wrapper's
+    for quant in ("false", "true"):
+        tiles = re.findall(r"fused_eta_tc_kernel<%s, (\d+)>" % quant, text)
+        assert sorted(set(map(int, tiles))) == list(tops._TILES)
     codes = dict(re.findall(r"k(F32|Bf16|Int8) = (\d)", text))
     assert {torch.float32: int(codes["F32"]), torch.bfloat16:
             int(codes["Bf16"]), torch.int8: int(codes["Int8"])} == \
