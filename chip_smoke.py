@@ -27,7 +27,21 @@ of which fails the run:
    exactly these requests; then one 4096-row ``/api/predict_eta_batch``
    through an ``EtaService`` under ``RTPU_KERNEL_DTYPE=int8``, checked the
    same way;
-6. times at each serving bucket and two larger batches, per variant: the
+6. optimize: the port's app with route optimization on ``cuda`` (matrix,
+   greedy VRP, refiners, candidate ranking on the card; the ETA of each
+   route through the fused kernel), 20 different bodies per kind:
+   ``/api/optimize_route`` at 1, 3 and 10 stops, with ``refine`` (a
+   capacity that splits trips), ``top_k: 5`` and ``use_ml_eta``;
+   ``/api/optimize_route_batch`` with 256 ten-stop problems and
+   ``use_ml_eta``; ``/api/matrix`` at 64 points; ``/api/history`` and
+   ``/api/history/<id>`` of a route just saved. Every answer is held
+   against the same app on the CPU (orders, trips, alternatives and
+   geometry equal, distances within rtol 1e-5 plus the 0.1 rounding step,
+   ETA fields finite with ``p10 <= eta <= p90``), the fused kernel must
+   launch over the ``use_ml_eta`` requests, and each kind's median wall
+   ms, host syncs per request (torch's sync debug mode) and the CPU
+   path's median are printed;
+7. times at each serving bucket and two larger batches, per variant: the
    kernel's device time per launch (a CUDA graph of 20 launches, replayed,
    timed with CUDA events), for bf16 and int8 with 16- and 32-row
    tiles; back-to-back eager launches and the wrapper's host cost to
@@ -36,8 +50,8 @@ of which fails the run:
    at 989 TFLOP/s bf16 tensor cores, 67 TFLOP/s f32 CUDA cores — the
    H100 SXM data sheet).
 
-The lines before the last are one ``{"kernels": [...]}`` JSON object
-and the card's name and power limit; the last line is
+The lines before the last are one ``{"optimize": {...}}`` and one
+``{"kernels": [...]}`` JSON object and the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
 there is no card or a phase fails.
 """
@@ -357,15 +371,16 @@ def phase_artifacts(rng):
 
 
 class _Server:
-    """The port's app around ``svc`` on a localhost port, in a thread."""
+    """The port's app around ``svc`` on a localhost port, in a thread
+    (route optimization on ``config.serve.device``, cuda by default)."""
 
-    def __init__(self, svc):
+    def __init__(self, svc, config=None):
         from routest_tpu_torch.core.config import Config
         from routest_tpu_torch.serve.app import create_app
         from routest_tpu_torch.serve.wsgi import make_server
 
-        self.server = make_server(create_app(Config(), eta_service=svc),
-                                  "127.0.0.1", 0)
+        self.server = make_server(
+            create_app(config or Config(), eta_service=svc), "127.0.0.1", 0)
         self.thread = threading.Thread(target=self.server.serve_forever,
                                        daemon=True)
         self.port = self.server.server_port
@@ -511,6 +526,330 @@ def phase_serving(rng):
     return launches
 
 
+# Requests per kind in the optimize phase (each body different, so the
+# ETA fast lane cannot answer a repeat from its cache).
+OPT_REPS = 20
+# Requests per kind replayed under torch's sync debug mode to count host
+# syncs.
+SYNC_REPS = 3
+# Response values that are rounded distances/durations (rtol 1e-5 plus
+# the 0.1 rounding step): their key, or a matrix row of one.
+_ROUNDED_KEYS = ("distance", "duration")
+_ROUNDED_ROWS = ("distances_m[", "durations_s[")
+
+
+def _opt_point(i):
+    from routest_tpu_torch.data.locations import SEED_LOCATIONS
+
+    name, lat, lon = SEED_LOCATIONS[i]
+    return {"lat": lat, "lon": lon, "payload": 1, "name": name}
+
+
+def _opt_body(stops, rep, capacity=9999, **extra):
+    """A route from the warehouse to ``stops`` of the 20 malls, a
+    different subset for each ``rep`` (3 is prime to 20: no repeats)."""
+    from routest_tpu_torch.data.locations import SEED_LOCATIONS
+
+    body = {"source_point": {"lat": SEED_LOCATIONS[0][1],
+                             "lon": SEED_LOCATIONS[0][2]},
+            "destination_points": [_opt_point(1 + (rep + 3 * j) % 20)
+                                   for j in range(stops)],
+            "driver_details": {"driver_name": f"driver-{rep}",
+                               "vehicle_type": "car",
+                               "vehicle_capacity": capacity,
+                               "maximum_distance": 150_000.0,
+                               "driver_age": 25 + rep}}
+    body.update(extra)
+    return body
+
+
+def _opt_batch(rep):
+    """256 ten-stop problems (``MAX_BATCH_PROBLEMS``), seeded per rep."""
+    import numpy as np
+
+    rng = np.random.default_rng(1000 + rep)
+    items = []
+    for i in range(256):
+        body = _opt_body(10, 0)
+        body["destination_points"] = [
+            _opt_point(int(j)) for j in 1 + rng.permutation(20)[:10]]
+        body["driver_details"]["driver_age"] = 20 + i % 50
+        items.append(body)
+    return {"items": items, "use_ml_eta": True,
+            "context": {"weather": ["Sunny", "Cloudy", "Stormy"][rep % 3],
+                        "traffic": "High"}}
+
+
+def _opt_matrix(rep):
+    """64 points (``MAX_MATRIX_POINTS``) across Metro Manila."""
+    import numpy as np
+
+    rng = np.random.default_rng(2000 + rep)
+    return {"points": [{"lat": 14.40 + 0.26 * float(a),
+                        "lon": 120.96 + 0.14 * float(b)}
+                       for a, b in rng.random((64, 2))],
+            "vehicle_type": "truck" if rep % 2 else "car"}
+
+
+_ML = {"use_ml_eta": True, "context": {"weather": "Stormy",
+                                       "traffic": "Jam"}}
+# kind → (path, body for rep r, is a use_ml_eta request)
+OPT_KINDS = {
+    "route_1_stop": ("/api/optimize_route", lambda r: _opt_body(1, r),
+                     False),
+    "route_3_stops": ("/api/optimize_route", lambda r: _opt_body(3, r),
+                      False),
+    "route_10_stops": ("/api/optimize_route", lambda r: _opt_body(10, r),
+                       False),
+    "route_10_stops_refine": ("/api/optimize_route", lambda r: _opt_body(
+        10, r, capacity=4, refine=True), False),
+    "route_10_stops_top_k5": ("/api/optimize_route", lambda r: _opt_body(
+        10, r, top_k=5), False),
+    "route_10_stops_ml_eta": ("/api/optimize_route", lambda r: _opt_body(
+        10, r, **_ML), True),
+    "route_3_stops_ml_eta": ("/api/optimize_route", lambda r: _opt_body(
+        3, r, **_ML), True),
+    "batch_256x10_ml_eta": ("/api/optimize_route_batch", _opt_batch, True),
+    "matrix_64": ("/api/matrix", _opt_matrix, False),
+}
+
+
+def _same_answer(got, want, path=""):
+    """The card's answer against the port's CPU path: equal keys, orders,
+    trip counts, alternatives, geometry and errors; distances and
+    durations within rtol 1e-5 (plus the response's 0.1 rounding step);
+    ETA fields finite with p10 <= eta <= p90 (their values come from
+    the bf16 kernel on the card and f32 on the CPU: not compared); fresh
+    request ids; the engine tag naming each device."""
+    import math
+
+    key = path.rsplit(".", 1)[-1]
+    if isinstance(want, dict):
+        check(isinstance(got, dict) and set(got) == set(want),
+              f"{path}: keys {sorted(got)} != {sorted(want)}")
+        for k in want:
+            _same_answer(got[k], want[k], f"{path}.{k}")
+        if "eta_minutes_ml_p10" in got:
+            check(got["eta_minutes_ml_p10"] <= got["eta_minutes_ml"]
+                  <= got["eta_minutes_ml_p90"], f"{path}: ETA band")
+    elif isinstance(want, list):
+        check(isinstance(got, list) and len(got) == len(want),
+              f"{path}: length")
+        for i, (g, w) in enumerate(zip(got, want)):
+            _same_answer(g, w, f"{path}[{i}]")
+    elif key == "engine":
+        check((got, want) == ("backend:torch-cuda", "backend:torch-cpu"),
+              f"{path}: {got}")
+    elif key in ("request_id", "eta_completion_time_ml"):
+        check(isinstance(got, str) and got, f"{path}: {got!r}")
+    elif key.startswith("eta_minutes_ml"):
+        check(isinstance(got, float) and math.isfinite(got),
+              f"{path}: {got!r}")
+    elif isinstance(want, float) and (key in _ROUNDED_KEYS or any(
+            r in path for r in _ROUNDED_ROWS)):
+        check(abs(got - want) <= 1e-5 * abs(want) + 0.1 + 1e-9,
+              f"{path}: {got} vs {want}")
+    else:
+        check(got == want, f"{path}: {got!r} != {want!r}")
+
+
+def _serve_kinds(port, bodies):
+    """→ {kind: ([answers], [wall ms])}, one HTTP request per body."""
+    out = {}
+    for kind in bodies:
+        path = OPT_KINDS[kind][0]
+        answers, times = [], []
+        for body in bodies[kind]:
+            t0 = time.perf_counter()
+            status, answer = _request(port, "POST", path, body)
+            times.append((time.perf_counter() - t0) * 1e3)
+            check(status == 200, f"{kind}: HTTP {status} {answer}")
+            answers.append(answer)
+        out[kind] = (answers, times)
+    return out
+
+
+def _count_syncs(port, bodies):
+    """→ {kind: host syncs per request}, from torch's sync debug mode
+    ("warn": one warning per synchronizing CUDA call, raised on the
+    server's handler thread, recorded by the process-wide warnings
+    hook)."""
+    import warnings
+
+    import torch
+
+    per_kind = {}
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        for kind, kind_bodies in bodies.items():
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                for body in kind_bodies:
+                    status, _ = _request(port, "POST", OPT_KINDS[kind][0],
+                                         body)
+                    check(status == 200, f"{kind}: HTTP {status}")
+            n = sum("synchronizing CUDA operation" in str(w.message)
+                    for w in caught)
+            per_kind[kind] = n / len(kind_bodies)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return per_kind
+
+
+def _engine_call(kind, body, device):
+    """The engine entry point behind ``kind``'s endpoint, called
+    directly (no HTTP, no ETA, no store)."""
+    from routest_tpu_torch.optimize import engine
+
+    path = OPT_KINDS[kind][0]
+    if path == "/api/optimize_route_batch":
+        return engine.optimize_route_batch(body["items"], device=device)
+    if path == "/api/matrix":
+        return engine.travel_matrix(body, device=device)
+    return engine.optimize_route(body, device=device)
+
+
+def _engine_ms(bodies, device, new_thread=False):
+    """→ {kind: median wall ms of the engine call} on ``device``, each
+    call on this thread or (``new_thread``) on a thread of its own, as
+    the server runs each request."""
+    out = {}
+    for kind, kind_bodies in bodies.items():
+        times = []
+        for body in kind_bodies:
+            t0 = time.perf_counter()
+            if new_thread:
+                worker = threading.Thread(target=_engine_call,
+                                          args=(kind, body, device))
+                worker.start()
+                worker.join()
+            else:
+                _engine_call(kind, body, device)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[kind] = _median(times)
+    return out
+
+
+def _median(values):
+    import statistics
+
+    return statistics.median(values)
+
+
+def phase_optimize():
+    """Route optimization through the port's app on the card (matrix,
+    solve, refine, ranking and assembly on cuda; ETA through the fused
+    kernel), held against the same app on the CPU. → (records per kind,
+    kernel launches over the use_ml_eta requests)."""
+    from routest_tpu_torch.core.config import Config, ServeConfig
+    from routest_tpu_torch.ops.fused_mlp import fused_eta_forward
+    from routest_tpu_torch.serve.ml_service import EtaService
+
+    artifact = os.path.join(ROOT, "artifacts", "eta_mlp.msgpack")
+    os.environ.pop("RTPU_KERNEL_DTYPE", None)
+    # distinct bodies for the timed run, the warm-up and the sync count
+    bodies = {kind: [make(r) for r in range(OPT_REPS)]
+              for kind, (_, make, _) in OPT_KINDS.items()}
+    warm = {kind: [make(OPT_REPS)] for kind, (_, make, _) in
+            OPT_KINDS.items()}
+    sync_bodies = {kind: [make(OPT_REPS + 1 + r) for r in range(SYNC_REPS)]
+                   for kind, (_, make, _) in OPT_KINDS.items()}
+
+    cpu_svc = EtaService(ServeConfig(device="cpu"), model_path=artifact,
+                         device="cpu")
+    with _Server(cpu_svc, Config(serve=ServeConfig(device="cpu"))) as srv:
+        _serve_kinds(srv.port, warm)
+        on_cpu = _serve_kinds(srv.port, bodies)
+    engine_cpu = _engine_ms(bodies, "cpu")
+
+    svc = EtaService(ServeConfig(), model_path=artifact, device="cuda")
+    check(svc.available, f"EtaService not serving: {svc.load_error}")
+    launches = {}
+    with _Server(svc) as srv:
+        _serve_kinds(srv.port, warm)
+        on_card = {}
+        for kind in OPT_KINDS:
+            fused_eta_forward.launches = 0
+            on_card.update(_serve_kinds(srv.port, {kind: bodies[kind]}))
+            launches[kind] = fused_eta_forward.launches
+        syncs = _count_syncs(srv.port, sync_bodies)
+
+        # history: a route just saved on the card, listed and read back
+        status, fresh = _request(srv.port, "POST", "/api/optimize_route",
+                                 _opt_body(10, 2 * OPT_REPS, **_ML))
+        check(status == 200 and fresh["properties"].get("saved") is True,
+              f"optimize_route to save: {status}")
+        saved = fresh["properties"]
+        h_times, d_times = [], []
+        for _ in range(OPT_REPS):
+            t0 = time.perf_counter()
+            status, listing = _request(srv.port, "GET",
+                                       "/api/history?limit=20&engine=ml")
+            h_times.append((time.perf_counter() - t0) * 1e3)
+            check(status == 200 and 0 < len(listing["items"]) <= 20,
+                  f"history: {status}")
+            t0 = time.perf_counter()
+            status, detail = _request(srv.port, "GET",
+                                      f"/api/history/{saved['request_id']}")
+            d_times.append((time.perf_counter() - t0) * 1e3)
+            check(status == 200, f"history detail: {status}")
+        first = listing["items"][0]
+        check(first["request_id"] == saved["request_id"]
+              and first["engine"] == "ml"
+              and first["eta_minutes_ml"] == saved["eta_minutes_ml"],
+              f"history head: {first}")
+        check(detail["result"]["optimized_order"] == saved["optimized_order"]
+              and detail["request"]["id"] == saved["request_id"],
+              "history detail does not read back the saved route")
+
+    # the engine alone, on this thread and on a fresh thread per call
+    _engine_ms(warm, "cuda")
+    engine_card = _engine_ms(bodies, "cuda")
+    threaded = ("route_1_stop", "route_10_stops")
+    engine_thread = _engine_ms({k: bodies[k] for k in threaded}, "cuda",
+                               new_thread=True)
+
+    records = {}
+    for kind, (_, _, ml) in OPT_KINDS.items():
+        card_answers, card_ms = on_card[kind]
+        cpu_answers, cpu_ms = on_cpu[kind]
+        for got, want in zip(card_answers, cpu_answers):
+            _same_answer(got, want, kind)
+        records[kind] = {"requests": OPT_REPS,
+                         "median_ms": _median(card_ms),
+                         "p90_ms": sorted(card_ms)[int(0.9 * OPT_REPS) - 1],
+                         "cpu_median_ms": _median(cpu_ms),
+                         "syncs_per_request": syncs[kind],
+                         "kernel_launches": launches[kind],
+                         "engine_ms": engine_card[kind],
+                         "engine_cpu_ms": engine_cpu[kind]}
+        if kind in engine_thread:
+            records[kind]["engine_new_thread_ms"] = engine_thread[kind]
+        if ml:
+            check(launches[kind] > 0, f"{kind}: no fused kernel launch")
+    records["history_list"] = {"requests": OPT_REPS,
+                               "median_ms": _median(h_times)}
+    records["history_detail"] = {"requests": OPT_REPS,
+                                 "median_ms": _median(d_times)}
+    batch = on_card["batch_256x10_ml_eta"][0][0]
+    check(batch["count"] == 256 and all(
+        "eta_minutes_ml" in it["properties"] for it in batch["items"]),
+        "batch: an item without its ETA")
+    alts = on_card["route_10_stops_top_k5"][0][0]["properties"]
+    check(len(alts["alternatives"]) == 5, "top_k 5: alternatives")
+    for kind, r in records.items():
+        extra = ("" if "cpu_median_ms" not in r else
+                 f"; syncs/request {r['syncs_per_request']:.1f}; fused "
+                 f"launches {r['kernel_launches']}; port on the CPU "
+                 f"{r['cpu_median_ms']:.2f} ms; engine alone "
+                 f"{r['engine_ms']:.2f} ms (CPU {r['engine_cpu_ms']:.2f})")
+        print(f"[optimize] {kind:24s} cuda median {r['median_ms']:.2f} ms "
+              f"over {r['requests']}{extra}")
+    print(json.dumps({"optimize": records}))
+    return records, sum(launches[k] for k, (_, _, ml) in OPT_KINDS.items()
+                        if ml)
+
+
 def phase_times(rng):
     """Per-bucket times of every variant on the served artifact
     (quantile): → {variant: [row per batch]}."""
@@ -601,6 +940,8 @@ def main() -> int:
         err_artifacts = phase_artifacts(rng)
         phase = "serving"
         launches = phase_serving(rng)
+        phase = "optimize"
+        _, optimize_launches = phase_optimize()
         phase = "times"
         table = phase_times(rng)
     except Exception as e:
@@ -620,6 +961,9 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None, "batch": row["batch"], "tile": row["tile"],
             "eager_ms": row["eager_ms"], "enqueue_ms": row["enqueue_ms"]})
+    # the optimize path serves bf16: its launches over the use_ml_eta
+    # requests
+    kernels[0]["launches_optimize"] = optimize_launches
     print(json.dumps({"kernels": kernels}))
     print(f"{smi_line}")
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,9 @@
-"""Typed, env-layered configuration for the ETA serving path.
+"""Typed, env-layered configuration for the serving path.
 
-The fields the ETA path reads, carried over from
+The fields the port reads, carried over from
 ``routest_tpu/core/config.py`` with the same environment variable names
-and defaults (``ETA_MODEL_PATH``, ``PORT``, ``RTPU_*``), plus the
-port's own ``ROUTEST_DEVICE``.
+and defaults (``ETA_MODEL_PATH``, ``PORT``, ``RTPU_*``, ``SUPABASE_*``),
+plus the port's own ``ROUTEST_DEVICE``.
 """
 
 from __future__ import annotations
@@ -58,12 +58,33 @@ class ServeConfig:
     min_wait_ms: float = 0.0
     # Health version stamp (RENDER_GIT_COMMIT / GIT_COMMIT_SHA).
     version: Optional[str] = None
+    # History backend (SUPABASE_URL / SUPABASE_SERVICE_ROLE_KEY); unset
+    # = the in-memory store.
+    supabase_url: Optional[str] = None
+    supabase_service_key: Optional[str] = None
 
 
 @dataclasses.dataclass(frozen=True)
 class Config:
     model: ModelConfig = ModelConfig()
     serve: ServeConfig = ServeConfig()
+
+
+def resolve_device(device=None, who: str = "routest_tpu_torch"):
+    """``device`` (None → ``load_config().serve.device``, ``cuda`` by
+    default) as a ``torch.device``. Asking for the card where there is
+    none raises: nothing moves to the CPU unless the caller says so."""
+    import torch
+
+    dev = torch.device(device if device is not None
+                       else load_config().serve.device)
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"{who}: unsupported device {dev}")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{who}: CUDA is not available and no CPU was asked for "
+            f"(pass device='cpu' or set ROUTEST_DEVICE=cpu)")
+    return dev
 
 
 def load_config(env: Optional[Mapping[str, str]] = None) -> Config:
@@ -113,5 +134,7 @@ def load_config(env: Optional[Mapping[str, str]] = None) -> Config:
         adaptive_wait=env.get("RTPU_FASTLANE_ADAPTIVE", "1") != "0",
         min_wait_ms=_float("RTPU_FASTLANE_MIN_WAIT_MS", 0.0),
         version=_env(env, "RENDER_GIT_COMMIT", "GIT_COMMIT_SHA"),
+        supabase_url=env.get("SUPABASE_URL"),
+        supabase_service_key=env.get("SUPABASE_SERVICE_ROLE_KEY"),
     )
     return Config(model=model, serve=serve)

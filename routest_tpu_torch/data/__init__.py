@@ -1,1 +1,1 @@
-"""The 12-feature ETA input encoding."""
+"""The 12-feature ETA input encoding, geodesy and the seed locations."""

@@ -1,10 +1,10 @@
 """Server entry point: ``python -m routest_tpu_torch.serve``.
 
-Serves the ETA endpoints on ``RTPU_HOST``:``PORT`` (default
-127.0.0.1:5000) from the artifact at ``ETA_MODEL_PATH`` (default
-``artifacts/eta_mlp.msgpack``), scoring on the card through the fused
-kernel. ``ROUTEST_DEVICE=cpu`` serves on the CPU through the kernel's
-plain version. A missing artifact is a hard error: training a bootstrap
+Serves the ETA, route-optimization, history and locations endpoints on
+``RTPU_HOST``:``PORT`` (default 127.0.0.1:5000), scoring on the card
+through the fused kernel from the artifact at ``ETA_MODEL_PATH``
+(default ``artifacts/eta_mlp.msgpack``) and solving routes on the card.
+``ROUTEST_DEVICE=cpu`` serves on the CPU (the kernel's plain version). A missing artifact is a hard error: training a bootstrap
 model waits for the training slice. SIGTERM/SIGINT drain in-flight
 requests before exit.
 """

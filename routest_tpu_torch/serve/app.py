@@ -1,27 +1,44 @@
-"""The serving application for the ETA path, on the card.
+"""The serving application, on the card.
 
-The ETA routes of ``routest_tpu/serve/app.py::create_app`` with the same
-status codes, keys and error strings: ``POST /api/predict_eta``,
-``POST /api/predict_eta_batch`` (JSON), the ``POST /api/predict`` proxy
-alias, ``GET /api/ping`` and ``GET /api/health``. Health keeps the
-degraded-not-down contract (always HTTP 200) and reports the scoring
-path (``checks.model.scoring``) and the device (``checks.engine.mesh``).
-The route-optimization, store and bus endpoints arrive with the next
-slices.
+The routes of ``routest_tpu/serve/app.py::create_app`` that the port
+serves, with the same status codes, keys and error strings:
+
+- ETA: ``POST /api/predict_eta``, ``POST /api/predict_eta_batch``
+  (JSON), the ``POST /api/predict`` proxy alias;
+- route optimization (great-circle legs): ``POST /api/request_route``,
+  ``POST /api/optimize_route`` (with ``use_ml_eta``, then persisted),
+  ``POST /api/optimize_route_batch``, ``POST /api/matrix`` (JSON);
+- history: ``GET /api/history``, ``GET``/``DELETE /api/history/<id>``;
+- ``GET /api/locations``, ``GET /api/ping`` and ``GET /api/health``.
+
+Health keeps the degraded-not-down contract (always HTTP 200) and
+reports the scoring path (``checks.model.scoring``), the device
+(``checks.engine.mesh``) and the store (``checks.store``). The bus, SSE
+tracking, auth and the binary wire path arrive with later slices; auth
+is required by ``ROUTEST_AUTH=require``, so that setting refuses to boot
+rather than serve an ungated ``DELETE``.
 """
 
 from __future__ import annotations
 
 import datetime as dt
+import math
+import os
 import time
 from typing import Optional
 
 import numpy as np
 
 from routest_tpu_torch.core.config import Config, load_config
+from routest_tpu_torch.data.locations import locations_table
+from routest_tpu_torch.optimize.engine import (MAX_BATCH_PROBLEMS,
+                                               optimize_route,
+                                               optimize_route_batch,
+                                               travel_matrix)
 from routest_tpu_torch.serve.deadline import DeadlineExceeded
 from routest_tpu_torch.serve.ml_service import EtaService
-from routest_tpu_torch.serve.wsgi import App, get_json
+from routest_tpu_torch.serve.store import StoreUnavailable, make_store
+from routest_tpu_torch.serve.wsgi import App, Response, get_json
 from routest_tpu_torch.train.checkpoint import default_model_path
 from routest_tpu_torch.utils.logging import get_logger
 
@@ -40,13 +57,225 @@ def _obj(value) -> dict:
 
 
 def create_app(config: Optional[Config] = None,
-               eta_service: Optional[EtaService] = None) -> App:
+               eta_service: Optional[EtaService] = None,
+               store=None) -> App:
+    """The app. Route optimization runs on ``config.serve.device``;
+    ``store`` defaults to :func:`make_store` of the configured backend."""
     config = config or load_config()
+    if os.environ.get("ROUTEST_AUTH") == "require":
+        raise RuntimeError(
+            "create_app: ROUTEST_AUTH=require, but auth is not ported yet; "
+            "refusing to serve DELETE /api/history ungated")
+    store = store if store is not None else make_store(
+        config.serve.supabase_url, config.serve.supabase_service_key)
     eta = eta_service if eta_service is not None else EtaService(
         config.serve, model_path=default_model_path(config.model))
+    device = config.serve.device
     started = time.time()
     app = App()
     app.eta = eta  # for tests / introspection
+    app.store = store
+
+    # ── optimization ────────────────────────────────────────────────────
+
+    @app.route("/api/request_route", methods=("POST",))
+    def request_route(request):
+        response = optimize_route(get_json(request) or {}, device=device)
+        return response, 400 if "error" in response else 200
+
+    @app.route("/api/optimize_route", methods=("POST",))
+    def optimize_route_endpoint(request):
+        payload = get_json(request) or {}
+        result = optimize_route(payload, device=device)
+        if "error" in result:
+            return result, 400
+
+        # Optional ML ETA — computed before persisting, as the reference
+        # does (``Flaskr/routes.py:96-116``).
+        if payload.get("use_ml_eta"):
+            props = result.setdefault("properties", {}) or {}
+            summary = _obj(props.get("summary"))
+            ctx = _obj(payload.get("context"))
+            try:
+                age = float(_obj(payload.get("driver_details"))
+                            .get("driver_age", 30) or 30)
+            except (TypeError, ValueError):
+                age = 30.0
+            try:
+                distance_m = float(summary.get("distance") or 0)
+            except (TypeError, ValueError):
+                distance_m = 0.0
+            eta_min, eta_iso, eta_bands = eta.predict_eta_quantiles(
+                weather=ctx.get("weather", "Sunny"),
+                traffic=ctx.get("traffic", "Low"),
+                distance_m=distance_m,
+                pickup_time=dt.datetime.now(),
+                driver_age=age,
+            )
+            if eta_min is not None:
+                props["eta_minutes_ml"] = eta_min
+                props["eta_completion_time_ml"] = eta_iso
+                # Additive: calibrated uncertainty band when the serving
+                # model has quantile heads (point models add nothing).
+                for level, val in eta_bands.items():
+                    props[f"eta_minutes_ml_{level}"] = round(val, 4)
+
+        # Best-effort persistence: failures are logged, never fatal
+        # (``Flaskr/routes.py:118-125``).
+        try:
+            req_id = _persist(store, payload, result)
+            if req_id:
+                result.setdefault("properties", {})["request_id"] = req_id
+                result["properties"]["saved"] = True
+        except Exception as e:
+            _log.error("persist_failed", error=str(e), store=store.kind)
+        return result, 200
+
+    @app.route("/api/optimize_route_batch", methods=("POST",))
+    def optimize_route_batch_endpoint(request):
+        """``{"items": [<optimize_route bodies>], "use_ml_eta": bool}`` →
+        ``{"count": N, "items": [<Feature or {"error"}>]}``: all
+        multi-stop problems solve in one batched device program; with
+        ``use_ml_eta`` every successful route's ETA scores in one model
+        batch. Nothing here persists."""
+        body = get_json(request) or {}
+        items = body.get("items")
+        if not isinstance(items, list) or not items:
+            return {"error": "items must be a non-empty list"}, 400
+        if len(items) > MAX_BATCH_PROBLEMS:
+            return {"error": f"batch too large (max {MAX_BATCH_PROBLEMS} "
+                             f"problems)"}, 400
+        if not all(isinstance(it, dict) for it in items):
+            return {"error": "every item must be an optimize_route body"}, 400
+        results = optimize_route_batch(items, device=device)
+
+        if body.get("use_ml_eta"):
+            ok = [(i, r) for i, r in enumerate(results)
+                  if isinstance(r, dict) and "error" not in r]
+            if ok:
+                ctx = _obj(body.get("context"))
+                try:
+                    minutes, iso = eta.predict_eta_batch(
+                        weather=[ctx.get("weather", "Sunny")] * len(ok),
+                        traffic=[ctx.get("traffic", "Low")] * len(ok),
+                        distance_m=[
+                            float((r["properties"].get("summary") or {})
+                                  .get("distance") or 0) for _, r in ok],
+                        pickup_time=None,
+                        driver_age=[
+                            float((items[i].get("driver_details") or {})
+                                  .get("driver_age", 30) or 30)
+                            for i, _ in ok],
+                    )
+                except DeadlineExceeded:
+                    raise  # 504: the whole batch's budget is gone
+                except Exception as e:
+                    _log.error("batch_eta_failed", error=str(e))
+                    minutes = None
+                if minutes is not None:
+                    for (i, r), m, ts in zip(ok, minutes, iso):
+                        if math.isfinite(m):
+                            r["properties"]["eta_minutes_ml"] = round(
+                                float(m), 4)
+                            r["properties"]["eta_completion_time_ml"] = str(ts)
+        return {"count": len(items), "items": results}, 200
+
+    @app.route("/api/matrix", methods=("POST",))
+    def matrix_endpoint(request):
+        """Travel matrix: ``{"points": [{"lat","lon"}, …],
+        "sources"/"destinations": [idx], ...}`` → ``{"distances_m": S×D,
+        "durations_s": S×D}``, great-circle legs (JSON only)."""
+        result = travel_matrix(get_json(request) or {}, device=device)
+        if "error" in result:
+            return result, 400
+        return result, 200
+
+    # ── history ────────────────────────────────────────────────────────
+
+    @app.route("/api/history", methods=("GET",))
+    def history(request):
+        try:
+            limit = int(request.args.get("limit", 20))
+        except ValueError:
+            limit = 20
+        limit = max(1, min(limit, 100))
+        # Additive filter: ?engine=ml|default narrows server-side.
+        engine = request.args.get("engine")
+        if engine is not None and engine not in ("ml", "default"):
+            return {"error": "engine must be 'ml' or 'default'"}, 400
+        try:
+            rows = store.list_history(limit, engine=engine)
+        except StoreUnavailable:
+            return {"items": [], "degraded": True}, 200
+        except Exception as e:
+            return {"error": f"history fetch failed: {e}"}, 500
+
+        items = []
+        for rr in rows:
+            res = rr.get("route_results") or []
+            first = res[0] if res else {}
+            stops = rr.get("stops") or {}
+            dest_ids = stops.get("destination_ids") or []
+            items.append({
+                "request_id": rr["id"],
+                "created_at": rr.get("request_time"),
+                "origin_id": rr.get("origin_id"),
+                "dest_count": len(dest_ids),
+                "total_distance": first.get("total_distance"),
+                "total_duration": first.get("total_duration"),
+                "optimized": bool(first.get("optimized_order") or []),
+                "engine": rr.get("engine") or "default",
+                "vehicle_id": rr.get("vehicle_id"),
+                "eta_minutes_ml": first.get("eta_minutes_ml"),
+                "eta_completion_time_ml": first.get("eta_completion_time_ml"),
+            })
+        return {"items": items}, 200
+
+    @app.route("/api/history/<req_id>", methods=("GET",))
+    def history_detail(request, req_id):
+        try:
+            row = store.get_request(req_id)
+        except StoreUnavailable:
+            return {"error": "store degraded; retry later",
+                    "degraded": True}, 503
+        except Exception as e:
+            return {"error": f"history fetch failed: {e}"}, 500
+        if row is None:
+            return {"error": "not found"}, 404
+        results = row.get("route_results") or []
+        return {
+            "request": {
+                "id": row["id"],
+                "origin_id": row.get("origin_id"),
+                "stops": row.get("stops") or {},
+                "status": row.get("status"),
+                "request_time": row.get("request_time"),
+                "engine": row.get("engine") or "default",
+                "vehicle_id": row.get("vehicle_id"),
+                "driver_age": row.get("driver_age"),
+            },
+            "result": results[0] if results else None,
+        }, 200
+
+    @app.route("/api/history/<req_id>", methods=("DELETE",))
+    def delete_history(request, req_id):
+        try:
+            deleted = store.delete_request(req_id)
+        except StoreUnavailable:
+            return {"error": "store degraded; retry later",
+                    "degraded": True}, 503
+        except Exception as e:
+            return {"error": f"delete failed: {e}"}, 500
+        if not deleted:
+            return {"error": "not found"}, 404
+        return Response("", 204)
+
+    @app.route("/api/locations", methods=("GET",))
+    def locations(request):
+        # Laravel parity (``routes/api.php:7-9``): plain array of rows.
+        return locations_table(), 200
+
+    # ── prediction ─────────────────────────────────────────────────────
 
     @app.route("/api/predict_eta", methods=("POST",))
     def predict_eta(request):
@@ -195,6 +424,11 @@ def create_app(config: Optional[Config] = None,
 
     @app.route("/api/health", methods=("GET",))
     def health(request):
+        t0 = time.time()
+        store_ok = store.ping()
+        store_res = {"status": "ok" if store_ok else "error",
+                     "latency_ms": int((time.time() - t0) * 1000),
+                     "backend": store.kind}
         engine_res = {"status": "ok", "latency_ms": 0,
                       "engine": f"torch-{eta.device.type}",
                       "mesh": eta.mesh_info()}
@@ -203,11 +437,13 @@ def create_app(config: Optional[Config] = None,
                      "fingerprint": eta.fingerprint,
                      "scoring": eta.scoring_info(),
                      **({"error": eta.load_error} if eta.load_error else {})}
-        overall = "ok" if model_res["status"] == "ok" else "degraded"
+        overall = ("ok" if model_res["status"] == "ok"
+                   and store_res["status"] == "ok" else "degraded")
         return {
             "backend": True,
             "checks": {
                 "engine": engine_res,
+                "store": store_res,
                 "model": model_res,
                 "device": {"batcher": eta.stats,
                            "uptime_s": int(time.time() - started)},
@@ -217,3 +453,35 @@ def create_app(config: Optional[Config] = None,
         }, 200  # always 200: degraded-not-down
 
     return app
+
+
+def _persist(store, payload: dict, feature: dict) -> Optional[str]:
+    """Write request+result rows (``Flaskr/routes.py:134-182`` shape)."""
+    meta = payload.get("meta") or {}
+    driver = payload.get("driver_details") or {}
+    req_row = {
+        "origin_id": meta.get("origin_id"),
+        "stops": {
+            "destination_ids": meta.get("destination_ids") or [],
+            "destination_points": payload.get("destination_points") or [],
+        },
+        "status": "completed",
+        "engine": "ml" if payload.get("use_ml_eta") else "default",
+        "vehicle_id": driver.get("driver_name"),
+        "driver_age": driver.get("driver_age"),
+    }
+    request_id = store.insert_request(req_row)
+
+    props = (feature or {}).get("properties", {}) or {}
+    summary = props.get("summary", {}) or {}
+    store.insert_result({
+        "request_id": request_id,
+        "total_distance": float(summary.get("distance") or 0),
+        "total_duration": float(summary.get("duration") or 0),
+        "optimized_order": props.get("optimized_order") or [],
+        "legs": props.get("segments", []) or [],
+        "geometry": feature.get("geometry") or None,
+        "eta_minutes_ml": props.get("eta_minutes_ml"),
+        "eta_completion_time_ml": props.get("eta_completion_time_ml"),
+    })
+    return request_id

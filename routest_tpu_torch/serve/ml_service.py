@@ -30,7 +30,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from routest_tpu_torch.core.config import ServeConfig
+from routest_tpu_torch.core.config import ServeConfig, resolve_device
 from routest_tpu_torch.core.dtypes import backend_compute_policy
 from routest_tpu_torch.data.features import encode_requests
 from routest_tpu_torch.obs import get_registry
@@ -557,13 +557,7 @@ class EtaService:
         cfg = cfg or ServeConfig()
         self._t_construct = time.perf_counter()
         self._cfg = cfg
-        self.device = torch.device(device or cfg.device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "EtaService: CUDA is not available and no CPU was asked "
-                "for (pass device='cpu' or set ROUTEST_DEVICE=cpu)")
-        if self.device.type not in ("cuda", "cpu"):
-            raise ValueError(f"EtaService: unsupported device {self.device}")
+        self.device = resolve_device(device or cfg.device, "EtaService")
         self._model = None
         self._params = None
         self._packed = None

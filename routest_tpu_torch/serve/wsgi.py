@@ -23,6 +23,7 @@ import threading
 import time
 import uuid
 from typing import Any, Callable, Dict, List, Optional, Tuple
+from urllib.parse import parse_qsl
 from wsgiref.simple_server import WSGIRequestHandler, WSGIServer
 
 from routest_tpu_torch.obs import get_registry
@@ -65,6 +66,12 @@ class Request:
         self.method = environ.get("REQUEST_METHOD", "GET").upper()
         self.path = environ.get("PATH_INFO", "") or "/"
         self._data: Optional[bytes] = None
+        # The parsed query string, first value per name (what werkzeug's
+        # ``request.args.get`` returns).
+        self.args: Dict[str, str] = {}
+        for name, value in parse_qsl(environ.get("QUERY_STRING", ""),
+                                     keep_blank_values=True):
+            self.args.setdefault(name, value)
 
     @property
     def content_length(self) -> Optional[int]:

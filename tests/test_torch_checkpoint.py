@@ -119,8 +119,9 @@ def test_default_model_path(monkeypatch):
 
 
 def test_import_isolation_subprocess():
-    """The port, its app and its artifact reader load with jax, flax,
-    msgpack, werkzeug and the JAX package all unimportable."""
+    """The port, its app, its route-optimization modules and its artifact
+    reader load with jax, flax, msgpack, werkzeug and the JAX package all
+    unimportable."""
     code = f"""
 import sys
 for m in ("jax", "flax", "msgpack", "werkzeug", "routest_tpu"):
@@ -130,6 +131,10 @@ import routest_tpu_torch
 import routest_tpu_torch.serve.app
 import routest_tpu_torch.serve.__main__
 import routest_tpu_torch.ops.build
+import routest_tpu_torch.core.prng
+import routest_tpu_torch.optimize.engine
+import routest_tpu_torch.optimize.ranking
+import routest_tpu_torch.serve.store
 from routest_tpu_torch.train.checkpoint import load_model
 model, params = load_model({os.path.join(REPO, "artifacts", "eta_mlp.msgpack")!r})
 assert model.quantiles == (0.1, 0.5, 0.9), model.quantiles
