@@ -41,7 +41,21 @@ of which fails the run:
    launch over the ``use_ml_eta`` requests, and each kind's median wall
    ms, host syncs per request (torch's sync debug mode) and the CPU
    path's median are printed;
-7. times at each serving bucket and two larger batches, per variant: the
+7. road: ``road_graph: true`` through the port's app on ``cuda`` against
+   the same app on the CPU, default deployment (generated 2048-node
+   graph, road GNN, route transformer — both asserted live): 20 bodies
+   per kind of ``/api/optimize_route`` at 1, 3 and 10 stops, with
+   ``refine`` (capacity 4), ``top_k: 5`` and ``use_ml_eta``,
+   ``/api/matrix`` at 64 points, and 3 of ``/api/optimize_route_batch``
+   with 256 ten-stop problems and ``use_ml_eta``; orders, trips,
+   alternatives, polylines and distances equal, durations within the
+   bf16 class; solves bitwise and GNN edge times within the bf16 class
+   against the CPU router; then the Manila arterials extract with its
+   GNN (``ROAD_GRAPH_OSM``/``ROAD_GNN_PATH``) at 5 bodies per kind;
+   solve ms per source bucket, sweeps and syncs per solve, GNN and
+   transformer forward ms, and the flat solve on the 8192-node metro
+   extract as a record;
+8. times at each serving bucket and two larger batches, per variant: the
    kernel's device time per launch (a CUDA graph of 20 launches, replayed,
    timed with CUDA events), for bf16 and int8 with 16- and 32-row
    tiles; back-to-back eager launches and the wrapper's host cost to
@@ -50,8 +64,9 @@ of which fails the run:
    at 989 TFLOP/s bf16 tensor cores, 67 TFLOP/s f32 CUDA cores — the
    H100 SXM data sheet).
 
-The lines before the last are one ``{"optimize": {...}}`` and one
-``{"kernels": [...]}`` JSON object and the card's name and power limit; the last line is
+The lines before the last are one ``{"optimize": {...}}``, one
+``{"road": {...}}`` and one ``{"kernels": [...]}`` JSON object and the
+card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
 there is no card or a phase fails.
 """
@@ -653,11 +668,15 @@ def _same_answer(got, want, path=""):
         check(got == want, f"{path}: {got!r} != {want!r}")
 
 
+def _kind_path(kind):
+    return (OPT_KINDS.get(kind) or ROAD_KINDS[kind])[0]
+
+
 def _serve_kinds(port, bodies):
     """→ {kind: ([answers], [wall ms])}, one HTTP request per body."""
     out = {}
     for kind in bodies:
-        path = OPT_KINDS[kind][0]
+        path = _kind_path(kind)
         answers, times = [], []
         for body in bodies[kind]:
             t0 = time.perf_counter()
@@ -685,7 +704,7 @@ def _count_syncs(port, bodies):
             with warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
                 for body in kind_bodies:
-                    status, _ = _request(port, "POST", OPT_KINDS[kind][0],
+                    status, _ = _request(port, "POST", _kind_path(kind),
                                          body)
                     check(status == 200, f"{kind}: HTTP {status}")
             n = sum("synchronizing CUDA operation" in str(w.message)
@@ -701,7 +720,7 @@ def _engine_call(kind, body, device):
     directly (no HTTP, no ETA, no store)."""
     from routest_tpu_torch.optimize import engine
 
-    path = OPT_KINDS[kind][0]
+    path = _kind_path(kind)
     if path == "/api/optimize_route_batch":
         return engine.optimize_route_batch(body["items"], device=device)
     if path == "/api/matrix":
@@ -850,6 +869,370 @@ def phase_optimize():
                         if ml)
 
 
+# Requests per road kind (each body different; the batch, 256 ten-stop
+# problems, takes seconds on the CPU path, so it repeats less).
+ROAD_REPS = 20
+ROAD_BATCH_REPS = 3
+# Requests per kind through the real-data deployment.
+MANILA_REPS = 5
+# Source-row buckets of the solve timings (a 1-stop route solves 2 rows,
+# the 64-point matrix 64 → its 32-row batcher chunks, a 10-stop route 11
+# → 16).
+SOLVE_BUCKETS = (2, 16, 32)
+# Card vs CPU path: durations (GNN in bf16 on the card, f32 on the CPU)
+# within the bf16 class plus the response's 0.1 rounding step.
+ROAD_DURATION_RTOL = 2e-2
+MANILA_OSM = "artifacts/manila_arterials.osm.gz"
+MANILA_GNN = "artifacts/road_gnn_manila.msgpack"
+METRO_OSM = "artifacts/metro_8192.osm.gz"
+
+
+def _road_body(stops, rep, shift=0, capacity=9999, **extra):
+    """A road-graph route: ``_opt_body``'s stops, priced at a pickup
+    hour that moves with ``rep`` (so the GNN prices new hours on the
+    card as requests arrive). Kinds with the same stops take different
+    ``shift``s of the hour, so no kind is answered from another's
+    solved routes in the route cache (its key holds the hour)."""
+    body = _opt_body(stops, rep, capacity, **extra)
+    body.update(road_graph=True, pickup_time=(
+        f"2026-10-14T{(6 + rep + shift) % 24:02d}:30:00"))
+    return body
+
+
+def _road_batch(rep):
+    body = _opt_batch(rep)
+    for item in body["items"]:
+        item.update(road_graph=True, pickup_time="2026-10-14T08:30:00")
+    return body
+
+
+def _road_matrix(rep):
+    body = _opt_matrix(rep)
+    body.update(road_graph=True,
+                pickup_time=f"2026-10-14T{(7 + rep) % 24:02d}:00:00")
+    return body
+
+
+# kind → (path, body for rep r, is a use_ml_eta request)
+ROAD_KINDS = {
+    "road_1_stop": ("/api/optimize_route", lambda r: _road_body(1, r),
+                    False),
+    "road_3_stops": ("/api/optimize_route", lambda r: _road_body(3, r),
+                     False),
+    "road_10_stops": ("/api/optimize_route", lambda r: _road_body(10, r),
+                      False),
+    "road_10_stops_refine": ("/api/optimize_route", lambda r: _road_body(
+        10, r, 1, capacity=4, refine=True), False),
+    "road_10_stops_top_k5": ("/api/optimize_route", lambda r: _road_body(
+        10, r, 2, top_k=5), False),
+    "road_10_stops_ml_eta": ("/api/optimize_route", lambda r: _road_body(
+        10, r, 3, **_ML), True),
+    "road_matrix_64": ("/api/matrix", _road_matrix, False),
+    "road_batch_256x10_ml_eta": ("/api/optimize_route_batch", _road_batch,
+                                 True),
+}
+MANILA_KINDS = ("road_10_stops", "road_10_stops_ml_eta", "road_matrix_64")
+
+
+def _same_road(got, want, path=""):
+    """A road answer on the card against the CPU path: equal keys,
+    orders, trips, alternatives' orders, geometry (polyline node
+    coordinates), ``distance`` fields, matrix distances, errors and
+    ``leg_cost_model``; durations within the bf16 class plus the 0.1
+    rounding step; ETA fields finite with p10 <= eta <= p90; fresh
+    request ids; the engine tag naming each device."""
+    import math
+
+    key = path.rsplit(".", 1)[-1]
+    if isinstance(want, dict):
+        check(isinstance(got, dict) and set(got) == set(want),
+              f"{path}: keys {sorted(got)} != {sorted(want)}")
+        for k in want:
+            _same_road(got[k], want[k], f"{path}.{k}")
+        if "eta_minutes_ml_p10" in got:
+            check(got["eta_minutes_ml_p10"] <= got["eta_minutes_ml"]
+                  <= got["eta_minutes_ml_p90"], f"{path}: ETA band")
+    elif isinstance(want, list):
+        check(isinstance(got, list) and len(got) == len(want),
+              f"{path}: length")
+        for i, (g, w) in enumerate(zip(got, want)):
+            _same_road(g, w, f"{path}[{i}]")
+    elif key == "engine":
+        check((got, want) == ("backend:torch-cuda", "backend:torch-cpu"),
+              f"{path}: {got}")
+    elif key in ("request_id", "eta_completion_time_ml"):
+        check(isinstance(got, str) and got, f"{path}: {got!r}")
+    elif key.startswith("eta_minutes_ml"):
+        check(isinstance(got, float) and math.isfinite(got),
+              f"{path}: {got!r}")
+    elif want is not None and (key == "duration" or "durations_s[" in path):
+        check(abs(got - want) <= ROAD_DURATION_RTOL * abs(want) + 0.1 + 1e-9,
+              f"{path}: {got} vs {want}")
+    else:
+        check(got == want, f"{path}: {got!r} != {want!r}")
+
+
+def _relax_counts():
+    from routest_tpu_torch.optimize.hierarchy import relax_from
+
+    return relax_from.calls, relax_from.sweeps, relax_from.checks
+
+
+def _hold_router(card, cpu, label, rng):
+    """The card router's solve against the CPU router's (distances and
+    predecessors bitwise) and its GNN edge times (bf16 class) → the
+    edge times' max relative error."""
+    import numpy as np
+
+    check(card.leg_cost_model == cpu.leg_cost_model == "gnn",
+          f"{label}: leg pricer {card.leg_cost_model}/{cpu.leg_cost_model}")
+    for n_src in (1, 11, 32, 64):
+        sources = rng.integers(0, card.n_nodes, n_src)
+        cd, cp = card.shortest(sources)
+        wd, wp = cpu.shortest(sources)
+        check(cd.tobytes() == wd.tobytes() and cp.tobytes() == wp.tobytes(),
+              f"{label}: {n_src}-source solve differs from the CPU path")
+    worst = 0.0
+    for hour in (3, 8, 17):
+        got, want = card.edge_time_s(hour), cpu.edge_time_s(hour)
+        err = np.abs(got - want)
+        check(bool((err <= 2e-2 * np.abs(want) + 0.5).all()),
+              f"{label}: GNN edge times beyond the bf16 class at {hour}h")
+        worst = max(worst, float((err / np.abs(want)).max()))
+    print(f"[road] {label}: {card.n_nodes} nodes, {len(card.senders)} edges;"
+          f" solves at 1/11/32/64 sources bitwise the CPU path's; GNN edge "
+          f"times max rel err {worst:.3g}")
+    return worst
+
+
+def _serve_road(kinds, reps, label):
+    """Each kind's bodies through an app on the CPU, then on the card;
+    → (records per kind, fused launches over the use_ml_eta kinds)."""
+    from routest_tpu_torch.core.config import Config, ServeConfig
+    from routest_tpu_torch.ops.fused_mlp import fused_eta_forward
+    from routest_tpu_torch.serve.ml_service import EtaService
+
+    artifact = os.path.join(ROOT, "artifacts", "eta_mlp.msgpack")
+    n = {k: reps.get(k, reps["default"]) for k in kinds}
+    bodies = {k: [ROAD_KINDS[k][1](r) for r in range(n[k])] for k in kinds}
+    warm = {k: [ROAD_KINDS[k][1](n[k])] for k in kinds}
+    sync_bodies = {k: [ROAD_KINDS[k][1](n[k] + 1 + r)
+                       for r in range(min(SYNC_REPS, n[k]))] for k in kinds}
+    # the engine timed alone on bodies of its own, so that it solves
+    # rather than reading the routes the requests above cached
+    engine_bodies = {k: [ROAD_KINDS[k][1](n[k] + 1 + SYNC_REPS + r)
+                         for r in range(n[k])] for k in kinds}
+
+    cpu_svc = EtaService(ServeConfig(device="cpu"), model_path=artifact,
+                         device="cpu")
+    with _Server(cpu_svc, Config(serve=ServeConfig(device="cpu"))) as srv:
+        _serve_kinds(srv.port, warm)
+        on_cpu = _serve_kinds(srv.port, bodies)
+
+    svc = EtaService(ServeConfig(), model_path=artifact, device="cuda")
+    check(svc.available, f"EtaService not serving: {svc.load_error}")
+    on_card, launches, relax = {}, {}, {}
+    with _Server(svc) as srv:
+        _serve_kinds(srv.port, warm)
+        for kind in kinds:
+            fused_eta_forward.launches = 0
+            before = _relax_counts()
+            on_card.update(_serve_kinds(srv.port, {kind: bodies[kind]}))
+            launches[kind] = fused_eta_forward.launches
+            relax[kind] = [a - b for a, b in zip(_relax_counts(), before)]
+        syncs = _count_syncs(srv.port, sync_bodies)
+        status, health = _request(srv.port, "GET", "/api/health")
+        block = health["checks"]["engine"].get("road_router") or {}
+        check(status == 200 and block.get("leg_cost_model") == "gnn",
+              f"{label}: health road_router {block}")
+    engine_card = _engine_ms(engine_bodies, "cuda")
+
+    records = {}
+    for kind in kinds:
+        for got, want in zip(on_card[kind][0], on_cpu[kind][0]):
+            _same_road(got, want, kind)
+        card_ms, cpu_ms = on_card[kind][1], on_cpu[kind][1]
+        solves, sweeps, checks = relax[kind]
+        records[kind] = {
+            "requests": n[kind], "median_ms": _median(card_ms),
+            "p90_ms": sorted(card_ms)[max(0, int(0.9 * n[kind]) - 1)],
+            "engine_ms": engine_card[kind],
+            "cpu_median_ms": _median(cpu_ms),
+            "syncs_per_request": syncs[kind],
+            "solves_per_request": solves / n[kind],
+            "sweeps_per_solve": sweeps / max(solves, 1),
+            "checks_per_solve": checks / max(solves, 1),
+            "fused_launches": launches[kind]}
+        if ROAD_KINDS[kind][2]:
+            check(launches[kind] > 0, f"{label} {kind}: no fused launch")
+        if kind == "road_10_stops_top_k5":
+            check(all(len(a["properties"]["alternatives"]) == 5
+                      for a in on_card[kind][0]), "top_k 5: alternatives")
+        if ROAD_KINDS[kind][0] == "/api/optimize_route":
+            check(all(a["properties"]["leg_cost_model"] in ("transformer",
+                                                             "gnn")
+                      for a in on_card[kind][0]), f"{kind}: leg pricer")
+        r = records[kind]
+        print(f"[road] {label} {kind:26s} cuda median {r['median_ms']:.2f} "
+              f"ms (p90 {r['p90_ms']:.2f}) over {n[kind]}; engine "
+              f"{r['engine_ms']:.2f} ms; syncs/request "
+              f"{r['syncs_per_request']:.1f}; solves/request "
+              f"{r['solves_per_request']:.2f}, sweeps/solve "
+              f"{r['sweeps_per_solve']:.1f}; fused launches "
+              f"{r['fused_launches']}; port on the CPU "
+              f"{r['cpu_median_ms']:.2f} ms")
+    fused = sum(launches[k] for k in kinds if ROAD_KINDS[k][2])
+    return records, fused
+
+
+def _cuda_ms(fn, reps=20):
+    """Median wall ms of ``fn`` on the card, synchronized per call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return _median(times)
+
+
+def _solve_record(router, sources, reps):
+    """→ {ms, sweeps, syncs} of one ``_solve_rows`` at ``sources`` (syncs:
+    the sweep loop's checks plus the one fetch)."""
+    def solve():
+        router._solve_rows(sources)
+
+    on_card = router.device.type == "cuda"
+    if on_card:
+        ms = _cuda_ms(solve, reps)
+    else:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            solve()
+        ms = (time.perf_counter() - t0) * 1e3 / reps
+    before = _relax_counts()
+    solve()
+    calls, sweeps, checks = [a - b for a, b in zip(_relax_counts(), before)]
+    return {"ms": ms, "sweeps": sweeps, "syncs": checks + 1, "solves": calls}
+
+
+def phase_road():
+    """Street-network routing on the card (``road_graph: true``): the
+    default deployment (generated 2048-node graph, road GNN, route
+    transformer) and the real-data one (Manila arterials extract with
+    its GNN), each held against the same deployment on the CPU path;
+    solve, GNN and transformer timings; the flat solve on the 8192-node
+    metro extract as a record. → (record, fused launches)."""
+    import numpy as np
+    import torch
+
+    from routest_tpu_torch.data.osm import load_osm
+    from routest_tpu_torch.models.gnn import N_EDGE_FEATURES
+    from routest_tpu_torch.optimize import road_router
+
+    rng = np.random.default_rng(4)
+    for var in ("ROAD_GRAPH_OSM", "ROAD_GNN_PATH", "ROUTE_TRANSFORMER_PATH"):
+        os.environ.pop(var, None)
+    t0 = time.perf_counter()
+    card = road_router.default_router("cuda")
+    build_s = time.perf_counter() - t0
+    check(card.leg_cost_model == "gnn" and card.has_transformer,
+          f"default router: {card.leg_cost_model}, transformer "
+          f"{card.has_transformer}")
+    cpu = road_router.default_router("cpu")
+    gnn_err = {"default": _hold_router(card, cpu, "default", rng)}
+
+    kinds, fused = _serve_road(tuple(ROAD_KINDS),
+                               {"default": ROAD_REPS,
+                                "road_batch_256x10_ml_eta": ROAD_BATCH_REPS},
+                               "default")
+    check(card.leg_cost_model == "gnn" and card.has_transformer,
+          "the default router dropped a learned pricer while serving")
+    batch_solves = kinds["road_batch_256x10_ml_eta"]["solves_per_request"]
+    check(batch_solves > 1, "the 2816-row batch did not split into groups")
+
+    solve_ms = {}
+    for bucket in SOLVE_BUCKETS:
+        sources = rng.integers(0, card.n_nodes, bucket)
+        solve_ms[bucket] = {"cuda": _solve_record(card, sources, 20),
+                            "cpu": _solve_record(cpu, sources, 5)}
+        c, h = solve_ms[bucket]["cuda"], solve_ms[bucket]["cpu"]
+        print(f"[road] solve {bucket:2d} sources: cuda {c['ms']:.3f} ms, "
+              f"{c['sweeps']} sweeps, {c['syncs']} syncs; CPU path "
+              f"{h['ms']:.3f} ms")
+    gnn = card._gnn
+    feats = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (len(card.senders), N_EDGE_FEATURES)).astype(np.float32)).to(
+            card.device)
+    gnn_ms = _cuda_ms(lambda: gnn(card._d_coords, card._d_senders,
+                                  card._d_receivers, feats, card._d_length,
+                                  card._d_speed))
+    tf, seq_len = card._transformer
+    windows = 4  # a 10-stop tour's edges in seq_len windows
+    tf_in = (torch.randn(windows, seq_len, N_EDGE_FEATURES,
+                         device=card.device),
+             torch.rand(windows, seq_len, device=card.device) * 60.0,
+             torch.arange(seq_len, device=card.device),
+             torch.ones(windows, seq_len, device=card.device))
+    tf_ms = _cuda_ms(lambda: tf(*tf_in[:3], key_mask=tf_in[3]))
+    print(f"[road] GNN forward over {len(card.senders)} edges {gnn_ms:.3f} "
+          f"ms ({gnn.policy.compute_dtype}); transformer forward "
+          f"({windows}×{seq_len}) {tf_ms:.3f} ms; default router built in "
+          f"{build_s:.2f} s")
+
+    # The real-data deployment, through the same env knobs a user sets.
+    saved = dict(road_router._default_routers)
+    road_router._default_routers.clear()
+    os.environ["ROAD_GRAPH_OSM"] = os.path.join(ROOT, MANILA_OSM)
+    os.environ["ROAD_GNN_PATH"] = os.path.join(ROOT, MANILA_GNN)
+    try:
+        m_card = road_router.default_router("cuda")
+        m_cpu = road_router.default_router("cpu")
+        gnn_err["manila"] = _hold_router(m_card, m_cpu, "manila", rng)
+        manila, m_fused = _serve_road(MANILA_KINDS,
+                                      {"default": MANILA_REPS}, "manila")
+        check(m_card.leg_cost_model == "gnn",
+              "the Manila router dropped its GNN while serving")
+    finally:
+        os.environ.pop("ROAD_GRAPH_OSM", None)
+        os.environ.pop("ROAD_GNN_PATH", None)
+        road_router._default_routers.clear()
+        road_router._default_routers.update(saved)
+
+    # Record only: the JAX package routes graphs this size through its
+    # partition overlay, so there is no flat JAX counterpart to compare.
+    metro_graph = load_osm(os.path.join(ROOT, METRO_OSM))
+    metro_sources = {b: rng.integers(0, len(metro_graph["node_coords"]), b)
+                     for b in (2, 16)}
+    metro = {}
+    for dev in ("cuda", "cpu"):
+        router = road_router.RoadRouter(graph=metro_graph, use_gnn=False,
+                                        use_transformer=False, device=dev)
+        metro[dev] = {b: _solve_record(router, src, 10 if dev == "cuda"
+                                       else 3)
+                      for b, src in metro_sources.items()}
+    print(f"[road] metro 8192 ({router.n_nodes} nodes, {len(router.senders)}"
+          f" edges): " + "; ".join(
+              f"{b} sources cuda {metro['cuda'][b]['ms']:.3f} ms "
+              f"({metro['cuda'][b]['sweeps']} sweeps, "
+              f"{metro['cuda'][b]['syncs']} syncs), CPU path "
+              f"{metro['cpu'][b]['ms']:.3f} ms" for b in (2, 16)))
+    record = {"kinds": kinds, "manila": manila, "solve_ms": solve_ms,
+              "gnn_forward_ms": gnn_ms, "transformer_forward_ms": tf_ms,
+              "transformer_windows": [windows, seq_len],
+              "gnn_edge_time_max_rel_err": gnn_err,
+              "router_build_s": build_s,
+              "metro_8192": {"nodes": router.n_nodes,
+                             "edges": len(router.senders), **metro},
+              "fused_launches": fused + m_fused}
+    print(json.dumps({"road": record}))
+    return record, fused + m_fused
+
+
 def phase_times(rng):
     """Per-bucket times of every variant on the served artifact
     (quantile): → {variant: [row per batch]}."""
@@ -942,6 +1325,8 @@ def main() -> int:
         launches = phase_serving(rng)
         phase = "optimize"
         _, optimize_launches = phase_optimize()
+        phase = "road"
+        _, road_launches = phase_road()
         phase = "times"
         table = phase_times(rng)
     except Exception as e:
@@ -964,6 +1349,8 @@ def main() -> int:
     # the optimize path serves bf16: its launches over the use_ml_eta
     # requests
     kernels[0]["launches_optimize"] = optimize_launches
+    # ... and over the road phase's use_ml_eta requests
+    kernels[0]["launches_road"] = road_launches
     print(json.dumps({"kernels": kernels}))
     print(f"{smi_line}")
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,12 @@ Slice 1 serves ETA scoring end to end: the 12-feature ABI encoder
 (``data``), the ``RTPU1`` artifact reader (``train.checkpoint``), the
 ETA-MLP (``models``), the hand-written CUDA kernel that fuses the whole
 forward (``ops``), and the batcher, fast lane and HTTP surface
-(``serve``). Entry points run on ``cuda`` unless the caller asks for
-the CPU.
+(``serve``). Slice 2 serves route optimization (``optimize``: the
+greedy VRP, its refiners, top-k ranking and the GeoJSON engine), and
+slice 3 street-network routing (``optimize.road_router`` over
+``data.road_graph``/``data.osm``, priced by ``models.gnn`` and
+``models.route_transformer``). Entry points run on ``cuda`` unless the
+caller asks for the CPU.
 """
 
 __version__ = "0.1.0"

@@ -1,2 +1,3 @@
 """Route optimization: the greedy VRP and its refiners, candidate
-ranking and the GeoJSON engine, on the device."""
+ranking, the road router over a street network, and the GeoJSON
+engine, on the device."""

@@ -9,14 +9,19 @@ the same GeoJSON Feature (``properties.optimized_order``, ``source``,
 vehicle/driver annotations), and errors the same ``{"error": ...}``
 dicts. ``properties.engine`` reads ``backend:torch-<device>``.
 
+With ``road_graph: true`` legs are true shortest paths over the street
+network (``optimize/road_router.py``): street-following geometry, leg
+durations from the road GNN at the pickup hour, re-priced in route
+context by the route transformer, and ``leg_cost_model`` naming the
+pricer.
+
 Every entry point takes ``device`` (None → ``load_config().serve.device``,
 ``cuda`` by default) and raises when the card is asked for and missing.
-A ``road_graph: true`` request gets an explicit error: the road router
-is not ported yet.
 """
 
 from __future__ import annotations
 
+import datetime as dt
 import math
 from typing import Dict, List, Optional, Sequence
 
@@ -26,11 +31,11 @@ import torch
 from routest_tpu_torch.core.config import resolve_device
 from routest_tpu_torch.data import geo
 from routest_tpu_torch.optimize.ranking import rank_routes
+from routest_tpu_torch.optimize.road_router import default_router
 from routest_tpu_torch.optimize.vrp import solve_host, solve_host_batch
 
 MAX_MATRIX_POINTS = 64
 MAX_BATCH_PROBLEMS = 256
-ROAD_GRAPH_ERROR = "road graph unavailable: not yet ported"
 
 _COMPASS = ("north", "north-east", "east", "south-east",
             "south", "south-west", "west", "north-west")
@@ -70,6 +75,17 @@ def _leg_steps(p0, p1, name: str, distance_m: float, duration_s: float,
             "way_points": [wp_end, wp_end],
         },
     ]
+
+
+def _pickup_hour(pickup_time) -> int:
+    """Hour-of-day for leg pricing: ISO ``pickup_time`` if it parses,
+    else now (the JAX engine's rule)."""
+    if pickup_time:
+        try:
+            return dt.datetime.fromisoformat(str(pickup_time)).hour
+        except ValueError:
+            pass
+    return dt.datetime.now().hour
 
 
 def _stop_name(point: Dict, idx: Optional[int]) -> str:
@@ -199,28 +215,39 @@ def _parse_problem(input_data: dict) -> dict:
     }
 
 
+def _car_time_scale(speed: float) -> float:
+    """Road legs are priced for a car; other profiles scale by speed."""
+    return geo.PROFILE_SPEED_MPS[geo.profile_for_vehicle("car")] / speed
+
+
 def optimize_route(input_data: dict, device=None) -> dict:
     """Drop-in equivalent of the reference's optimizer entry point
     (``Flaskr/utils.py:10-48``): dict in, GeoJSON Feature (or error) out.
-    The matrix and the solve run on ``device``; the matrix comes back to
-    the host once, for the leg costs of the assembly."""
+    The matrix (great-circle, or road-graph shortest paths with
+    ``road_graph: true``) and the solve run on ``device``."""
     p = _parse_problem(input_data)
     if "error" in p:
         return p
-    if p["use_road"]:
-        return {"error": ROAD_GRAPH_ERROR}
     dev = resolve_device(device, "optimize_route")
-    dist_t = geo.distance_matrix_m(torch.from_numpy(p["latlon"]).to(dev),
-                                   p["road_factor"])
-    dist = dist_t.cpu().numpy()
-    leg_cost, leg_geom = _gc_legs(p["all_points"], dist, p["speed"])
+    legs = None
+    if p["use_road"]:
+        legs = default_router(dev).route_legs(
+            p["latlon"], _car_time_scale(p["speed"]),
+            hour=_pickup_hour(p["pickup_time"]))
+        dist = legs.dist_m
+        leg_cost, leg_geom = _road_leg_fns(legs)
+    else:
+        dist = geo.distance_matrix_m(torch.from_numpy(p["latlon"]).to(dev),
+                                     p["road_factor"])
+        leg_cost, leg_geom = _gc_legs(p["all_points"], dist.cpu().numpy(),
+                                      p["speed"])
     if len(p["destinations"]) == 1:
-        return _point_to_point(p, leg_cost, leg_geom, dev)
+        return _finish_point_to_point(p, leg_cost, leg_geom, legs, dev)
     # Additive ABI: {"refine": true} runs the local searches on the
     # greedy order — strictly shorter or equal routes, same shape.
-    sol = solve_host(dist_t, p["demands"], p["cap"], p["max_dist"],
-                     refine=p["refine"])
-    return _assemble_multi(p, sol, dist_t, leg_cost, leg_geom, dev)
+    sol = solve_host(dist, p["demands"], p["cap"], p["max_dist"],
+                     refine=p["refine"], device=dev)
+    return _assemble_multi(p, sol, dist, leg_cost, leg_geom, legs, dev)
 
 
 def travel_matrix(input_data: dict, device=None) -> dict:
@@ -274,11 +301,29 @@ def travel_matrix(input_data: dict, device=None) -> dict:
     profile = geo.profile_for_vehicle(vehicle_type)
     speed = geo.PROFILE_SPEED_MPS[profile]
 
-    if input_data.get("road_graph"):
-        return {"error": ROAD_GRAPH_ERROR}
     dev = resolve_device(device, "travel_matrix")
-    dist = geo.distance_matrix_m(torch.from_numpy(latlon).to(dev),
-                                 geo.PROFILE_ROAD_FACTOR[profile]).cpu().numpy()
+    if input_data.get("road_graph"):
+        # Solve only the waypoints the response can reference: each row
+        # is an independent one-source solve, so the subset's values are
+        # bitwise the full matrix's.
+        need = sorted(set(sources) | set(dests))
+        pos = {p: k for k, p in enumerate(need)}
+        legs = default_router(dev).route_legs(
+            latlon[need], _car_time_scale(speed),
+            hour=_pickup_hour(input_data.get("pickup_time")))
+        durm = legs.duration_matrix()   # one device table, no walks
+        dist = np.full((len(points), len(points)), np.inf)
+        dist[np.ix_(need, need)] = legs.dist_m
+        durations = [[float(durm[pos[i], pos[j]]) for j in dests]
+                     for i in sources]
+        meta = {"road_graph": True, "leg_cost_model": legs.cost_model}
+    else:
+        dist = geo.distance_matrix_m(torch.from_numpy(latlon).to(dev),
+                                     geo.PROFILE_ROAD_FACTOR[profile]
+                                     ).cpu().numpy()
+        durations = [[float(dist[i, j]) / speed for j in dests]
+                     for i in sources]
+        meta = {"road_graph": False, "leg_cost_model": "haversine"}
 
     def _clean(v):
         return round(float(v), 1) if math.isfinite(v) else None
@@ -286,29 +331,75 @@ def travel_matrix(input_data: dict, device=None) -> dict:
     return {
         "distances_m": [[_clean(dist[i, j]) for j in dests]
                         for i in sources],
-        "durations_s": [[_clean(float(dist[i, j]) / speed) for j in dests]
-                        for i in sources],
+        "durations_s": [[_clean(d) for d in row] for row in durations],
         "sources": sources,
         "destinations": dests,
         "vehicle_type": vehicle_type,
-        "road_graph": False,
-        "leg_cost_model": "haversine",
+        **meta,
     }
 
 
-def _assemble_multi(p: dict, sol: dict, dist, leg_cost, leg_geom,
+def _road_leg_fns(legs) -> tuple:
+    """(leg_cost, leg_geom) over one :class:`RoadLegs`: costs without
+    polylines, geometry only for the legs a response renders."""
+    return (legs.cost, lambda a, b: legs.leg(a, b)[2])
+
+
+def _repriced(leg_cost, rep: Dict):
+    """``leg_cost`` with the transformer's durations where it priced a
+    leg (distances stay the base provider's)."""
+    def cost(a: int, b: int):
+        meters, seconds = leg_cost(a, b)
+        return meters, rep.get((a, b), seconds)
+
+    return cost
+
+
+def _finish_point_to_point(p: dict, leg_cost, leg_geom, legs,
+                           device: torch.device) -> dict:
+    """Single-destination finishing, shared by the single and batch
+    paths. With road legs the transformer (when it serves this graph)
+    re-prices the out-and-back pair, as for multi-stop, so both report
+    the same ``leg_cost_model``."""
+    p2p_model = None
+    if legs is not None:
+        rep = legs.reprice_trips([[0]])
+        if rep:
+            leg_cost = _repriced(leg_cost, rep)
+            p2p_model = "transformer"
+    feature = _point_to_point(p, leg_cost, leg_geom, device,
+                              use_road=legs is not None)
+    if legs is not None and "error" not in feature:
+        feature["properties"]["leg_cost_model"] = (
+            p2p_model or legs.cost_model)
+    return feature
+
+
+def _assemble_multi(p: dict, sol: dict, dist, leg_cost, leg_geom, legs,
                     device: torch.device) -> dict:
     """Solved multi-stop problem → GeoJSON Feature (host-side geometry,
     segments, summary, top-k alternatives). Shared by the single path and
     ``optimize_route_batch``; the alternatives are ranked over ``dist``
-    on ``device``."""
+    on ``device``. ``legs`` is the problem's :class:`RoadLegs` (road
+    items) or None."""
     destinations = p["destinations"]
     all_points = p["all_points"]
     max_dist = p["max_dist"]
     top_k = p["top_k"]
+    use_road = legs is not None
     if sol["unroutable"]:
         which = ", ".join(str(i) for i in sol["unroutable"])
         return {"error": f"stops not routable under constraints (indices: {which})"}
+
+    # Route-context pricing: once the order is solved, the transformer
+    # (when it serves this graph) re-prices each trip's whole edge
+    # sequence in one forward; distances and geometry stay the base
+    # provider's. Empty dict ⇒ base pricing throughout.
+    repriced: Dict = {}
+    if use_road:
+        repriced = legs.reprice_trips(sol["trips"])
+        if repriced:
+            leg_cost = _repriced(leg_cost, repriced)
 
     coords: List[List[float]] = []
     segments: List[Dict] = []
@@ -321,6 +412,10 @@ def _assemble_multi(p: dict, sol: dict, dist, leg_cost, leg_geom,
         segments.extend(s)
         total_dist += d
         total_dur += t
+    if not (math.isfinite(total_dist) and math.isfinite(total_dur)):
+        # A leg the solver accepted turned out unwalkable (a one-way-
+        # disconnected graph): an error, not `Infinity` in the JSON.
+        return {"error": "stops not routable over the road graph"}
 
     lons = [c[0] for c in coords]
     lats = [c[1] for c in coords]
@@ -346,21 +441,24 @@ def _assemble_multi(p: dict, sol: dict, dist, leg_cost, leg_geom,
     # Additive ABI: {"top_k": N} returns up to N ALTERNATIVE visit orders,
     # scored on the device over the distance matrix (perturbed-greedy
     # pool + this solution as seed), then re-priced with the leg
-    # provider (cost only, no polylines). The shipped order and its
-    # reversal are excluded. Single-trip solutions only: reordering
-    # within one trip keeps the load, so every alternative that fits
-    # maximum_distance is feasible.
+    # provider (cost only, no polylines). The shipped order is excluded.
+    # Single-trip solutions only: reordering within one trip keeps the
+    # load, so every alternative that fits maximum_distance is feasible.
     if top_k > 1 and sol["n_trips"] == 1 and len(destinations) >= 2:
+        price = legs.cost if use_road else leg_cost
         k_want = min(top_k, 10)
         # On the symmetric great-circle matrix EVERY tour occupies two
-        # ranked slots (its reversal scores the same), so over-request.
+        # ranked slots (its reversal scores the same), so over-request;
+        # road graphs are directed (one-ways): no reversal twins.
+        k_ask = (k_want + 2) if use_road else (2 * k_want + 2)
         ranked = rank_routes(
-            dist, k=2 * k_want + 2, speed_mps=p["speed"],
-            max_candidates=2048,
+            dist, k=k_ask, speed_mps=p["speed"], max_candidates=2048,
             greedy_order=np.asarray(sol["optimized_order"], np.int32),
             device=device)
         main_key = tuple(int(i) for i in sol["optimized_order"])
-        seen = {main_key, main_key[::-1]}
+        seen = {main_key}
+        if not use_road:
+            seen.add(main_key[::-1])
         alternatives = []
         for order_alt in ranked.orders:
             if len(alternatives) >= k_want:
@@ -369,11 +467,12 @@ def _assemble_multi(p: dict, sol: dict, dist, leg_cost, leg_geom,
             if key in seen:
                 continue
             seen.add(key)
-            seen.add(key[::-1])
+            if not use_road:
+                seen.add(key[::-1])
             seq = [0] + [int(i) + 1 for i in order_alt] + [0]
             alt_m = alt_s = 0.0
             for a, b in zip(seq[:-1], seq[1:]):
-                leg_m, leg_s = leg_cost(a, b)
+                leg_m, leg_s = price(a, b)
                 alt_m += leg_m
                 alt_s += leg_s
             if not math.isfinite(alt_m) or alt_m > max_dist:
@@ -383,23 +482,41 @@ def _assemble_multi(p: dict, sol: dict, dist, leg_cost, leg_geom,
                 "distance": round(alt_m, 1),
                 "duration": round(alt_s, 1),
             })
+        if repriced and alternatives:
+            # The main summary is transformer-priced; alternatives are
+            # priced by the same model (one batched forward) so their
+            # durations stay comparable.
+            rep_durs = legs.reprice_orders(
+                [a["optimized_order"] for a in alternatives])
+            for alt, dur in zip(alternatives, rep_durs):
+                if dur is not None and math.isfinite(dur):
+                    alt["duration"] = round(dur, 1)
         feature["properties"]["alternatives"] = alternatives
 
+    if use_road:
+        feature["properties"]["road_graph"] = True
+        # Which pricer produced the durations: "transformer", "gnn" or
+        # "freeflow".
+        feature["properties"]["leg_cost_model"] = (
+            "transformer" if repriced else legs.cost_model)
     _annotate(feature, p["driver_details"], p["vehicle_type"], device)
     return feature
 
 
 def optimize_route_batch(items, device=None) -> list:
-    """Solve MANY optimize-route requests in one batched device program.
+    """Solve MANY optimize-route requests with batched device programs.
 
-    One batched haversine builds every problem's distance matrix, then
-    all multi-stop problems run the greedy solver (plus refiners when
-    requested) as one ``(B, P+1, P+1)`` device program per refine flavor
-    via ``solve_host_batch``; assembly stays host-side per item, shared
-    with the single path. Per-item errors come back in place;
-    ``top_k > 1`` items are rejected (ranking is a per-problem program —
-    the single endpoint serves them), and ``road_graph`` items get the
-    not-ported error.
+    Great-circle problems share one batched haversine; road problems
+    (``road_graph: true``) share grouped shortest-path solves
+    (``RoadRouter.route_legs_batch``: every problem's waypoints
+    concatenate along the solver's source axis); then all multi-stop
+    problems run the greedy solver (plus refiners when requested) as one
+    ``(B, P+1, P+1)`` device program per refine flavor via
+    ``solve_host_batch``. Assembly stays host-side per item, shared with
+    the single path. Per-item errors come back in place; a router
+    failure errors only the road items; ``top_k > 1`` items are rejected
+    (ranking is a per-problem program — the single endpoint serves
+    them).
     """
     if not isinstance(items, list) or not items:
         return [{"error": "items must be a non-empty list"}]
@@ -409,7 +526,7 @@ def optimize_route_batch(items, device=None) -> list:
         return [{"error": f"batch too large (max {MAX_BATCH_PROBLEMS} "
                           f"problems)"} for _ in items]
     results: list = [None] * len(items)
-    solve: list = []  # (index, parsed)
+    solve: list = []  # [index, parsed, dist, leg_cost, leg_geom, legs]
 
     for i, item in enumerate(items):
         p = _parse_problem(item if isinstance(item, dict) else {})
@@ -418,41 +535,62 @@ def optimize_route_batch(items, device=None) -> list:
         elif p["top_k"] > 1:
             results[i] = {"error": "top_k is a per-problem feature; "
                                    "use /api/optimize_route"}
-        elif p["use_road"]:
-            results[i] = {"error": ROAD_GRAPH_ERROR}
         else:
-            solve.append((i, p))
+            solve.append([i, p, None, None, None, None])
     if not solve:
         return results
-
-    # ONE batched haversine builds every problem's distance matrix
-    # (points padded with origin copies; the pad is sliced off).
     dev = resolve_device(device, "optimize_route_batch")
-    max_pts = max(len(p["all_points"]) for _, p in solve)
-    pts_pad = 1 << max(0, (max_pts - 1)).bit_length()
-    latlon_b = np.zeros((len(solve), pts_pad, 2), np.float32)
-    factor_b = np.zeros((len(solve),), np.float32)
-    for j, (_, p) in enumerate(solve):
-        ll = p["latlon"]
-        latlon_b[j] = ll[0]  # origin copies fill the pad
-        latlon_b[j, : len(ll)] = ll
-        factor_b[j] = p["road_factor"]
-    host = torch.from_numpy(np.concatenate(
-        [latlon_b.reshape(len(solve), -1), factor_b[:, None]], axis=1)).to(dev)
-    mats = geo.distance_matrix_m(
-        host[:, :-1].reshape(len(solve), pts_pad, 2), host[:, -1]
-    ).cpu().numpy()
+
+    road = [s for s in solve if s[1]["use_road"]]
+    if road:
+        try:
+            legs_list = default_router(dev).route_legs_batch([
+                (s[1]["latlon"], _car_time_scale(s[1]["speed"]),
+                 _pickup_hour(s[1]["pickup_time"])) for s in road])
+        except Exception as e:  # the per-item error contract
+            for s in road:
+                results[s[0]] = {"error": f"road graph unavailable: "
+                                          f"{type(e).__name__}: {e}"}
+            solve = [s for s in solve if not s[1]["use_road"]]
+        else:
+            for s, legs in zip(road, legs_list):
+                s[2] = legs.dist_m
+                s[3], s[4] = _road_leg_fns(legs)
+                s[5] = legs
+
+    # ONE batched haversine builds every great-circle problem's matrix
+    # (points padded with origin copies; the pad is sliced off).
+    gc = [s for s in solve if not s[1]["use_road"]]
+    if gc:
+        max_pts = max(len(s[1]["all_points"]) for s in gc)
+        pts_pad = 1 << max(0, (max_pts - 1)).bit_length()
+        latlon_b = np.zeros((len(gc), pts_pad, 2), np.float32)
+        factor_b = np.zeros((len(gc),), np.float32)
+        for j, s in enumerate(gc):
+            ll = s[1]["latlon"]
+            latlon_b[j] = ll[0]  # origin copies fill the pad
+            latlon_b[j, : len(ll)] = ll
+            factor_b[j] = s[1]["road_factor"]
+        host = torch.from_numpy(np.concatenate(
+            [latlon_b.reshape(len(gc), -1), factor_b[:, None]],
+            axis=1)).to(dev)
+        mats = geo.distance_matrix_m(
+            host[:, :-1].reshape(len(gc), pts_pad, 2), host[:, -1]
+        ).cpu().numpy()
+        for j, s in enumerate(gc):
+            n_pts = len(s[1]["all_points"])
+            s[2] = mats[j, :n_pts, :n_pts]
+            s[3], s[4] = _gc_legs(s[1]["all_points"], s[2], s[1]["speed"])
 
     # Point-to-point items price host-side directly (one leg each).
     multi: list = []
-    for j, (i, p) in enumerate(solve):
-        n_pts = len(p["all_points"])
-        dist = mats[j, :n_pts, :n_pts]
-        leg_cost, leg_geom = _gc_legs(p["all_points"], dist, p["speed"])
+    for s in solve:
+        i, p, dist, leg_cost, leg_geom, legs = s
         if len(p["destinations"]) == 1:
-            results[i] = _point_to_point(p, leg_cost, leg_geom, dev)
+            results[i] = _finish_point_to_point(p, leg_cost, leg_geom, legs,
+                                                dev)
         else:
-            multi.append((i, p, dist, leg_cost, leg_geom))
+            multi.append(s)
 
     # One batched device solve per refine flavor.
     for flavor in (False, True):
@@ -466,13 +604,14 @@ def optimize_route_batch(items, device=None) -> list:
             [g[1]["max_dist"] for g in group],
             refine=flavor, device=dev,
         )
-        for (i, p, dist, leg_cost, leg_geom), sol in zip(group, sols):
+        for (i, p, dist, leg_cost, leg_geom, legs), sol in zip(group, sols):
             results[i] = _assemble_multi(p, sol, dist, leg_cost, leg_geom,
-                                         dev)
+                                         legs, dev)
     return results
 
 
-def _point_to_point(p: dict, leg_cost, leg_geom, device) -> dict:
+def _point_to_point(p: dict, leg_cost, leg_geom, device,
+                    use_road: bool = False) -> dict:
     """Single-destination path with the reference's feasibility semantics
     (``Flaskr/utils.py:53-82``): payload > capacity and distance >
     maximum_distance produce the same joined error strings."""
@@ -482,7 +621,9 @@ def _point_to_point(p: dict, leg_cost, leg_geom, device) -> dict:
     errors = []
     if payload > p["cap"]:
         errors.append("payload exceeds vehicle capacity")
-    if d_m > p["max_dist"]:
+    if not math.isfinite(d_m):
+        errors.append("stops not routable over the road graph")
+    elif d_m > p["max_dist"]:
         errors.append("route distance exceeds maximum_distance")
     if errors:
         return {"error": " | ".join(errors)}
@@ -512,6 +653,8 @@ def _point_to_point(p: dict, leg_cost, leg_geom, device) -> dict:
             "destinations": [destination],
         },
     }
+    if use_road:
+        feature["properties"]["road_graph"] = True
     _annotate(feature, p["driver_details"], p["vehicle_type"], device)
     return feature
 

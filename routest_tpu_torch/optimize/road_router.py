@@ -1,0 +1,921 @@
+"""Road-graph shortest-path routing on the device.
+
+The counterpart of ``routest_tpu/optimize/road_router.py``'s flat
+router: legs are true shortest paths over a street network, with
+geometry that follows the streets and durations from per-edge travel
+times (free-flow physics, or the road GNN when its artifact was trained
+on this graph, re-priced in route context by the route transformer).
+
+- **Solve** (device): a batched multi-source Bellman-Ford over the
+  receiver-sorted edges (``optimize/hierarchy.py``), ``_K_SWEEPS``
+  sweeps per host check, bounded by ``4√N + 8`` sweeps and re-run with
+  the exact ``N`` bound if that is exhausted; then tight-edge
+  predecessor recovery. Distances and predecessors equal the JAX
+  package's bit for bit.
+- **Duration table** (device): pointer doubling over the predecessor
+  trees (``_time_table``), for matrix responses.
+- **Host**: component bridging (union-find), snapping (a haversine
+  table), predecessor walks and polylines stay in numpy, as in the JAX
+  package.
+
+Every tensor lives on the router's ``device`` (``cuda`` unless the
+caller asks for the CPU; asking for the card without one raises).
+Learned pricers load once, at construction. Not ported yet: the
+partition overlay and hub labels (Queue A item 11 — the port routes flat
+at every size), live traffic metrics (A12; ``live`` is always None), the
+verified GNN hot-swap and mtime reload, the AOT buckets, the trace spans
+and the efficiency ledger.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from routest_tpu_torch.core.config import resolve_device
+from routest_tpu_torch.core.dtypes import backend_compute_policy
+from routest_tpu_torch.data.road_graph import (_CLASS_SPEED_MPS,
+                                               generate_road_graph,
+                                               haversine_np)
+from routest_tpu_torch.models.gnn import edge_feature_array
+from routest_tpu_torch.optimize.hierarchy import (_INF, hier_min_nodes,
+                                                  relax_from, tight_pred)
+from routest_tpu_torch.optimize.route_cache import (RouteCache,
+                                                    route_cache_config)
+from routest_tpu_torch.serve.deadline import current_deadline
+from routest_tpu_torch.train.checkpoint import (default_gnn_path,
+                                                default_transformer_path,
+                                                graph_fingerprint, load_gnn,
+                                                load_transformer)
+from routest_tpu_torch.utils.logging import get_logger
+
+_log = get_logger("routest.road")
+
+
+def _time_table(senders: torch.Tensor, pred: torch.Tensor,
+                time_e: torch.Tensor, dist: torch.Tensor, *,
+                n_rounds: int) -> torch.Tensor:
+    """(S, N) travel seconds along every shortest-path tree: pointer
+    doubling, each round every node's accumulated time and parent jump
+    twice as far up its tree, in the JAX ``_time_table``'s order of
+    adds. Runs all ``n_rounds`` rounds with no host check: once a chain
+    reaches its root, a round adds the root's 0.0 and keeps its parent,
+    so the extra rounds change nothing and the table is the JAX one.
+    Unreachable nodes and nodes in (or chaining into) a predecessor
+    cycle come back inf."""
+    n = pred.shape[1]
+    has_pred = pred >= 0
+    safe = torch.clamp(pred, min=0)
+    parent = torch.where(has_pred, senders[safe],
+                         torch.arange(n, device=pred.device)[None, :])
+    acc = torch.where(has_pred, time_e[safe], 0.0)
+    for _ in range(n_rounds):
+        acc = acc + torch.gather(acc, 1, parent)
+        parent = torch.gather(parent, 1, parent)
+    # A finished chain ends at a TRUE root (a node with no predecessor);
+    # anything whose final parent still has one sits in a cycle.
+    bad_root = torch.gather(has_pred, 1, parent)
+    return torch.where((dist < 1e37) & ~bad_root, acc,
+                       torch.full_like(acc, float("inf")))
+
+
+def _bellman_ford(senders: torch.Tensor, receivers: torch.Tensor,
+                  w: torch.Tensor, sources: torch.Tensor, *, n_nodes: int,
+                  max_iters: int) -> Tuple[torch.Tensor, torch.Tensor, bool]:
+    """(S,) source nodes → (S, N) distances, (S, N) predecessor edge ids
+    in the SORTED edge order, and converged (False: ``max_iters`` was
+    exhausted, the distances are not to be trusted)."""
+    n_src = sources.shape[0]
+    dist0 = torch.full((n_src, n_nodes), _INF, dtype=torch.float32,
+                       device=w.device)
+    dist0[torch.arange(n_src, device=w.device), sources] = 0.0
+    dist, converged = relax_from(senders, receivers, w, dist0,
+                                 max_iters=max_iters)
+    pred = tight_pred(senders, receivers, w, dist, sources)
+    return dist, pred, converged
+
+
+def _batcher_config() -> Tuple[bool, int, float]:
+    """(enabled, max merged rows, window seconds) for the solve
+    batcher (``ROUTEST_ROUTER_BATCH`` on/off,
+    ``ROUTEST_ROUTER_BATCH_MAX``, ``ROUTEST_ROUTER_BATCH_WINDOW_MS``)."""
+    raw = os.environ.get("ROUTEST_ROUTER_BATCH", "1").strip().lower()
+    enabled = raw not in ("0", "off", "false", "no")
+    try:
+        max_rows = max(1, int(os.environ.get(
+            "ROUTEST_ROUTER_BATCH_MAX", "32")))
+    except ValueError:
+        max_rows = 32
+    try:
+        window_ms = float(os.environ.get(
+            "ROUTEST_ROUTER_BATCH_WINDOW_MS", "0"))
+    except ValueError:
+        window_ms = 0.0
+    return enabled, max_rows, max(0.0, window_ms) / 1000.0
+
+
+class _BatchEntry:
+    __slots__ = ("sources", "event", "dist", "pred", "error")
+
+    def __init__(self, sources: np.ndarray) -> None:
+        self.sources = sources
+        self.event = threading.Event()
+        self.dist = self.pred = None
+        self.error: Optional[BaseException] = None
+
+
+class _SolveBatcher:
+    """Cross-request solve coalescing: concurrent :meth:`RoadRouter.
+    shortest` callers merge into ONE device solve. The source axis is
+    batched by design, so merged rows are bitwise what lone solves
+    return; the merge only amortizes launches and the fetch.
+
+    With the default 0 ms window a lone request dispatches at once;
+    arrivals during an in-flight solve queue and drain as the NEXT
+    merged batch. ``window_s > 0`` adds a fixed wait before each drain.
+    """
+
+    def __init__(self, router: "RoadRouter", max_rows: int,
+                 window_s: float) -> None:
+        self._router = router
+        self.max_rows = int(max_rows)
+        self.window_s = float(window_s)
+        self._lock = threading.Lock()
+        self._queue: List[_BatchEntry] = []
+        self._busy = False
+        self._dispatches = 0
+        self._rows = 0
+        self._requests = 0
+        self._merged_requests = 0
+        self._max_occupancy = 0
+
+    def stats(self) -> Dict:
+        with self._lock:
+            d = max(1, self._dispatches)
+            return {"max_rows": self.max_rows,
+                    "window_ms": round(self.window_s * 1000, 3),
+                    "dispatches": self._dispatches,
+                    "rows": self._rows,
+                    "requests": self._requests,
+                    "merged_requests": self._merged_requests,
+                    "max_occupancy": self._max_occupancy,
+                    "mean_rows_per_dispatch": round(self._rows / d, 3)}
+
+    def solve(self, sources: np.ndarray):
+        entry = _BatchEntry(sources)
+        with self._lock:
+            self._queue.append(entry)
+            self._requests += 1
+            leader = not self._busy
+            if leader:
+                self._busy = True
+        if not leader:
+            if not entry.event.wait(120.0):
+                raise TimeoutError("router solve batcher wedged")
+            if entry.error is not None:
+                raise entry.error
+            return entry.dist, entry.pred
+        drain_error: Optional[BaseException] = None
+        try:
+            if self.window_s > 0:
+                time.sleep(self.window_s)
+            while True:
+                with self._lock:
+                    if not self._queue:
+                        # Clearing the flag and observing the empty
+                        # queue must be ONE atomic step: an arrival in
+                        # between would wait on a leader that left.
+                        self._busy = False
+                        break
+                    batch: List[_BatchEntry] = []
+                    rest: List[_BatchEntry] = []
+                    rows = 0
+                    for it in self._queue:
+                        if rows + len(it.sources) <= self.max_rows:
+                            batch.append(it)
+                            rows += len(it.sources)
+                        else:
+                            rest.append(it)
+                    self._queue = rest
+                    self._dispatches += 1
+                    self._rows += rows
+                    self._max_occupancy = max(self._max_occupancy, rows)
+                    if len(batch) > 1:
+                        self._merged_requests += len(batch)
+                self._dispatch(batch)
+        except BaseException as e:  # drain-loop bug: fail loudly, not hung
+            drain_error = e
+            raise
+        finally:
+            if drain_error:
+                with self._lock:
+                    leftovers = list(self._queue)
+                    self._queue = []
+                    self._busy = False
+                for it in leftovers:
+                    if not it.event.is_set():
+                        it.error = drain_error
+                        it.event.set()
+        if entry.error is not None:
+            raise entry.error
+        return entry.dist, entry.pred
+
+    def _dispatch(self, batch: List[_BatchEntry]) -> None:
+        merged = (batch[0].sources if len(batch) == 1
+                  else np.concatenate([it.sources for it in batch]))
+        try:
+            dist, pred = self._router._solve_rows(merged)
+        except BaseException as e:  # propagate to every merged caller
+            for it in batch:
+                it.error = e
+                it.event.set()
+            return
+        pos = 0
+        for it in batch:
+            m = len(it.sources)
+            it.dist = dist[pos:pos + m]
+            it.pred = pred[pos:pos + m]
+            pos += m
+            it.event.set()
+
+
+class RoadRouter:
+    """Routable road network: snap → batched shortest paths → polylines."""
+
+    def __init__(self, graph: Optional[Dict[str, np.ndarray]] = None,
+                 n_nodes: int = 2048, seed: int = 0,
+                 use_gnn: bool = True,
+                 gnn_path: Optional[str] = None,
+                 use_transformer: bool = True,
+                 transformer_path: Optional[str] = None,
+                 device=None) -> None:
+        self.device = resolve_device(device, "RoadRouter")
+        g = graph if graph is not None else generate_road_graph(
+            n_nodes=n_nodes, seed=seed)
+        self.coords = np.asarray(g["node_coords"], np.float32)   # (N, 2)
+        senders = np.asarray(g["senders"], np.int32)
+        receivers = np.asarray(g["receivers"], np.int32)
+        length = np.asarray(g["length_m"], np.float32)
+        road_class = np.asarray(g["road_class"], np.int32)
+        speed_limit = np.asarray(
+            g.get("speed_limit", _CLASS_SPEED_MPS[road_class]), np.float32)
+        senders, receivers, length, road_class, speed_limit = \
+            self._bridge_components(senders, receivers, length, road_class,
+                                    speed_limit)
+        # Learned pricers are bound to the POST-bridge graph (the edge
+        # set their messages aggregate over).
+        self._fingerprint = graph_fingerprint(
+            self.coords, senders, receivers, length)
+        self.senders, self.receivers = senders, receivers
+        self.length_m = length
+        self.road_class = road_class
+        self.speed_limit = speed_limit
+        # Fallback leg pricing: free-flow physics (length / speed limit +
+        # intersection overhead).
+        self.freeflow_time_s = (
+            length / np.maximum(self.speed_limit, 0.1) + 4.0
+        ).astype(np.float32)
+        self.n_nodes = len(self.coords)
+        # A kNN street grid's hop diameter is O(√N): 4√N + 8 sweeps is a
+        # comfortable first bound; an exhausted run re-runs with N.
+        self.max_iters = int(4 * np.sqrt(self.n_nodes)) + 8
+        if hier_min_nodes() and self.n_nodes >= hier_min_nodes():
+            _log.info("flat_routing_above_overlay_threshold",
+                      nodes=self.n_nodes, threshold=hier_min_nodes())
+
+        def on_device(a, dtype):
+            return torch.from_numpy(np.asarray(a, dtype)).to(self.device)
+
+        # Original edge order (the GNN's feature order) ...
+        self._d_coords = on_device(self.coords, np.float32)
+        self._d_senders = on_device(self.senders, np.int64)
+        self._d_receivers = on_device(self.receivers, np.int64)
+        self._d_length = on_device(self.length_m, np.float32)
+        self._d_speed = on_device(self.speed_limit, np.float32)
+        # ... and receiver-sorted copies for the sweep; predecessor ids
+        # come back in this order and map through _bf_perm.
+        self._bf_perm = np.argsort(self.receivers, kind="stable").astype(
+            np.int32)
+        self._bf_senders = on_device(self.senders[self._bf_perm], np.int64)
+        self._bf_receivers = on_device(self.receivers[self._bf_perm],
+                                       np.int64)
+        self._bf_length = on_device(self.length_m[self._bf_perm], np.float32)
+
+        enabled, max_rows, window_s = _batcher_config()
+        self._solve_batcher: Optional[_SolveBatcher] = (
+            _SolveBatcher(self, max_rows, window_s) if enabled else None)
+        rc_on, rc_bytes, rc_ttl = route_cache_config()
+        self._route_cache: Optional[RouteCache] = (
+            RouteCache(rc_bytes, rc_ttl) if rc_on else None)
+        self._hour_times: Dict[int, np.ndarray] = {}
+        self._model_lock = threading.Lock()
+        gnn = (self._load_leg_model(
+            load_gnn, gnn_path or default_gnn_path(), "road_gnn")
+            if use_gnn else None)
+        self._gnn = None if gnn is None else gnn[0]
+        tf = (self._load_leg_model(
+            load_transformer, transformer_path or default_transformer_path(),
+            "route_transformer") if use_transformer else None)
+        # (module, trained seq_len)
+        self._transformer = (None if tf is None
+                             else (tf[0], int(tf[1].get("seq_len", 24))))
+
+    @property
+    def leg_cost_model(self) -> str:
+        """"gnn" when learned per-edge times serve requests, else
+        "freeflow"."""
+        return "gnn" if self._gnn is not None else "freeflow"
+
+    @property
+    def has_transformer(self) -> bool:
+        return self._transformer is not None
+
+    @property
+    def solver_info(self) -> Dict:
+        """Health's view of the solver: the flat sweep with its bound,
+        the batcher's merge stats and the route cache's counters."""
+        info = {"solver": "flat_bf", "max_iters_bound": self.max_iters}
+        if self._solve_batcher is not None:
+            info["batch"] = self._solve_batcher.stats()
+        if self._route_cache is not None:
+            info["route_cache"] = self._route_cache.stats()
+        return info
+
+    def graph_dict(self) -> Dict[str, np.ndarray]:
+        """The (post-bridge) routable graph: the exact arrays serving
+        aggregates over, and so the arrays a leg model must train on."""
+        return {
+            "node_coords": self.coords,
+            "senders": self.senders,
+            "receivers": self.receivers,
+            "length_m": self.length_m,
+            "road_class": self.road_class,
+            "speed_limit": self.speed_limit,
+        }
+
+    def _load_leg_model(self, loader, resolved: str, tag: str):
+        """Load a learned leg-cost artifact behind its fingerprint gate →
+        (module on this router's device, meta) or None. The artifact is
+        optional by design: any failure degrades to the next pricer
+        down, never an error. On the CPU a bf16 model computes in f32
+        (``backend_compute_policy``); on the card its policy stands."""
+        try:
+            model, _params, meta = loader(resolved)
+        except FileNotFoundError:
+            return None
+        except Exception as e:  # corrupt/foreign artifact: degrade, log
+            _log.warning(f"{tag}_artifact_unusable", path=resolved,
+                         error=f"{type(e).__name__}: {e}")
+            return None
+        fp = meta.get("graph", meta) if isinstance(meta, dict) else meta
+        if fp != self._fingerprint:
+            # Expected whenever a custom/test graph is routed.
+            _log.debug(f"{tag}_graph_mismatch", path=resolved,
+                       artifact=fp, router=self._fingerprint)
+            return None
+        if hasattr(model, "policy"):
+            model.policy = backend_compute_policy(model.policy, self.device)
+        return model.to(self.device), meta
+
+    def edge_time_s(self, hour: int) -> np.ndarray:
+        """(E,) per-edge car travel seconds at the given hour-of-day:
+        GNN-predicted when its artifact matches this graph (cached per
+        hour), free-flow physics otherwise. Floored at free-flow at an
+        arterial ceiling (length / 16.7 m/s)."""
+        h = int(hour) % 24
+        with self._model_lock:
+            gnn = self._gnn
+            cached = self._hour_times.get(h)
+        if gnn is None:
+            return self.freeflow_time_s
+        if cached is not None:
+            return cached
+        feats = torch.from_numpy(edge_feature_array(
+            self.length_m, self.speed_limit, self.road_class, h)).to(
+                self.device)
+        try:
+            pred = gnn(self._d_coords, self._d_senders, self._d_receivers,
+                       feats, self._d_length, self._d_speed
+                       ).float().cpu().numpy()
+        except Exception as e:
+            # A loaded-but-unusable artifact degrades to physics, not a
+            # failed request; drop it so the cost is paid once.
+            _log.error("road_gnn_apply_failed",
+                       error=f"{type(e).__name__}: {e}")
+            with self._model_lock:
+                self._gnn = None
+                self._hour_times.clear()
+            return self.freeflow_time_s
+        pred = np.maximum(pred, self.length_m / 16.7)  # 60 km/h cap
+        with self._model_lock:
+            if self._gnn is gnn:
+                self._hour_times[h] = pred
+        return pred
+
+    def _bridge_components(self, senders, receivers, length, road_class,
+                           speed_limit):
+        """kNN graphs can come out disconnected; bridge every component to
+        the largest with an edge between their closest node pair so every
+        snap target is reachable. Pure numpy union-find."""
+        n = len(self.coords)
+        parent = np.arange(n)
+
+        def find(a: int) -> int:
+            root = a
+            while parent[root] != root:
+                root = parent[root]
+            while parent[a] != root:  # path compression
+                parent[a], a = root, parent[a]
+            return root
+
+        for s, r in zip(senders, receivers):
+            ra, rb = find(int(s)), find(int(r))
+            if ra != rb:
+                parent[rb] = ra
+        labels_raw = np.fromiter((find(i) for i in range(n)), np.int64, n)
+        _, labels = np.unique(labels_raw, return_inverse=True)
+        n_comp = int(labels.max()) + 1
+        if n_comp <= 1:
+            return senders, receivers, length, road_class, speed_limit
+        sizes = np.bincount(labels)
+        main = int(np.argmax(sizes))
+        add_s, add_r = [], []
+        main_nodes = np.flatnonzero(labels == main)
+        for comp in range(n_comp):
+            if comp == main:
+                continue
+            nodes = np.flatnonzero(labels == comp)
+            d = haversine_np(
+                self.coords[nodes, 0][:, None], self.coords[nodes, 1][:, None],
+                self.coords[main_nodes, 0][None, :],
+                self.coords[main_nodes, 1][None, :])
+            i, j = np.unravel_index(np.argmin(d), d.shape)
+            add_s.append(nodes[i])
+            add_r.append(main_nodes[j])
+        add_s = np.asarray(add_s, np.int32)
+        add_r = np.asarray(add_r, np.int32)
+        bridge_len = (haversine_np(
+            self.coords[add_s, 0], self.coords[add_s, 1],
+            self.coords[add_r, 0], self.coords[add_r, 1]) * 1.2).astype(np.float32)
+        bridge_class = np.full(len(add_s), 1, np.int32)  # collector
+        bridge_speed = np.full(len(add_s), _CLASS_SPEED_MPS[1], np.float32)
+        return (np.concatenate([senders, add_s, add_r]),
+                np.concatenate([receivers, add_r, add_s]),
+                np.concatenate([length, bridge_len, bridge_len]),
+                np.concatenate([road_class, bridge_class, bridge_class]),
+                np.concatenate([speed_limit, bridge_speed, bridge_speed]))
+
+    def snap(self, latlon: np.ndarray) -> np.ndarray:
+        """(M, 2) lat/lon → (M,) nearest graph node ids (host numpy)."""
+        latlon = np.asarray(latlon, np.float32)
+        d = haversine_np(latlon[:, 0][:, None], latlon[:, 1][:, None],
+                         self.coords[None, :, 0], self.coords[None, :, 1])
+        return np.argmin(d, axis=1).astype(np.int32)
+
+    def shortest(self, source_nodes: np.ndarray, live=None):
+        """(S,) nodes → ((S, N) distances m, (S, N) predecessor edge ids
+        in the original edge order), host numpy.
+
+        Concurrent callers merge into one device solve through the solve
+        batcher; requests above its row limit solve directly. ``live``
+        (a live-traffic metric) is not ported and must be None."""
+        if live is not None:
+            raise ValueError("live traffic metrics are not ported")
+        source_nodes = np.asarray(source_nodes, np.int32)
+        batcher = self._solve_batcher
+        if batcher is not None and 0 < len(source_nodes) <= batcher.max_rows:
+            return batcher.solve(source_nodes)
+        return self._solve_rows(source_nodes)
+
+    def _solve_rows(self, source_nodes: np.ndarray):
+        """One device solve (the batcher calls this with merged rows).
+        The source axis pads to a power of two by repeating source 0, as
+        the JAX package pads to reuse a compiled program; the padding
+        rows are dropped. One host fetch per solve besides the sweep
+        loop's checks."""
+        source_nodes = np.asarray(source_nodes, np.int32)
+        n_src = len(source_nodes)
+        bucket = 1 << max(0, (n_src - 1)).bit_length()
+        padded = np.full(bucket, source_nodes[0] if n_src else 0, np.int64)
+        padded[:n_src] = source_nodes
+        sources = torch.from_numpy(padded).to(self.device)
+        dist, pred, converged = _bellman_ford(
+            self._bf_senders, self._bf_receivers, self._bf_length, sources,
+            n_nodes=self.n_nodes, max_iters=self.max_iters)
+        if not converged:
+            # The O(√N) heuristic was exhausted while distances were
+            # still improving (long chains): re-run with the exact bound.
+            _log.warning("bellman_ford_bound_exhausted",
+                         heuristic=self.max_iters, exact=self.n_nodes,
+                         n_sources=n_src)
+            dist, pred, _ = _bellman_ford(
+                self._bf_senders, self._bf_receivers, self._bf_length,
+                sources, n_nodes=self.n_nodes, max_iters=self.n_nodes)
+        # ONE fetch: the distances ride along as int32 bit patterns.
+        both = torch.cat([dist[:n_src].view(torch.int32),
+                          pred[:n_src].to(torch.int32)]).cpu().numpy()
+        dist, pred = both[:n_src].view(np.float32), both[n_src:]
+        # sorted-edge ids → original edge ids
+        pred = np.where(pred >= 0, self._bf_perm[np.maximum(pred, 0)], -1)
+        return dist, pred
+
+    def _walk(self, pred_row: np.ndarray, source: int, target: int) -> List[int]:
+        """Predecessor edges → node sequence source..target (host-side)."""
+        path = [int(target)]
+        node = int(target)
+        for _ in range(self.n_nodes):
+            if node == source:
+                break
+            e = int(pred_row[node])
+            if e < 0:
+                return []  # unreachable
+            node = int(self.senders[e])
+            path.append(node)
+        if node != source:
+            # Budget exhausted without reaching the source: a predecessor
+            # cycle. Unreachable beats a garbage path.
+            return []
+        return path[::-1]
+
+    def route_legs(self, points_latlon: np.ndarray,
+                   time_scale: float = 1.0,
+                   hour: Optional[int] = None) -> "RoadLegs":
+        """Legs between M waypoints over the road graph: one batched
+        solve, lazy memoized walks. ``time_scale`` maps car times to the
+        vehicle profile; ``hour`` (0-23) selects the GNN's congestion
+        regime, None prices at noon."""
+        return self.route_legs_batch([(points_latlon, time_scale, hour)])[0]
+
+    def route_legs_batch(self, problems) -> List["RoadLegs"]:
+        """Many waypoint sets → one :class:`RoadLegs` each, sharing as
+        few device solves as memory allows (``problems``: a list of
+        ``route_legs`` argument triples).
+
+        Problems first consult the route fast lane: a cached identical
+        problem skips snap and solve, and concurrent identical problems
+        collapse onto one solve. The remainder concatenates along the
+        source axis in groups whose fetch stays under ~64 MB, and splits
+        back as row slices, bitwise what per-problem solves return."""
+        pts_list = [np.asarray(p, np.float32) for p, _, _ in problems]
+        counts = [len(p) for p in pts_list]
+        out: List[Optional[RoadLegs]] = [None] * len(problems)
+        cache = self._route_cache
+        keys: List = [None] * len(problems)
+        aliases: List[Tuple[int, int]] = []        # (idx, lead idx)
+        waits: List[Tuple[int, object]] = []       # (idx, flight)
+        solve_idx: List[int] = list(range(len(problems)))
+        if cache is not None:
+            my_leads: Dict = {}
+            solve_idx = []
+            for i, pts in enumerate(pts_list):
+                _, time_scale, hour = problems[i]
+                eff_hour = 12 if hour is None else int(hour) % 24
+                # (live epoch, install gen) and model generation: always
+                # zero in the port (no live metric, no hot-swap).
+                key = (pts.tobytes(), len(pts), float(time_scale),
+                       eff_hour, (0, 0), 0)
+                keys[i] = key
+                lead = my_leads.get(key)
+                if lead is not None:
+                    # duplicate inside this batch: share the lead's
+                    # legs (waiting on our own flight would deadlock)
+                    aliases.append((i, lead))
+                    continue
+                state, val = cache.lookup(key)
+                if state == "hit":
+                    out[i] = val
+                elif state == "wait":
+                    waits.append((i, val))
+                else:
+                    my_leads[key] = i
+                    solve_idx.append(i)
+        try:
+            if solve_idx:
+                self._solve_problems(problems, pts_list, counts, solve_idx,
+                                     out, copy_rows=cache is not None)
+        except BaseException as e:
+            if cache is not None:
+                for i in solve_idx:
+                    cache.abort(keys[i], e)
+            raise
+        if cache is not None:
+            for i in solve_idx:
+                cache.commit(keys[i], out[i], out[i].nbytes())
+        for i, lead in aliases:
+            out[i] = out[lead]
+        if waits:
+            # A parked waiter must not outlive its request's deadline.
+            dl = current_deadline()
+            budget = None if dl is None else max(0.0, dl - time.monotonic())
+            for i, flight in waits:
+                out[i] = cache.wait(flight, budget)
+        return out
+
+    def _solve_problems(self, problems, pts_list, counts, solve_idx, out, *,
+                        copy_rows: bool) -> None:
+        """Snap + grouped solves + :class:`RoadLegs` for the selected
+        problems. ``copy_rows`` detaches each problem's rows from the
+        group's arrays so a cached entry never pins a whole group."""
+        sel_counts = [counts[i] for i in solve_idx]
+        offsets = np.concatenate([[0], np.cumsum(sel_counts)])
+        all_pts = np.concatenate([pts_list[i] for i in solve_idx], axis=0)
+        # snap() builds an (M, N) haversine table: chunk its rows.
+        snap_chunk = max(1, (16 << 20) // max(self.n_nodes, 1))
+        all_nodes = np.concatenate([
+            self.snap(all_pts[i:i + snap_chunk])
+            for i in range(0, len(all_pts), snap_chunk)])
+        # First/last mile: the point↔snapped-node gap is charged into
+        # every leg (at collector free-flow for the duration).
+        all_snap = haversine_np(
+            all_pts[:, 0], all_pts[:, 1],
+            self.coords[all_nodes, 0],
+            self.coords[all_nodes, 1]).astype(np.float32)
+
+        budget = _legs_batch_row_budget(self.n_nodes)
+        groups: List[List[int]] = []
+        cur: List[int] = []
+        rows = 0
+        for j, m in enumerate(sel_counts):
+            if cur and rows + m > budget:
+                groups.append(cur)
+                cur, rows = [], 0
+            cur.append(j)
+            rows += m
+        if cur:
+            groups.append(cur)
+
+        def _rows(a, lo, hi):
+            return a[lo:hi].copy() if copy_rows else a[lo:hi]
+
+        for g in groups:
+            sel = np.concatenate([np.arange(offsets[j], offsets[j + 1])
+                                  for j in g])
+            dist, pred = self.shortest(all_nodes[sel])
+            pos = 0
+            for j in g:
+                i = solve_idx[j]
+                m = sel_counts[j]
+                _, time_scale, hour = problems[i]
+                eff_hour = 12 if hour is None else int(hour) % 24
+                out[i] = RoadLegs(
+                    self, pts_list[i],
+                    all_nodes[offsets[j]:offsets[j + 1]],
+                    _rows(dist, pos, pos + m), _rows(pred, pos, pos + m),
+                    all_snap[offsets[j]:offsets[j + 1]],
+                    time_scale, self.edge_time_s(eff_hour),
+                    self.leg_cost_model, hour=eff_hour)
+                pos += m
+
+
+_SNAP_SPEED_MPS = 8.3  # first/last-mile charged at collector free-flow
+
+
+def _legs_batch_row_budget(n_nodes: int) -> int:
+    """Max source rows per grouped batch solve: bounds each dist f32 +
+    pred i32 fetch to ~64 MB whatever the graph size (clamped so tiny
+    graphs still group generously and huge ones keep ≥16 rows)."""
+    return max(16, min(512, (64 << 20) // (8 * max(n_nodes, 1))))
+
+
+class RoadLegs:
+    """Lazy, memoized per-leg view over one batched shortest-path solve."""
+
+    def __init__(self, router: RoadRouter, points: np.ndarray,
+                 nodes: np.ndarray, dist: np.ndarray, pred: np.ndarray,
+                 snap_m: np.ndarray, time_scale: float,
+                 time_s: Optional[np.ndarray] = None,
+                 cost_model: str = "freeflow",
+                 hour: int = 12) -> None:
+        self._r = router
+        self._hour = hour
+        self._points = points
+        self._nodes = nodes
+        self._pred = pred
+        self._snap_m = snap_m
+        self._time_scale = time_scale
+        self._time_s = time_s if time_s is not None else router.freeflow_time_s
+        self.cost_model = cost_model
+        m = len(points)
+        # Full matrix (the VRP input): graph distance + first/last mile.
+        self.dist_m = dist[np.arange(m)[:, None], nodes[None, :]] \
+            + snap_m[:, None] + snap_m[None, :]
+        np.fill_diagonal(self.dist_m, 0.0)
+        self._dist_rows = dist            # (M, N): duration_matrix masks by it
+        self._dur_rows: Optional[np.ndarray] = None
+        self._memo: Dict[Tuple[int, int], Tuple[float, float, list]] = {}
+        self._cost_memo: Dict[Tuple[int, int], Tuple[float, float]] = {}
+
+    def nbytes(self) -> int:
+        """Resident bytes a cached entry pins (the route fast lane's
+        byte-budget input) — the (M, N) solve rows dominate."""
+        n = self._pred.nbytes + self._dist_rows.nbytes + self.dist_m.nbytes
+        if self._dur_rows is not None:
+            n += self._dur_rows.nbytes
+        return int(n)
+
+    def _walk_cost(self, i: int, j: int):
+        """Memoized (node_seq, distance_m, duration_s) for leg i→j: ONE
+        place owns the walk and the duration formula. ``node_seq`` is []
+        when unreachable."""
+        cached = self._cost_memo.get((i, j))
+        if cached is not None:
+            return cached
+        node_seq = self._r._walk(self._pred[i], int(self._nodes[i]),
+                                 int(self._nodes[j]))
+        if not node_seq:
+            out = ([], float("inf"), float("inf"))
+        else:
+            # pred[i][b] is by construction the edge that enters b here
+            dur = self._time_scale * (
+                float(sum(self._time_s[int(self._pred[i][b])]
+                          for b in node_seq[1:]))
+                + (self._snap_m[i] + self._snap_m[j]) / _SNAP_SPEED_MPS)
+            out = (node_seq, float(self.dist_m[i, j]), float(dur))
+        self._cost_memo[(i, j)] = out
+        return out
+
+    def reprice_trips(self, trips) -> Dict[Tuple[int, int], float]:
+        """Route-context leg durations from the route transformer:
+        ``{(i, j): duration_s}`` per leg of the solved trips (stop-index
+        lists), or ``{}`` when no transformer serves this graph or a leg
+        is unwalkable (callers keep base pricing)."""
+        per_trip = self._reprice([[int(s) for s in t] for t in trips])
+        if per_trip is None:
+            return {}
+        out: Dict[Tuple[int, int], float] = {}
+        for legs in per_trip:
+            out.update(legs)
+        return out
+
+    def reprice_orders(self, orders):
+        """Transformer durations for candidate single-trip orders → list
+        of total route seconds (None per order when unavailable)."""
+        per_trip = self._reprice([[int(s) for s in o] for o in orders])
+        if per_trip is None:
+            return [None] * len(orders)
+        return [sum(d for _, d in legs.items()) for legs in per_trip]
+
+    def _reprice(self, trips):
+        """Shared core: trips → ``{(i, j): duration_s}`` per trip, or
+        None. Each trip's legs concatenate into one edge sequence
+        (origin → stops → origin), chunked into ``seq_len`` windows with
+        window-local positions (the training distribution), and priced
+        in ONE forward on the router's device."""
+        t = self._r._transformer
+        if t is None or not trips:
+            return None
+        model, seq_len = t
+        r = self._r
+        trip_legs: list = []   # per trip: [((a, b), [edge ids]), ...]
+        for trip in trips:
+            seq = [0] + [s + 1 for s in trip] + [0]
+            legs = []
+            for a, b in zip(seq[:-1], seq[1:]):
+                if a == b:
+                    continue
+                node_seq, _m, _s = self._walk_cost(a, b)
+                if not node_seq:
+                    return None  # unwalkable leg: keep base pricing
+                legs.append(((a, b),
+                             [int(self._pred[a][n]) for n in node_seq[1:]]))
+            trip_legs.append(legs)
+
+        windows: list = []   # (trip_idx, [edge ids])
+        for ti, legs in enumerate(trip_legs):
+            edges = [e for _, leg_edges in legs for e in leg_edges]
+            for start in range(0, len(edges), seq_len):
+                windows.append((ti, edges[start: start + seq_len]))
+        if not windows:
+            return [dict() for _ in trip_legs]
+        s_max = max(len(w) for _, w in windows)
+        feats = np.zeros((len(windows), s_max, model.n_features), np.float32)
+        freeflow = np.zeros((len(windows), s_max), np.float32)
+        mask = np.zeros((len(windows), s_max), np.float32)
+        for wi, (_, edges) in enumerate(windows):
+            e_ids = np.asarray(edges, np.int64)
+            k = len(e_ids)
+            feats[wi, :k] = edge_feature_array(
+                r.length_m[e_ids], r.speed_limit[e_ids],
+                r.road_class[e_ids], self._hour)
+            freeflow[wi, :k] = r.freeflow_time_s[e_ids]
+            mask[wi, :k] = 1.0
+        dev = r.device
+        try:
+            pred = model(torch.from_numpy(feats).to(dev),
+                         torch.from_numpy(freeflow).to(dev),
+                         torch.arange(s_max, device=dev),
+                         key_mask=torch.from_numpy(mask).to(dev)
+                         ).float().cpu().numpy()
+        except Exception as e:  # degrade to base pricing, drop the model
+            _log.error("route_transformer_apply_failed",
+                       error=f"{type(e).__name__}: {e}")
+            with r._model_lock:
+                r._transformer = None
+            return None
+
+        stream: Dict[int, list] = {ti: [] for ti in range(len(trip_legs))}
+        for wi, (ti, edges) in enumerate(windows):
+            stream[ti].extend(pred[wi, : len(edges)].tolist())
+        out: list = []
+        for ti, legs in enumerate(trip_legs):
+            flat = stream[ti]
+            offset = 0
+            priced: Dict[Tuple[int, int], float] = {}
+            for (a, b), edges in legs:
+                k = len(edges)
+                e_ids = np.asarray(edges, np.int64)
+                # Same physical floor as the GNN pricer.
+                leg_pred = np.maximum(
+                    np.asarray(flat[offset: offset + k], np.float32),
+                    r.length_m[e_ids] / 16.7)
+                offset += k
+                priced[(a, b)] = float(self._time_scale * (
+                    float(leg_pred.sum())
+                    + (self._snap_m[a] + self._snap_m[b]) / _SNAP_SPEED_MPS))
+            out.append(priced)
+        return out
+
+    def cost(self, i: int, j: int) -> Tuple[float, float]:
+        """(distance_m, duration_s) for waypoint leg i→j without the
+        polyline; same memoized walk as :meth:`leg`."""
+        if i == j:
+            return 0.0, 0.0
+        _, dist_m, dur = self._walk_cost(i, j)
+        return dist_m, dur
+
+    def duration_matrix(self) -> np.ndarray:
+        """(M, M) leg seconds for every waypoint pair from one device
+        table (``_time_table``), computed once per solve. Values match
+        the per-pair walk to f32 rounding (the sums re-associate)."""
+        if self._dur_rows is None:
+            r = self._r
+            n_rounds = max(1, (max(r.n_nodes - 1, 1)).bit_length())
+
+            def on_device(a):
+                return torch.from_numpy(np.ascontiguousarray(a)).to(r.device)
+
+            self._dur_rows = _time_table(
+                r._d_senders, on_device(self._pred.astype(np.int64)),
+                on_device(self._time_s), on_device(self._dist_rows),
+                n_rounds=n_rounds).cpu().numpy()
+        dur = self._dur_rows[:, self._nodes].astype(np.float64)
+        dur = self._time_scale * (
+            dur + (self._snap_m[:, None] + self._snap_m[None, :])
+            / _SNAP_SPEED_MPS)
+        np.fill_diagonal(dur, 0.0)
+        return dur
+
+    def leg(self, i: int, j: int) -> Tuple[float, float, List[List[float]]]:
+        """(distance_m, duration_s, [[lon, lat], …]) for waypoint leg i→j."""
+        if i == j:
+            return 0.0, 0.0, []
+        key = (i, j)
+        if key in self._memo:
+            return self._memo[key]
+        node_seq, dist_m, dur = self._walk_cost(i, j)
+        if not node_seq:
+            out = (float("inf"), float("inf"), [])
+        else:
+            poly = [[float(self._r.coords[n, 1]), float(self._r.coords[n, 0])]
+                    for n in node_seq]
+            # endpoints: exact request coordinates, not snapped nodes
+            poly.insert(0, [float(self._points[i, 1]), float(self._points[i, 0])])
+            poly.append([float(self._points[j, 1]), float(self._points[j, 0])])
+            out = (dist_m, dur, poly)
+        self._memo[key] = out
+        return out
+
+
+# Process-wide routers, one per device ("cuda", "cpu"), built on first use.
+_default_routers: Dict[str, RoadRouter] = {}
+_default_lock = threading.Lock()
+
+
+def default_router(device=None) -> RoadRouter:
+    """The process-wide router on ``device``: a real OSM extract when
+    ``ROAD_GRAPH_OSM`` points at one (``data/osm.py``), else the
+    generated Metro Manila network. A bad extract degrades to the
+    generator with a log line rather than taking down routing."""
+    dev = resolve_device(device, "default_router")
+    key = str(dev)
+    with _default_lock:
+        router = _default_routers.get(key)
+        if router is None:
+            osm_path = os.environ.get("ROAD_GRAPH_OSM")
+            if osm_path:
+                from routest_tpu_torch.data.osm import load_osm
+
+                try:
+                    router = RoadRouter(graph=load_osm(osm_path), device=dev)
+                except Exception as e:
+                    _log.error("osm_extract_unusable", path=osm_path,
+                               error=f"{type(e).__name__}: {e}")
+            if router is None:
+                router = RoadRouter(device=dev)
+            _default_routers[key] = router
+        return router

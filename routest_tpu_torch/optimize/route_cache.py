@@ -1,0 +1,170 @@
+"""Route-level fast lane: solved-route cache + singleflight.
+
+The counterpart of ``routest_tpu/optimize/route_cache.py``, host
+threading code: the SOLVED leg set (a
+:class:`~routest_tpu_torch.optimize.road_router.RoadLegs`) is cached
+under::
+
+    (waypoint bytes, waypoint count, time_scale, hour,
+     live metric epoch, road-model generation)
+
+The port serves no live metric and never swaps a road model, so the last
+two are always ``(0, 0)`` and ``0``. The budget is bytes
+(``ROUTEST_ROUTE_CACHE_MB``), since an entry pins (M, N) predecessor and
+distance rows; a TTL (``ROUTEST_ROUTE_CACHE_TTL_S``) is a freshness
+backstop; ``ROUTEST_ROUTE_CACHE=0`` turns it off. N concurrent identical
+problems cost ONE solve: followers park on the leader's flight, and a
+leader failure reaches every waiter and caches nothing. The JAX
+package's registry counters wait for the observability slice; the same
+counts are in :meth:`RouteCache.stats`.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import time
+from collections import OrderedDict
+from typing import Dict, Optional, Tuple
+
+def route_cache_config() -> Tuple[bool, int, float]:
+    """(enabled, byte budget, ttl seconds) from the env knobs
+    (``ROUTEST_ROUTE_CACHE`` on/off, ``ROUTEST_ROUTE_CACHE_MB``,
+    ``ROUTEST_ROUTE_CACHE_TTL_S``)."""
+    raw = os.environ.get("ROUTEST_ROUTE_CACHE", "1").strip().lower()
+    enabled = raw not in ("0", "off", "false", "no")
+    try:
+        budget_mb = float(os.environ.get("ROUTEST_ROUTE_CACHE_MB", "256"))
+    except ValueError:
+        budget_mb = 256.0
+    try:
+        ttl_s = float(os.environ.get("ROUTEST_ROUTE_CACHE_TTL_S", "300"))
+    except ValueError:
+        ttl_s = 300.0
+    return enabled, int(budget_mb * 1e6), ttl_s
+
+
+class _Flight:
+    """One in-progress solve other threads can wait on."""
+
+    __slots__ = ("event", "value", "error")
+
+    def __init__(self) -> None:
+        self.event = threading.Event()
+        self.value = None
+        self.error: Optional[BaseException] = None
+
+
+class RouteCache:
+    """Byte-budgeted LRU + TTL + singleflight over solved leg sets.
+
+    The protocol is split (unlike ``FastLane.predict``) because the
+    router solves MANY problems per call and wants cache misses from
+    one request batch grouped into shared device solves:
+
+    - :meth:`lookup` classifies a key → ``("hit", legs)``,
+      ``("wait", flight)`` or ``("lead", flight)``;
+    - the caller solves every lead, then :meth:`commit`\\ s (or
+      :meth:`abort`\\ s on failure);
+    - ``("wait", flight)`` resolves with :meth:`wait`.
+    """
+
+    WAIT_HARD_CAP_S = 120.0
+
+    def __init__(self, budget_bytes: int = 256_000_000,
+                 ttl_s: float = 300.0) -> None:
+        self.budget_bytes = int(budget_bytes)
+        self.ttl_s = float(ttl_s)
+        self._lock = threading.Lock()
+        # key -> (stored_monotonic, nbytes, legs)
+        self._cache: "OrderedDict[Tuple, Tuple[float, int, object]]" = \
+            OrderedDict()
+        self._bytes = 0
+        self._inflight: Dict[Tuple, _Flight] = {}
+        self._hits = self._misses = self._coalesced = self._evictions = 0
+
+    # ── bookkeeping ───────────────────────────────────────────────────
+
+    def stats(self) -> dict:
+        with self._lock:
+            total = self._hits + self._misses + self._coalesced
+            return {
+                "entries": len(self._cache),
+                "bytes": self._bytes,
+                "budget_bytes": self.budget_bytes,
+                "ttl_s": self.ttl_s,
+                "hits": self._hits,
+                "misses": self._misses,
+                "coalesced": self._coalesced,
+                "evictions": self._evictions,
+                "hit_rate": round((self._hits + self._coalesced)
+                                  / total, 4) if total else 0.0,
+            }
+
+    # ── the protocol ──────────────────────────────────────────────────
+
+    def lookup(self, key: Tuple):
+        """→ ("hit", legs) | ("wait", flight) | ("lead", flight)."""
+        now = time.monotonic()
+        with self._lock:
+            hit = self._cache.get(key)
+            if hit is not None:
+                stored, nbytes, legs = hit
+                if self.ttl_s <= 0 or now - stored <= self.ttl_s:
+                    self._cache.move_to_end(key)
+                    self._hits += 1
+                    return "hit", legs
+                del self._cache[key]
+                self._bytes -= nbytes
+            flight = self._inflight.get(key)
+            if flight is not None:
+                self._coalesced += 1
+                return "wait", flight
+            flight = _Flight()
+            self._inflight[key] = flight
+            self._misses += 1
+            return "lead", flight
+
+    def commit(self, key: Tuple, legs, nbytes: int) -> None:
+        """Leader publishes its solved legs; waiters wake; the LRU
+        evicts from the cold end until the byte budget holds. Entries
+        bigger than the whole budget publish to waiters but skip the
+        cache (they would evict everything for one key)."""
+        now = time.monotonic()
+        with self._lock:
+            flight = self._inflight.pop(key, None)
+            if nbytes <= self.budget_bytes:
+                old = self._cache.pop(key, None)
+                if old is not None:
+                    self._bytes -= old[1]
+                self._cache[key] = (now, int(nbytes), legs)
+                self._bytes += int(nbytes)
+                self._evict_locked()
+        if flight is not None:
+            flight.value = legs
+            flight.event.set()
+
+    def _evict_locked(self) -> None:
+        while self._bytes > self.budget_bytes and self._cache:
+            _, (_, nb, _) = self._cache.popitem(last=False)
+            self._bytes -= nb
+            self._evictions += 1
+
+    def abort(self, key: Tuple, error: BaseException) -> None:
+        """Leader failed: nothing cached, every waiter gets the error,
+        the next request solves fresh."""
+        with self._lock:
+            flight = self._inflight.pop(key, None)
+        if flight is not None:
+            flight.error = error
+            flight.event.set()
+
+    def wait(self, flight: _Flight, deadline_s: Optional[float] = None):
+        budget = self.WAIT_HARD_CAP_S if deadline_s is None \
+            else min(self.WAIT_HARD_CAP_S, deadline_s)
+        if not flight.event.wait(budget):
+            raise TimeoutError(
+                "route-fastlane wait exceeded the request budget")
+        if flight.error is not None:
+            raise flight.error
+        return flight.value

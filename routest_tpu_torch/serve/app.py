@@ -5,7 +5,8 @@ serves, with the same status codes, keys and error strings:
 
 - ETA: ``POST /api/predict_eta``, ``POST /api/predict_eta_batch``
   (JSON), the ``POST /api/predict`` proxy alias;
-- route optimization (great-circle legs): ``POST /api/request_route``,
+- route optimization (great-circle legs, or street-network legs with
+  ``road_graph: true``): ``POST /api/request_route``,
   ``POST /api/optimize_route`` (with ``use_ml_eta``, then persisted),
   ``POST /api/optimize_route_batch``, ``POST /api/matrix`` (JSON);
 - history: ``GET /api/history``, ``GET``/``DELETE /api/history/<id>``;
@@ -13,7 +14,8 @@ serves, with the same status codes, keys and error strings:
 
 Health keeps the degraded-not-down contract (always HTTP 200) and
 reports the scoring path (``checks.model.scoring``), the device
-(``checks.engine.mesh``) and the store (``checks.store``). The bus, SSE
+(``checks.engine.mesh``), the road router once one is built
+(``checks.engine.road_router``) and the store (``checks.store``). The bus, SSE
 tracking, auth and the binary wire path arrive with later slices; auth
 is required by ``ROUTEST_AUTH=require``, so that setting refuses to boot
 rather than serve an ungated ``DELETE``.
@@ -28,9 +30,11 @@ import time
 from typing import Optional
 
 import numpy as np
+import torch
 
 from routest_tpu_torch.core.config import Config, load_config
 from routest_tpu_torch.data.locations import locations_table
+from routest_tpu_torch.optimize import road_router
 from routest_tpu_torch.optimize.engine import (MAX_BATCH_PROBLEMS,
                                                optimize_route,
                                                optimize_route_batch,
@@ -432,6 +436,19 @@ def create_app(config: Optional[Config] = None,
         engine_res = {"status": "ok", "latency_ms": 0,
                       "engine": f"torch-{eta.device.type}",
                       "mesh": eta.mesh_info()}
+        # Road-router gauge, only once a router has been built on the
+        # app's device (probing would build the graph on a health
+        # check): which leg pricers are live, over what graph.
+        router = road_router._default_routers.get(
+            str(torch.device(device)))
+        if router is not None:
+            engine_res["road_router"] = {
+                "nodes": int(router.n_nodes),
+                "edges": int(len(router.senders)),
+                "leg_cost_model": router.leg_cost_model,
+                "transformer": bool(router.has_transformer),
+                **router.solver_info,
+            }
         model_res = {"status": "ok" if eta.available else "degraded",
                      "generation": eta.generation,
                      "fingerprint": eta.fingerprint,

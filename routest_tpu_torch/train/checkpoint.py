@@ -211,3 +211,109 @@ def default_model_path(cfg=None) -> str:
         "artifacts",
         "eta_mlp.msgpack",
     )
+
+
+# ── Road-GNN and route-transformer serving artifacts ──────────────────────
+#
+# Same MAGIC + header + msgpack layout as the ETA artifact, other format
+# tags. The header carries a fingerprint of the training graph (nodes
+# and edges): the router serves a learned leg pricer only over the graph
+# it was trained on, and falls back to free-flow physics otherwise.
+
+GNN_ARTIFACT_VERSION = 1
+TRANSFORMER_ARTIFACT_VERSION = 1
+
+
+def graph_fingerprint(node_coords: np.ndarray, senders: np.ndarray,
+                      receivers: np.ndarray, length_m: np.ndarray) -> dict:
+    """Nodes AND edges, as the JAX package's ``graph_fingerprint``: the
+    GNN's aggregation depends on the topology it was trained over."""
+    import zlib
+
+    def crc(a, dtype):
+        return int(zlib.crc32(np.ascontiguousarray(
+            np.asarray(a, dtype)).tobytes()))
+
+    return {
+        "n_nodes": int(np.asarray(node_coords).shape[0]),
+        "coords_crc32": crc(node_coords, np.float32),
+        "n_edges": int(len(senders)),
+        "edges_crc32": crc(senders, np.int32) ^ crc(receivers, np.int32)
+        ^ crc(length_m, np.float32),
+    }
+
+
+def load_gnn(path: str):
+    """→ (``RoadGNN`` module on the CPU, params numpy pytree, graph
+    fingerprint dict). Same format/version/feature-count errors as the
+    JAX ``load_gnn``."""
+    import dataclasses
+
+    import torch
+
+    from routest_tpu_torch.core.dtypes import DEFAULT_POLICY
+    from routest_tpu_torch.models.gnn import N_EDGE_FEATURES, RoadGNN
+
+    header, blob = _read_artifact(
+        path, MAGIC, "routest_tpu.road_gnn", (GNN_ARTIFACT_VERSION,),
+        kind="routest_tpu model artifact",
+        retrain_hint="retrain via scripts/train_gnn.py")
+    params = _unpackb(blob)
+    # Feature-ABI gate: the message MLP's input width pins the trained
+    # edge-feature count.
+    f_in = int(params["msg"][0]["w"].shape[0]) - 2 * int(header["hidden"])
+    if f_in != N_EDGE_FEATURES:
+        raise ValueError(
+            f"{path}: trained with {f_in} edge features, this build uses "
+            f"{N_EDGE_FEATURES}; retrain via scripts/train_gnn.py")
+    compute = getattr(torch, header.get("compute_dtype", "bfloat16"))
+    policy = dataclasses.replace(DEFAULT_POLICY, compute_dtype=compute)
+    model = RoadGNN.from_numpy(params, n_nodes=header["n_nodes"],
+                               hidden=header["hidden"],
+                               n_rounds=header["n_rounds"], policy=policy)
+    return model, params, header.get("graph") or {}
+
+
+def load_transformer(path: str):
+    """→ (``RouteTransformer`` module on the CPU, params numpy pytree,
+    meta) where meta carries the graph fingerprint and the trained
+    ``seq_len``."""
+    from routest_tpu_torch.models.gnn import N_EDGE_FEATURES
+    from routest_tpu_torch.models.route_transformer import RouteTransformer
+
+    header, blob = _read_artifact(
+        path, MAGIC, "routest_tpu.route_transformer",
+        (TRANSFORMER_ARTIFACT_VERSION,),
+        kind="routest_tpu model artifact",
+        retrain_hint="retrain via scripts/train_transformer.py")
+    params = _unpackb(blob)
+    # Same feature-ABI gate as load_gnn: the embed matrix pins the
+    # trained edge-feature count.
+    f_in = int(params["embed"]["w"].shape[0])
+    if f_in != N_EDGE_FEATURES:
+        raise ValueError(
+            f"{path}: trained with {f_in} edge features, this build uses "
+            f"{N_EDGE_FEATURES}; retrain via scripts/train_transformer.py")
+    model = RouteTransformer.from_numpy(
+        params, d_model=header["d_model"], n_heads=header["n_heads"],
+        n_layers=header["n_layers"], d_mlp=header["d_mlp"])
+    return model, params, {"graph": header.get("graph") or {},
+                           "seq_len": int(header.get("seq_len", 24))}
+
+
+def _artifact(name: str) -> str:
+    return os.path.join(
+        os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+        "artifacts", name)
+
+
+def default_gnn_path() -> str:
+    """``ROAD_GNN_PATH`` env override, then the in-repo artifact."""
+    return os.getenv("ROAD_GNN_PATH") or _artifact("road_gnn.msgpack")
+
+
+def default_transformer_path() -> str:
+    """``ROUTE_TRANSFORMER_PATH`` env override, then the in-repo
+    artifact."""
+    return (os.getenv("ROUTE_TRANSFORMER_PATH")
+            or _artifact("route_transformer.msgpack"))

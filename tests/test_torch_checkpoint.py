@@ -119,9 +119,10 @@ def test_default_model_path(monkeypatch):
 
 
 def test_import_isolation_subprocess():
-    """The port, its app, its route-optimization modules and its artifact
-    reader load with jax, flax, msgpack, werkzeug and the JAX package all
-    unimportable."""
+    """The port, its app, its route-optimization and road-routing
+    modules and its artifact readers load (the default road router with
+    its GNN and transformer included) with jax, flax, msgpack, werkzeug
+    and the JAX package all unimportable."""
     code = f"""
 import sys
 for m in ("jax", "flax", "msgpack", "werkzeug", "routest_tpu"):
@@ -135,9 +136,17 @@ import routest_tpu_torch.core.prng
 import routest_tpu_torch.optimize.engine
 import routest_tpu_torch.optimize.ranking
 import routest_tpu_torch.serve.store
+import routest_tpu_torch.data.osm
+import routest_tpu_torch.optimize.hierarchy
+import routest_tpu_torch.optimize.route_cache
+import routest_tpu_torch.models.gnn
+import routest_tpu_torch.models.route_transformer
+from routest_tpu_torch.optimize.road_router import RoadRouter
 from routest_tpu_torch.train.checkpoint import load_model
 model, params = load_model({os.path.join(REPO, "artifacts", "eta_mlp.msgpack")!r})
 assert model.quantiles == (0.1, 0.5, 0.9), model.quantiles
+router = RoadRouter(device="cpu")
+assert router.leg_cost_model == "gnn" and router.has_transformer
 bad = [m for m in sys.modules if m.split(".")[0] in
        ("jax", "flax", "msgpack", "werkzeug", "routest_tpu")
        and sys.modules[m] is not None]

@@ -158,14 +158,20 @@ def test_top_k_at_10_stops_fills_alternatives():
 
 @pytest.mark.parametrize("extra", [{}, {"refine": True}, {"top_k": 3}])
 def test_road_graph_is_an_explicit_error(extra):
-    body = _req(3, road_graph=True, **extra)
-    assert teng.optimize_route(body, device="cpu") == {
-        "error": "road graph unavailable: not yet ported"}
+    """``road_graph: true`` bodies answer what the JAX engine answers
+    (street-network legs; the road phase's own tests are in
+    ``tests/test_torch_road_serve.py``), single and in a batch."""
+    body = _req(3, road_graph=True, pickup_time="2026-10-14T08:30:00",
+                **extra)
+    _same(teng.optimize_route(body, device="cpu"), jeng.optimize_route(body))
     out = teng.optimize_route_batch([body, _req(2)], device="cpu")
     # as in the JAX batch, a top_k > 1 item is refused before its road flag
-    want = ("top_k is a per-problem feature; use /api/optimize_route"
-            if extra.get("top_k") else teng.ROAD_GRAPH_ERROR)
-    assert out[0] == {"error": want}
+    if extra.get("top_k"):
+        assert out[0] == {"error": "top_k is a per-problem feature; "
+                                   "use /api/optimize_route"}
+    else:
+        _same(out[0], jeng.optimize_route(body))
+        assert out[0]["properties"]["leg_cost_model"] == "transformer"
     assert "error" not in out[1]
     # validation still runs first
     assert "finite" in teng.optimize_route(
@@ -265,9 +271,12 @@ def test_travel_matrix_at_64_points():
 
 
 def test_travel_matrix_road_graph_is_an_explicit_error():
-    body = {"points": _points([1, 2]), "road_graph": True}
-    assert teng.travel_matrix(body, device="cpu") == {
-        "error": "road graph unavailable: not yet ported"}
+    """A road-graph matrix equals the JAX engine's."""
+    body = {"points": _points([1, 2]), "road_graph": True,
+            "pickup_time": "2026-10-14T08:30:00"}
+    got = teng.travel_matrix(body, device="cpu")
+    _same(got, jeng.travel_matrix(body))
+    assert got["road_graph"] is True and got["leg_cost_model"] == "gnn"
 
 
 def test_geo_matches():

@@ -248,13 +248,18 @@ def test_matrix_endpoint_matches(clients, name):
 
 
 def test_road_graph_endpoints_answer_400(clients):
-    _, tclient = clients
-    for path, body in (("/api/optimize_route", _req(3, road_graph=True)),
+    """``road_graph: true`` on both endpoints answers what the JAX app
+    answers (street-network legs)."""
+    jclient, tclient = clients
+    for path, body in (("/api/optimize_route",
+                        _req(3, road_graph=True,
+                             pickup_time="2026-10-14T08:30:00")),
                        ("/api/matrix", {"points": [_pt(1), _pt(2)],
-                                        "road_graph": True})):
-        r = tclient.post(path, json=body)
-        assert (r.status_code, r.get_json()) == (
-            400, {"error": "road graph unavailable: not yet ported"})
+                                        "road_graph": True,
+                                        "pickup_time": "2026-10-14T08:30:00"})):
+        jr, tr = jclient.post(path, json=body), tclient.post(path, json=body)
+        assert tr.status_code == jr.status_code == 200
+        _same(tr.get_json(), jr.get_json())
 
 
 def test_locations_match(clients):
