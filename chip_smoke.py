@@ -53,9 +53,27 @@ of which fails the run:
    against the CPU router; then the Manila arterials extract with its
    GNN (``ROAD_GRAPH_OSM``/``ROAD_GNN_PATH``) at 5 bodies per kind;
    solve ms per source bucket, sweeps and syncs per solve, GNN and
-   transformer forward ms, and the flat solve on the 8192-node metro
-   extract as a record;
-8. times at each serving bucket and two larger batches, per variant: the
+   transformer forward ms;
+8. overlay: street routing at metro scale through the partition overlay
+   (``HierarchicalIndex``). (a) The 8192-node metro extract at default
+   knobs, a router on the card and one on the CPU: build time by stage
+   (contraction, partition, each level, hub labels), the overlay's stats
+   equal to the CPU build's, solves at 2, 16 and 64 sources bitwise the
+   CPU router's (distances and predecessors), solve ms (CUDA events),
+   ``timed_query`` stage ms, device kernels (``torch.profiler``), torch
+   ops and host syncs per solve, and the same solves through the flat
+   solver (``ROUTEST_HIER_MIN_NODES=0``) for comparison. (b) The metro
+   extract as a deployment (``ROAD_GRAPH_OSM``): 10 stops, 10 stops with
+   ``use_ml_eta``, 10 stops with ``top_k: 5`` and a 64-point matrix
+   through the port's app on ``cuda`` against one on the CPU (as in
+   phase 7), health reading ``"solver": "hierarchy"``. (c) A 50,066-node
+   OSM-topology extract made here from seed 0 (``generate_road_graph(8543,
+   k=4)``, two bends per street, 10% one-way, through ``save_osm`` /
+   ``load_osm``): build time, cold and warm 16-source solves with stage
+   ms, and every distance within 1e-6 relative of scipy's float64
+   Dijkstra, reachability agreeing both ways; the flat solver's solve of
+   the same sources beside them;
+9. times at each serving bucket and two larger batches, per variant: the
    kernel's device time per launch (a CUDA graph of 20 launches, replayed,
    timed with CUDA events), for bf16 and int8 with 16- and 32-row
    tiles; back-to-back eager launches and the wrapper's host cost to
@@ -65,7 +83,8 @@ of which fails the run:
    H100 SXM data sheet).
 
 The lines before the last are one ``{"optimize": {...}}``, one
-``{"road": {...}}`` and one ``{"kernels": [...]}`` JSON object and the
+``{"road": {...}}``, one ``{"overlay": {...}}`` and one ``{"kernels":
+[...]}`` JSON object and the
 card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
 there is no card or a phase fails.
@@ -973,9 +992,34 @@ def _same_road(got, want, path=""):
 
 
 def _relax_counts():
-    from routest_tpu_torch.optimize.hierarchy import relax_from
+    """(relaxations, sweeps, host checks) so far: the flat sweep's and
+    the overlay's in-cell (ELL) relaxations together."""
+    from routest_tpu_torch.optimize.hierarchy import _relax_ell, relax_from
 
-    return relax_from.calls, relax_from.sweeps, relax_from.checks
+    return (relax_from.calls + _relax_ell.calls,
+            relax_from.sweeps + _relax_ell.sweeps,
+            relax_from.checks + _relax_ell.checks)
+
+
+class _SolveCounter:
+    """Counts a router's device solves (``_solve_rows`` calls) while in
+    the ``with`` block."""
+
+    def __init__(self, router):
+        self.router, self.n = router, 0
+
+    def __enter__(self):
+        real = type(self.router)._solve_rows
+
+        def counted(sources):
+            self.n += 1
+            return real(self.router, sources)
+
+        self.router._solve_rows = counted
+        return self
+
+    def __exit__(self, *exc):
+        del self.router._solve_rows
 
 
 def _hold_router(card, cpu, label, rng):
@@ -1005,11 +1049,15 @@ def _hold_router(card, cpu, label, rng):
     return worst
 
 
-def _serve_road(kinds, reps, label):
+def _serve_road(kinds, reps, label, pricers=("transformer", "gnn"),
+                solver="flat_bf"):
     """Each kind's bodies through an app on the CPU, then on the card;
-    → (records per kind, fused launches over the use_ml_eta kinds)."""
+    → (records per kind, fused launches over the use_ml_eta kinds).
+    ``pricers``: the leg pricers the answers and health may name (the
+    first is health's); ``solver``: the solver health must name."""
     from routest_tpu_torch.core.config import Config, ServeConfig
     from routest_tpu_torch.ops.fused_mlp import fused_eta_forward
+    from routest_tpu_torch.optimize import road_router
     from routest_tpu_torch.serve.ml_service import EtaService
 
     artifact = os.path.join(ROOT, "artifacts", "eta_mlp.msgpack")
@@ -1031,19 +1079,23 @@ def _serve_road(kinds, reps, label):
 
     svc = EtaService(ServeConfig(), model_path=artifact, device="cuda")
     check(svc.available, f"EtaService not serving: {svc.load_error}")
-    on_card, launches, relax = {}, {}, {}
+    on_card, launches, relax, solves = {}, {}, {}, {}
+    card_router = road_router.default_router("cuda")
     with _Server(svc) as srv:
         _serve_kinds(srv.port, warm)
         for kind in kinds:
             fused_eta_forward.launches = 0
             before = _relax_counts()
-            on_card.update(_serve_kinds(srv.port, {kind: bodies[kind]}))
+            with _SolveCounter(card_router) as counter:
+                on_card.update(_serve_kinds(srv.port, {kind: bodies[kind]}))
+            solves[kind] = counter.n
             launches[kind] = fused_eta_forward.launches
             relax[kind] = [a - b for a, b in zip(_relax_counts(), before)]
         syncs = _count_syncs(srv.port, sync_bodies)
         status, health = _request(srv.port, "GET", "/api/health")
         block = health["checks"]["engine"].get("road_router") or {}
-        check(status == 200 and block.get("leg_cost_model") == "gnn",
+        check(status == 200 and block.get("leg_cost_model") == pricers[-1]
+              and block.get("solver") == solver,
               f"{label}: health road_router {block}")
     engine_card = _engine_ms(engine_bodies, "cuda")
 
@@ -1052,16 +1104,18 @@ def _serve_road(kinds, reps, label):
         for got, want in zip(on_card[kind][0], on_cpu[kind][0]):
             _same_road(got, want, kind)
         card_ms, cpu_ms = on_card[kind][1], on_cpu[kind][1]
-        solves, sweeps, checks = relax[kind]
+        relaxations, sweeps, checks = relax[kind]
+        n_solves = max(solves[kind], 1)
         records[kind] = {
             "requests": n[kind], "median_ms": _median(card_ms),
             "p90_ms": sorted(card_ms)[max(0, int(0.9 * n[kind]) - 1)],
             "engine_ms": engine_card[kind],
             "cpu_median_ms": _median(cpu_ms),
             "syncs_per_request": syncs[kind],
-            "solves_per_request": solves / n[kind],
-            "sweeps_per_solve": sweeps / max(solves, 1),
-            "checks_per_solve": checks / max(solves, 1),
+            "solves_per_request": solves[kind] / n[kind],
+            "relaxations_per_solve": relaxations / n_solves,
+            "sweeps_per_solve": sweeps / n_solves,
+            "checks_per_solve": checks / n_solves,
             "fused_launches": launches[kind]}
         if ROAD_KINDS[kind][2]:
             check(launches[kind] > 0, f"{label} {kind}: no fused launch")
@@ -1069,15 +1123,15 @@ def _serve_road(kinds, reps, label):
             check(all(len(a["properties"]["alternatives"]) == 5
                       for a in on_card[kind][0]), "top_k 5: alternatives")
         if ROAD_KINDS[kind][0] == "/api/optimize_route":
-            check(all(a["properties"]["leg_cost_model"] in ("transformer",
-                                                             "gnn")
+            check(all(a["properties"]["leg_cost_model"] in pricers
                       for a in on_card[kind][0]), f"{kind}: leg pricer")
         r = records[kind]
         print(f"[road] {label} {kind:26s} cuda median {r['median_ms']:.2f} "
               f"ms (p90 {r['p90_ms']:.2f}) over {n[kind]}; engine "
               f"{r['engine_ms']:.2f} ms; syncs/request "
               f"{r['syncs_per_request']:.1f}; solves/request "
-              f"{r['solves_per_request']:.2f}, sweeps/solve "
+              f"{r['solves_per_request']:.2f}, relaxations/solve "
+              f"{r['relaxations_per_solve']:.1f}, sweeps/solve "
               f"{r['sweeps_per_solve']:.1f}; fused launches "
               f"{r['fused_launches']}; port on the CPU "
               f"{r['cpu_median_ms']:.2f} ms")
@@ -1125,12 +1179,10 @@ def phase_road():
     default deployment (generated 2048-node graph, road GNN, route
     transformer) and the real-data one (Manila arterials extract with
     its GNN), each held against the same deployment on the CPU path;
-    solve, GNN and transformer timings; the flat solve on the 8192-node
-    metro extract as a record. → (record, fused launches)."""
+    solve, GNN and transformer timings. → (record, fused launches)."""
     import numpy as np
     import torch
 
-    from routest_tpu_torch.data.osm import load_osm
     from routest_tpu_torch.models.gnn import N_EDGE_FEATURES
     from routest_tpu_torch.optimize import road_router
 
@@ -1202,35 +1254,348 @@ def phase_road():
         os.environ.pop("ROAD_GNN_PATH", None)
         road_router._default_routers.clear()
         road_router._default_routers.update(saved)
-
-    # Record only: the JAX package routes graphs this size through its
-    # partition overlay, so there is no flat JAX counterpart to compare.
-    metro_graph = load_osm(os.path.join(ROOT, METRO_OSM))
-    metro_sources = {b: rng.integers(0, len(metro_graph["node_coords"]), b)
-                     for b in (2, 16)}
-    metro = {}
-    for dev in ("cuda", "cpu"):
-        router = road_router.RoadRouter(graph=metro_graph, use_gnn=False,
-                                        use_transformer=False, device=dev)
-        metro[dev] = {b: _solve_record(router, src, 10 if dev == "cuda"
-                                       else 3)
-                      for b, src in metro_sources.items()}
-    print(f"[road] metro 8192 ({router.n_nodes} nodes, {len(router.senders)}"
-          f" edges): " + "; ".join(
-              f"{b} sources cuda {metro['cuda'][b]['ms']:.3f} ms "
-              f"({metro['cuda'][b]['sweeps']} sweeps, "
-              f"{metro['cuda'][b]['syncs']} syncs), CPU path "
-              f"{metro['cpu'][b]['ms']:.3f} ms" for b in (2, 16)))
     record = {"kinds": kinds, "manila": manila, "solve_ms": solve_ms,
               "gnn_forward_ms": gnn_ms, "transformer_forward_ms": tf_ms,
               "transformer_windows": [windows, seq_len],
               "gnn_edge_time_max_rel_err": gnn_err,
               "router_build_s": build_s,
-              "metro_8192": {"nodes": router.n_nodes,
-                             "edges": len(router.senders), **metro},
               "fused_launches": fused + m_fused}
     print(json.dumps({"road": record}))
     return record, fused + m_fused
+
+
+# Source buckets of the metro overlay solves (a 1-stop route, a 10-stop
+# route or the matrix's 32-row chunks, and the 64-point matrix solved
+# whole), timed reps per bucket, and requests per serving kind.
+OVERLAY_BUCKETS = (2, 16, 64)
+OVERLAY_REPS = 10
+OVERLAY_SERVE_REPS = {"default": 10}
+OVERLAY_KINDS = ("road_10_stops", "road_10_stops_ml_eta",
+                 "road_10_stops_top_k5", "road_matrix_64")
+# The 50,066-node OSM-topology extract: intersections of the k=4 kNN
+# street graph, 2 bends per street, 10% one-way (the scale bench's first
+# row, scripts/bench_osm_scale.py).
+OSM50K_INTERSECTIONS = 8543
+OSM50K_GAP = 1e-6
+# The device the overlay phase holds against the CPU path (a rehearsal
+# on a host without a card sets it to "cpu").
+CARD = "cuda"
+
+
+def _strip_timings(d):
+    """A stats dict without its ``*_s`` wall-clock entries."""
+    if isinstance(d, dict):
+        return {k: _strip_timings(v) for k, v in d.items()
+                if not k.endswith("_s")}
+    if isinstance(d, list):
+        return [_strip_timings(x) for x in d]
+    return d
+
+
+def _event_ms(fn, reps):
+    """Median ms of ``fn`` between two CUDA events (the device timeline
+    from the first enqueue to the last completion, host waits inside
+    included)."""
+    import torch
+
+    if CARD != "cuda":
+        return _cpu_ms(fn, reps)
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    return _median(times)
+
+
+def _stage_ms(index, sources):
+    """Median ms per query stage over ``OVERLAY_REPS`` ``timed_query``
+    calls (after one warm-up)."""
+    index.timed_query(sources)
+    runs = [index.timed_query(sources)[1] for _ in range(OVERLAY_REPS)]
+    return {k: _median([r[k] for r in runs]) for k in runs[0]}
+
+
+def _device_work(fn):
+    """→ {aten_ops, cuda_kernels, cuda_memcpy, syncs} of one call of
+    ``fn``: torch ops dispatched (a ``TorchDispatchMode``), device kernel
+    and copy events (``torch.profiler``; None when it records no device
+    activity), and host syncs (torch's sync debug mode)."""
+    import warnings
+
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class _Ops(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    out = {"aten_ops": None, "cuda_kernels": None, "cuda_memcpy": None,
+           "syncs": None}
+    fn()
+    with _Ops() as ops:
+        fn()
+    out["aten_ops"] = ops.n
+    if CARD != "cuda":
+        return out
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    except Exception as e:  # a record, not a check: keep the phase going
+        print(f"[overlay] torch.profiler unavailable: {type(e).__name__}: "
+              f"{e}")
+        dev = []
+    if dev:
+        copies = sum(e.name.startswith(("Memcpy", "Memset")) for e in dev)
+        out["cuda_kernels"] = len(dev) - copies
+        out["cuda_memcpy"] = copies
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    out["syncs"] = sum("synchronizing CUDA operation" in str(w.message)
+                       for w in caught)
+    return out
+
+
+def _overlay_metro(rng):
+    """(a): the metro extract's overlay built on the card and on the CPU
+    path, its solves held bitwise to the CPU path's, timed and counted;
+    the flat solver's solves beside them. → record."""
+    from routest_tpu_torch.data.osm import load_osm
+    from routest_tpu_torch.optimize import hierarchy, road_router
+
+    graph = load_osm(os.path.join(ROOT, METRO_OSM))
+    routers, build_s = {}, {}
+    for dev in (CARD, "cpu"):
+        t0 = time.perf_counter()
+        routers[dev] = road_router.RoadRouter(
+            graph=graph, use_gnn=False, use_transformer=False, device=dev)
+        build_s[dev] = time.perf_counter() - t0
+    card, cpu = routers[CARD], routers["cpu"]
+    check(card._hier is not None and cpu._hier is not None,
+          "metro: no overlay at default knobs")
+    check(card.solver_info["solver"] == "hierarchy", "metro solver")
+    stats = card._hier.stats
+    check(_strip_timings(stats) == _strip_timings(cpu._hier.stats),
+          "metro: the card's overlay stats differ from the CPU build's")
+    stages = {"contract_s": stats["contraction"]["contract_s"],
+              "partition_s": stats["partition_s"],
+              "levels_s": [lv["build_s"] for lv in stats["levels"]],
+              "labels_s": (stats.get("labels") or {}).get("build_s"),
+              "index_s": stats["build_s"], "router_s": build_s[CARD],
+              "cpu_index_s": cpu._hier.stats["build_s"],
+              "cpu_router_s": build_s["cpu"]}
+    print(f"[overlay] metro 8192: {stats['n_levels']} levels, cells "
+          f"{[lv['n_cells'] for lv in stats['levels']]}, c_max "
+          f"{[lv['c_max'] for lv in stats['levels']]}, b_max "
+          f"{[lv['b_max'] for lv in stats['levels']]}, hub labels "
+          f"{stats.get('labels', {}).get('nodes')}; built on {CARD} in "
+          f"{build_s[CARD]:.2f} s (index {stats['build_s']} s: contract "
+          f"{stages['contract_s']}, partition {stages['partition_s']}, "
+          f"levels {stages['levels_s']}, labels {stages['labels_s']}); "
+          f"CPU path {build_s['cpu']:.2f} s; stats equal")
+    os.environ["ROUTEST_HIER_MIN_NODES"] = "0"      # the flat solver
+    try:
+        flat = road_router.RoadRouter(graph=graph, use_gnn=False,
+                                      use_transformer=False, device=CARD)
+    finally:
+        os.environ.pop("ROUTEST_HIER_MIN_NODES")
+    check(flat._hier is None, "metro: ROUTEST_HIER_MIN_NODES=0 kept the "
+                              "overlay")
+    solves = {}
+    for bucket in OVERLAY_BUCKETS:
+        src = rng.integers(0, card.n_nodes, bucket)
+        cd, cp = card._solve_rows(src)
+        wd, wp = cpu._solve_rows(src)
+        check(cd.tobytes() == wd.tobytes() and (cp == wp).all(),
+              f"metro overlay: {bucket}-source solve differs from the CPU "
+              f"path")
+        before = [hierarchy._relax_ell.calls, hierarchy._relax_ell.sweeps,
+                  hierarchy._relax_ell.checks]
+        card._solve_rows(src)
+        ell = [a - b for a, b in zip(
+            [hierarchy._relax_ell.calls, hierarchy._relax_ell.sweeps,
+             hierarchy._relax_ell.checks], before)]
+        rec = {"ms": _event_ms(lambda: card._solve_rows(src), OVERLAY_REPS),
+               "cpu_ms": _cpu_ms(lambda: cpu._solve_rows(src), 3),
+               "stage_ms": _stage_ms(card._hier, src),
+               "ell_relaxations": ell[0], "ell_sweeps": ell[1],
+               "ell_checks": ell[2],
+               **_device_work(lambda: card._solve_rows(src)),
+               # sweeps and syncs from one run, ms on the same clock
+               "flat": {**_solve_record(flat, src, 1), "ms": _event_ms(
+                   lambda: flat._solve_rows(src), OVERLAY_REPS)}}
+        solves[bucket] = rec
+        print(f"[overlay] metro {bucket:2d} sources: bitwise the CPU path; "
+              f"{CARD} {rec['ms']:.3f} ms ({rec['ell_relaxations']} ELL "
+              f"relaxations, {rec['ell_sweeps']} sweeps, syncs "
+              f"{rec['syncs']}, kernels {rec['cuda_kernels']}, torch ops "
+              f"{rec['aten_ops']}); stages "
+              + ", ".join(f"{k} {v:.3f}" for k, v in rec["stage_ms"].items())
+              + f"; CPU path {rec['cpu_ms']:.3f} ms; flat {rec['flat']['ms']:.3f}"
+              f" ms ({rec['flat']['sweeps']} sweeps, {rec['flat']['syncs']}"
+              f" syncs)")
+    return {"nodes": card.n_nodes, "edges": len(card.senders),
+            "overlay": _strip_timings(stats), "build": stages,
+            "solves": solves}
+
+
+def _cpu_ms(fn, reps):
+    """Median wall ms of ``fn`` on the host."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return _median(times)
+
+
+def _overlay_serve():
+    """(b): the metro extract as a deployment (``ROAD_GRAPH_OSM``) through
+    the port's app on the card against the CPU path. → (records per
+    kind, fused launches over the use_ml_eta kind)."""
+    from routest_tpu_torch.optimize import road_router
+
+    saved = dict(road_router._default_routers)
+    road_router._default_routers.clear()
+    os.environ["ROAD_GRAPH_OSM"] = os.path.join(ROOT, METRO_OSM)
+    try:
+        card = road_router.default_router(CARD)
+        cpu = road_router.default_router("cpu")
+        check(card.solver_info["solver"] == cpu.solver_info["solver"]
+              == "hierarchy", "metro deployment: not on the overlay")
+        return _serve_road(OVERLAY_KINDS, OVERLAY_SERVE_REPS, "metro",
+                           pricers=("freeflow",), solver="hierarchy")
+    finally:
+        os.environ.pop("ROAD_GRAPH_OSM", None)
+        road_router._default_routers.clear()
+        road_router._default_routers.update(saved)
+
+
+def _overlay_50k(rng):
+    """(c): the 50,066-node OSM-topology extract, made from seed 0 and
+    written and re-read through the OSM format: build time, cold and
+    warm 16-source solves with stage ms, and the oracle gap. → record."""
+    import tempfile
+
+    import numpy as np
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import dijkstra
+
+    from routest_tpu_torch.data.osm import load_osm, save_osm
+    from routest_tpu_torch.data.road_graph import (generate_road_graph,
+                                                   subdivide_graph)
+    from routest_tpu_torch.optimize import road_router
+
+    t0 = time.perf_counter()
+    base = generate_road_graph(n_nodes=OSM50K_INTERSECTIONS, k=4, seed=0)
+    streets = subdivide_graph(base, bends_per_edge=2, oneway_frac=0.1,
+                              seed=0)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "metro50k.osm.gz")
+        save_osm(path, streets)
+        extract = load_osm(path)
+    make_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    router = road_router.RoadRouter(graph=extract, use_gnn=False,
+                                    use_transformer=False, device=CARD)
+    build_s = time.perf_counter() - t0
+    check(router._hier is not None, "50k: no overlay")
+    stats = router._hier.stats
+    pts = np.stack([rng.uniform(14.40, 14.68, 16),
+                    rng.uniform(120.96, 121.10, 16)], axis=1).astype(
+                        np.float32)
+    nodes = router.snap(pts)
+    t0 = time.perf_counter()
+    dist, pred = router._solve_rows(nodes)
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    warm_ms = _event_ms(lambda: router._solve_rows(nodes), OVERLAY_REPS)
+    stage_ms = _stage_ms(router._hier, nodes)
+    work = _device_work(lambda: router._solve_rows(nodes))
+    n = router.n_nodes
+    adj = sp.coo_matrix((router.length_m, (router.senders, router.receivers)),
+                        shape=(n, n)).tocsr()
+    want = dijkstra(adj, directed=True, indices=nodes.astype(np.int64))
+    finite = np.isfinite(want)
+    check(not (dist[finite] > 1e37).any() and not (dist[~finite] < 1e37).any(),
+          "50k: reachability differs from the oracle")
+    gap = float((np.abs(dist[finite] - want[finite])
+                 / np.maximum(want[finite], 1.0)).max())
+    check(gap <= OSM50K_GAP, f"50k: oracle gap {gap:.3g} > {OSM50K_GAP}")
+    os.environ["ROUTEST_HIER_MIN_NODES"] = "0"      # the flat solver
+    try:
+        flat = road_router.RoadRouter(graph=extract, use_gnn=False,
+                                      use_transformer=False, device=CARD)
+    finally:
+        os.environ.pop("ROUTEST_HIER_MIN_NODES")
+    flat_rec = {**_solve_record(flat, nodes, 1), "ms": _event_ms(
+        lambda: flat._solve_rows(nodes), 3)}
+    rec = {"nodes": n, "edges": len(router.senders), "make_s": make_s,
+           "router_build_s": build_s, "index_build_s": stats["build_s"],
+           "overlay": _strip_timings(stats),
+           "build": {"contract_s": stats["contraction"]["contract_s"],
+                     "partition_s": stats["partition_s"],
+                     "levels_s": [lv["build_s"] for lv in stats["levels"]],
+                     "labels_s": (stats.get("labels") or {}).get("build_s")},
+           "solve_cold_ms": cold_ms, "solve_warm_ms": warm_ms,
+           "stage_ms": stage_ms,
+           "reachable_frac": float(finite.mean()), "oracle_gap": gap,
+           "flat": flat_rec, **work}
+    print(f"[overlay] 50k extract: {n} nodes, {len(router.senders)} edges, "
+          f"{stats['contraction']['n_contracted']} contracted, "
+          f"{stats['n_levels']} levels, {stats.get('labels', {}).get('nodes')}"
+          f" label nodes; made in {make_s:.2f} s, router built in "
+          f"{build_s:.2f} s (index {stats['build_s']} s); 16 sources cold "
+          f"{cold_ms:.2f} ms, warm {warm_ms:.3f} ms (syncs {work['syncs']}, "
+          f"kernels {work['cuda_kernels']}); stages " + ", ".join(
+              f"{k} {v:.3f}" for k, v in rec["stage_ms"].items())
+          + f"; oracle gap {gap:.3g}, reachable {rec['reachable_frac']:.4f};"
+          f" flat {flat_rec['ms']:.3f} ms ({flat_rec['sweeps']} sweeps, "
+          f"{flat_rec['syncs']} syncs)")
+    return rec
+
+
+def phase_overlay():
+    """Street routing at metro scale through the partition overlay:
+    (a) the metro extract's overlay on the card held bitwise to the CPU
+    path, (b) the metro deployment served over HTTP, (c) the 50k extract
+    against scipy's Dijkstra. → (record, fused launches over (b)'s
+    use_ml_eta requests)."""
+    import numpy as np
+
+    rng = np.random.default_rng(8)
+    # Measure builds, not the per-user cache, and write nothing there.
+    os.environ["ROUTEST_HIER_CACHE"] = "0"
+    for var in ("ROAD_GRAPH_OSM", "ROAD_GNN_PATH", "ROUTE_TRANSFORMER_PATH",
+                "ROUTEST_HIER_MIN_NODES"):
+        os.environ.pop(var, None)
+    metro = _overlay_metro(rng)
+    kinds, fused = _overlay_serve()
+    osm50k = _overlay_50k(rng)
+    record = {"metro_8192": metro, "metro_serving": kinds,
+              "osm_50k": osm50k, "fused_launches": fused}
+    print(json.dumps({"overlay": record}))
+    return record, fused
 
 
 def phase_times(rng):
@@ -1327,6 +1692,8 @@ def main() -> int:
         _, optimize_launches = phase_optimize()
         phase = "road"
         _, road_launches = phase_road()
+        phase = "overlay"
+        _, overlay_launches = phase_overlay()
         phase = "times"
         table = phase_times(rng)
     except Exception as e:
@@ -1351,6 +1718,8 @@ def main() -> int:
     kernels[0]["launches_optimize"] = optimize_launches
     # ... and over the road phase's use_ml_eta requests
     kernels[0]["launches_road"] = road_launches
+    # ... and over the metro overlay deployment's use_ml_eta requests
+    kernels[0]["launches_overlay"] = overlay_launches
     print(json.dumps({"kernels": kernels}))
     print(f"{smi_line}")
     print(json.dumps({"ok": True, "device": {

@@ -6,12 +6,14 @@ geometry that follows the streets and durations from per-edge travel
 times (free-flow physics, or the road GNN when its artifact was trained
 on this graph, re-priced in route context by the route transformer).
 
-- **Solve** (device): a batched multi-source Bellman-Ford over the
-  receiver-sorted edges (``optimize/hierarchy.py``), ``_K_SWEEPS``
-  sweeps per host check, bounded by ``4√N + 8`` sweeps and re-run with
-  the exact ``N`` bound if that is exhausted; then tight-edge
-  predecessor recovery. Distances and predecessors equal the JAX
-  package's bit for bit.
+- **Solve** (device): below ``hier_min_nodes()`` nodes a batched
+  multi-source Bellman-Ford over the receiver-sorted edges
+  (``optimize/hierarchy.py``), ``_K_SWEEPS`` sweeps per host check,
+  bounded by ``4√N + 8`` sweeps and re-run with the exact ``N`` bound if
+  that is exhausted, then tight-edge predecessor recovery; at or above
+  it the partition overlay (``HierarchicalIndex``, loaded from its cache
+  file or built at construction) and its fused solve. Distances and
+  predecessors equal the JAX package's bit for bit on either path.
 - **Duration table** (device): pointer doubling over the predecessor
   trees (``_time_table``), for matrix responses.
 - **Host**: component bridging (union-find), snapping (a haversine
@@ -20,11 +22,10 @@ on this graph, re-priced in route context by the route transformer).
 
 Every tensor lives on the router's ``device`` (``cuda`` unless the
 caller asks for the CPU; asking for the card without one raises).
-Learned pricers load once, at construction. Not ported yet: the
-partition overlay and hub labels (Queue A item 11 — the port routes flat
-at every size), live traffic metrics (A12; ``live`` is always None), the
-verified GNN hot-swap and mtime reload, the AOT buckets, the trace spans
-and the efficiency ledger.
+Learned pricers load once, at construction. Not ported yet: live
+traffic metrics and overlay customization (``live`` is always None), the
+verified GNN hot-swap and mtime reload, the AOT solve buckets, the
+overlay gauges, the trace spans and the efficiency ledger.
 """
 
 from __future__ import annotations
@@ -43,8 +44,11 @@ from routest_tpu_torch.data.road_graph import (_CLASS_SPEED_MPS,
                                                generate_road_graph,
                                                haversine_np)
 from routest_tpu_torch.models.gnn import edge_feature_array
-from routest_tpu_torch.optimize.hierarchy import (_INF, hier_min_nodes,
-                                                  relax_from, tight_pred)
+from routest_tpu_torch.optimize.hierarchy import (_CACHE_VERSION, _INF,
+                                                  HierarchicalIndex,
+                                                  hier_cache_path,
+                                                  hier_min_nodes, relax_from,
+                                                  tight_pred)
 from routest_tpu_torch.optimize.route_cache import (RouteCache,
                                                     route_cache_config)
 from routest_tpu_torch.serve.deadline import current_deadline
@@ -98,6 +102,17 @@ def _bellman_ford(senders: torch.Tensor, receivers: torch.Tensor,
                                  max_iters=max_iters)
     pred = tight_pred(senders, receivers, w, dist, sources)
     return dist, pred, converged
+
+
+def _polish_sweeps() -> int:
+    """Flat-relaxation sweeps the overlay solve runs over its distances
+    before predecessor recovery (``ROUTEST_POLISH_SWEEPS``, default 1):
+    the values are already exact, so one sweep re-anchors every node's
+    assignment to a ``dist[s] + w`` proposal."""
+    try:
+        return max(1, int(os.environ.get("ROUTEST_POLISH_SWEEPS", "1")))
+    except ValueError:
+        return 1
 
 
 def _batcher_config() -> Tuple[bool, int, float]:
@@ -284,9 +299,6 @@ class RoadRouter:
         # A kNN street grid's hop diameter is O(√N): 4√N + 8 sweeps is a
         # comfortable first bound; an exhausted run re-runs with N.
         self.max_iters = int(4 * np.sqrt(self.n_nodes)) + 8
-        if hier_min_nodes() and self.n_nodes >= hier_min_nodes():
-            _log.info("flat_routing_above_overlay_threshold",
-                      nodes=self.n_nodes, threshold=hier_min_nodes())
 
         def on_device(a, dtype):
             return torch.from_numpy(np.asarray(a, dtype)).to(self.device)
@@ -305,6 +317,25 @@ class RoadRouter:
         self._bf_receivers = on_device(self.receivers[self._bf_perm],
                                        np.int64)
         self._bf_length = on_device(self.length_m[self._bf_perm], np.float32)
+        # Metro-scale graphs route through the partition overlay: the
+        # flat sweep count is the graph's hop diameter, O(√N). The
+        # overlay's cache file is the JAX package's format and name, so
+        # either package loads what the other built.
+        self._hier: Optional[HierarchicalIndex] = None
+        self._overlay_solve = None
+        hmin = hier_min_nodes()
+        if hmin and self.n_nodes >= hmin:
+            cache = hier_cache_path(self._fingerprint)
+            if cache and os.path.exists(cache):
+                self._hier = HierarchicalIndex.load(
+                    cache, fingerprint=self._fingerprint, device=self.device)
+            if self._hier is None:
+                self._hier = HierarchicalIndex.build(
+                    self.coords, self.senders, self.receivers,
+                    self.length_m, cache_path=cache,
+                    fingerprint=self._fingerprint, device=self.device)
+        if self._hier is not None:
+            self._overlay_solve = self._make_overlay_solve(self._hier)
 
         enabled, max_rows, window_s = _batcher_config()
         self._solve_batcher: Optional[_SolveBatcher] = (
@@ -337,14 +368,31 @@ class RoadRouter:
 
     @property
     def solver_info(self) -> Dict:
-        """Health's view of the solver: the flat sweep with its bound,
-        the batcher's merge stats and the route cache's counters."""
-        info = {"solver": "flat_bf", "max_iters_bound": self.max_iters}
+        """Health's view of the solver: the overlay with its build stats
+        and provenance, or the flat sweep with its bound; then the
+        batcher's merge stats and the route cache's counters. The keys
+        are the JAX router's (``aot_buckets`` is always empty here)."""
+        if self._hier is not None:
+            info = {"solver": "hierarchy",
+                    "overlay": dict(self._hier.stats)}
+            info["overlay"].setdefault("loaded_from_cache", False)
+            info["overlay"]["cache_version"] = _CACHE_VERSION
+            info["hub_labels"] = self._hier._labels is not None
+            info["aot_buckets"] = []
+        else:
+            info = {"solver": "flat_bf", "max_iters_bound": self.max_iters}
         if self._solve_batcher is not None:
             info["batch"] = self._solve_batcher.stats()
         if self._route_cache is not None:
             info["route_cache"] = self._route_cache.stats()
         return info
+
+    @staticmethod
+    def _make_overlay_solve(hier: HierarchicalIndex):
+        """The overlay query + contracted-graph polish and predecessor
+        recovery + exact chain synthesis
+        (``HierarchicalIndex.full_solve_fn``)."""
+        return hier.full_solve_fn(_polish_sweeps())
 
     def graph_dict(self) -> Dict[str, np.ndarray]:
         """The (post-bridge) routable graph: the exact arrays serving
@@ -496,14 +544,20 @@ class RoadRouter:
         """One device solve (the batcher calls this with merged rows).
         The source axis pads to a power of two by repeating source 0, as
         the JAX package pads to reuse a compiled program; the padding
-        rows are dropped. One host fetch per solve besides the sweep
-        loop's checks."""
+        rows are dropped. One host fetch per solve besides the relax
+        loops' checks."""
         source_nodes = np.asarray(source_nodes, np.int32)
         n_src = len(source_nodes)
         bucket = 1 << max(0, (n_src - 1)).bit_length()
         padded = np.full(bucket, source_nodes[0] if n_src else 0, np.int64)
         padded[:n_src] = source_nodes
         sources = torch.from_numpy(padded).to(self.device)
+        if self._hier is not None:
+            # Overlay path: exact by construction (no exhaustion re-run),
+            # and full_solve_fn already returns ORIGINAL edge ids.
+            dist, pred = self._overlay_solve(
+                *self._hier.prep_sources(padded), sources)
+            return self._fetch(dist[:n_src], pred[:n_src])
         dist, pred, converged = _bellman_ford(
             self._bf_senders, self._bf_receivers, self._bf_length, sources,
             n_nodes=self.n_nodes, max_iters=self.max_iters)
@@ -516,13 +570,19 @@ class RoadRouter:
             dist, pred, _ = _bellman_ford(
                 self._bf_senders, self._bf_receivers, self._bf_length,
                 sources, n_nodes=self.n_nodes, max_iters=self.n_nodes)
-        # ONE fetch: the distances ride along as int32 bit patterns.
-        both = torch.cat([dist[:n_src].view(torch.int32),
-                          pred[:n_src].to(torch.int32)]).cpu().numpy()
-        dist, pred = both[:n_src].view(np.float32), both[n_src:]
+        dist, pred = self._fetch(dist[:n_src], pred[:n_src])
         # sorted-edge ids → original edge ids
         pred = np.where(pred >= 0, self._bf_perm[np.maximum(pred, 0)], -1)
         return dist, pred
+
+    @staticmethod
+    def _fetch(dist: torch.Tensor, pred: torch.Tensor):
+        """ONE device→host copy of a solve: the distances ride along with
+        the predecessor ids as int32 bit patterns."""
+        n = dist.shape[0]
+        both = torch.cat([dist.view(torch.int32),
+                          pred.to(torch.int32)]).cpu().numpy()
+        return both[:n].view(np.float32), both[n:]
 
     def _walk(self, pred_row: np.ndarray, source: int, target: int) -> List[int]:
         """Predecessor edges → node sequence source..target (host-side)."""
