@@ -80,11 +80,29 @@ of which fails the run:
    enqueue one; the plain version; and the least time the card could
    take (``bound_ms``: the model's bytes at 3.35 TB/s or its operations
    at 989 TFLOP/s bf16 tensor cores, 67 TFLOP/s f32 CUDA cores — the
-   H100 SXM data sheet).
+   H100 SXM data sheet);
+10. live traffic, run between phases 8 and 9: (a) the metro overlay of
+   phase 8 re-priced on the card and on the CPU path by one seeded
+   probe stream (``ProbeFleet``, 160 drivers, 6 observations a tick,
+   12 ticks on a fixed clock, a jammed west–east corridor) through the bus, the ingester and one
+   ``MetricCustomizer.run_once``: the blended metrics, the customized
+   index's payloads, live solves and ``_meters_along`` at 2, 16 and 64
+   sources, and a 10-stop ``road_graph: true`` route under the live
+   metric equal to the CPU path's bitwise; customize time against the
+   full build, install time, live solve ms beside the distance-metric
+   solve; (b) the default 2048-node router (GNN, transformer): the metric
+   flipped on the card, the same metric installed on the CPU path, held
+   the same way; (c) ``python -m routest_tpu_torch.serve`` with
+   ``RTPU_LIVE=1`` on the card: 20 ``/api/probe`` posts, ``/api/live``
+   to epoch >= 1, 5 ``use_ml_eta`` road routes priced ``live+`` with the
+   fused kernel's launches over them (health's
+   ``checks.model.scoring.launches``), a seeded ``/api/confirm_route``
+   read back over ``/api/realtime_feed`` and resumed with
+   ``Last-Event-ID``.
 
 The lines before the last are one ``{"optimize": {...}}``, one
-``{"road": {...}}``, one ``{"overlay": {...}}`` and one ``{"kernels":
-[...]}`` JSON object and the
+``{"road": {...}}``, one ``{"overlay": {...}}``, one ``{"live": {...}}``
+and one ``{"kernels": [...]}`` JSON object and the
 card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
 there is no card or a phase fails.
@@ -1011,9 +1029,9 @@ class _SolveCounter:
     def __enter__(self):
         real = type(self.router)._solve_rows
 
-        def counted(sources):
+        def counted(sources, live=None):
             self.n += 1
-            return real(self.router, sources)
+            return real(self.router, sources, live)
 
         self.router._solve_rows = counted
         return self
@@ -1280,6 +1298,9 @@ OSM50K_GAP = 1e-6
 # The device the overlay phase holds against the CPU path (a rehearsal
 # on a host without a card sets it to "cpu").
 CARD = "cuda"
+# The overlay phase's metro routers ({"card", "cpu"}), which the live
+# phase re-prices.
+_METRO = {}
 
 
 def _strip_timings(d):
@@ -1391,6 +1412,7 @@ def _overlay_metro(rng):
             graph=graph, use_gnn=False, use_transformer=False, device=dev)
         build_s[dev] = time.perf_counter() - t0
     card, cpu = routers[CARD], routers["cpu"]
+    _METRO.update(card=card, cpu=cpu)       # the live phase reuses them
     check(card._hier is not None and cpu._hier is not None,
           "metro: no overlay at default knobs")
     check(card.solver_info["solver"] == "hierarchy", "metro solver")
@@ -1598,6 +1620,468 @@ def phase_overlay():
     return record, fused
 
 
+# ── phase 10: live traffic ──────────────────────────────────────────────
+
+# The probe fleet of the JAX package's live-traffic bench
+# (scripts/bench_live_traffic.py): 160 drivers, 6 observations a tick.
+LIVE_DRIVERS = 160
+LIVE_OBS_PER_TICK = 6
+LIVE_TICKS = 12
+# A fixed clock: the fleet, the estimator and the customizer read no
+# wall time, so the card and the CPU path fold the same events.
+LIVE_NOW0 = 1_760_000_000.0
+LIVE_REPS = 10
+# Over HTTP: probe batches posted, observations per batch, and
+# use_ml_eta road routes served under the live metric.
+LIVE_PROBE_BATCHES = 20
+LIVE_PROBE_OBS = 200
+LIVE_ROUTES = 5
+# The tracked route: coordinates replayed at the reference's 2-5 s gait,
+# and the first stream's length (the reconnect resumes after it).
+LIVE_TRACK_POINTS = 3
+LIVE_TRACK_FIRST = 1
+
+
+def _live_flip(router, corridor, seed=0):
+    """A seeded ``ProbeFleet`` with a jammed corridor, stepped on the
+    fixed clock through a bus into the ingester and a fresh
+    ``CongestionState``, then one ``MetricCustomizer.run_once`` on
+    ``router``. → (customizer result, fleet events, cycle wall s)."""
+    from routest_tpu_torch.live.customize import MetricCustomizer
+    from routest_tpu_torch.live.ingest import ProbeIngester
+    from routest_tpu_torch.live.probes import CongestionScenario, ProbeFleet
+    from routest_tpu_torch.live.state import CongestionState
+    from routest_tpu_torch.serve.bus import InMemoryBus
+
+    bus = InMemoryBus()
+    state = CongestionState(router.freeflow_time_s)
+    ingester = ProbeIngester(bus, state, router.length_m)
+    scenario = CongestionScenario(corridor, speed_factor=0.25)
+    scenario.set_active(True)
+    fleet = ProbeFleet(router.graph_dict(), LIVE_DRIVERS, bus.publish,
+                       seed=seed, scenario=scenario,
+                       obs_per_tick=LIVE_OBS_PER_TICK)
+    sub = bus.subscribe(fleet.channel)
+    events = []
+    for t in range(LIVE_TICKS):
+        events.extend(fleet.step(now=LIVE_NOW0 + t, hour=8))
+        while (ev := sub.get(timeout=0)) is not None:
+            ingester.handle(ev)
+    sub.close()
+    check(ingester.batches == fleet.published == len(events),
+          "live: the ingester missed fleet events")
+    t0 = time.perf_counter()
+    res = MetricCustomizer(router, state).run_once(now=LIVE_NOW0
+                                                   + LIVE_TICKS)
+    cycle_s = time.perf_counter() - t0
+    check(res.get("flipped"), f"live: no flip on {router.device}: {res}")
+    return res, events, cycle_s
+
+
+def _live_corridor(router, width_m=400.0):
+    """The corridor across the graph from its westmost to its eastmost
+    node."""
+    import numpy as np
+
+    from routest_tpu_torch.live.probes import corridor_edges
+
+    lon = router.coords[:, 1]
+    a = tuple(float(v) for v in router.coords[int(np.argmin(lon))])
+    b = tuple(float(v) for v in router.coords[int(np.argmax(lon))])
+    cor = corridor_edges(router.coords, router.senders, router.receivers,
+                         a, b, width_m=width_m)
+    check(len(cor) > 0, "live: empty corridor")
+    return cor
+
+
+def _live_hold(card, cpu, label, rng):
+    """Live solves at ``OVERLAY_BUCKETS`` sources and ``_meters_along``
+    on the card against the CPU path (bitwise), timed; then a 10-stop
+    ``road_graph: true`` route through the engine on both, equal as
+    JSON. → record."""
+    from routest_tpu_torch.optimize import road_router
+    from routest_tpu_torch.optimize.engine import optimize_route
+
+    solves = {}
+    for bucket in OVERLAY_BUCKETS:
+        src = rng.integers(0, card.n_nodes, bucket)
+        cd, cp = card._solve_rows(src, card._live)
+        wd, wp = cpu._solve_rows(src, cpu._live)
+        check(cd.tobytes() == wd.tobytes() and (cp == wp).all(),
+              f"live {label}: {bucket}-source solve differs from the CPU "
+              f"path")
+        cm, wm = card._meters_along(cp, cd), cpu._meters_along(wp, wd)
+        check(cm.tobytes() == wm.tobytes(),
+              f"live {label}: meters along the {bucket}-source trees differ")
+        solves[bucket] = {
+            "ms": _event_ms(lambda: card._solve_rows(src, card._live),
+                            LIVE_REPS),
+            "cpu_ms": _cpu_ms(lambda: cpu._solve_rows(src, cpu._live), 3),
+            "meters_ms": _event_ms(lambda: card._meters_along(cp, cd),
+                                   LIVE_REPS),
+            "distance_metric_ms": _event_ms(lambda: card._solve_rows(src),
+                                            LIVE_REPS)}
+    saved = dict(road_router._default_routers)
+    road_router._default_routers.update({CARD: card, "cpu": cpu})
+    try:
+        body = _road_body(10, 0)
+        got = optimize_route(body, device=CARD)
+        want = optimize_route(body, device="cpu")
+    finally:
+        road_router._default_routers.clear()
+        road_router._default_routers.update(saved)
+    props = got.get("properties") or {}
+    check("error" not in got and props.get("leg_cost_model", "")
+          .startswith("live+"), f"live {label}: route {got.get('error')} "
+                                f"{props.get('leg_cost_model')}")
+    for d in (got, want):
+        (d.get("properties") or {}).pop("engine", None)
+    check(json.dumps(got, sort_keys=True) == json.dumps(want, sort_keys=True),
+          f"live {label}: the 10-stop route differs from the CPU path")
+    return {"solves": solves, "route_leg_cost_model": props[
+        "leg_cost_model"], "route_distance_m": props["summary"]["distance"],
+        "route_duration_s": props["summary"]["duration"]}
+
+
+def _install_s(router, metric, epoch):
+    """Wall s of one ``install_live_metric`` (the card synchronized)."""
+    import torch
+
+    t0 = time.perf_counter()
+    router.install_live_metric(metric, epoch)
+    if router.device.type == "cuda":
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _live_metro(rng):
+    """(1): the metro overlay of phase 8 re-priced on the card and on the
+    CPU path by the same probe stream; payloads, solves, meters and a
+    route held bitwise. → record."""
+    import tempfile
+
+    import numpy as np
+
+    from routest_tpu_torch.data.osm import load_osm
+    from routest_tpu_torch.optimize import road_router
+
+    if not _METRO:
+        graph = load_osm(os.path.join(ROOT, METRO_OSM))
+        _METRO.update({k: road_router.RoadRouter(
+            graph=graph, use_gnn=False, use_transformer=False, device=dev)
+            for k, dev in (("card", CARD), ("cpu", "cpu"))})
+    card, cpu = _METRO["card"], _METRO["cpu"]
+    cor = _live_corridor(card)
+    res, events, cycle = {}, {}, {}
+    for key, router in (("card", card), ("cpu", cpu)):
+        res[key], events[key], cycle[key] = _live_flip(router, cor)
+    check(events["card"] == events["cpu"], "live metro: fleet events differ")
+    metric = card.live_metric_export()
+    check(metric.tobytes() == cpu.live_metric_export().tobytes(),
+          "live metro: blended metrics differ")
+    hc, hw = card._live.hier, cpu._live.hier
+    check(hc is not None and hc.stats.get("customized"),
+          "live metro: the overlay was not customized")
+    with tempfile.TemporaryDirectory() as d:
+        payloads = []
+        for name, index in (("card", hc), ("cpu", hw)):
+            index._save(os.path.join(d, f"{name}.npz"), {})
+            with np.load(os.path.join(d, f"{name}.npz")) as z:
+                payloads.append({k: z[k] for k in z.files})
+    check(sorted(payloads[0]) == sorted(payloads[1]),
+          "live metro: payload keys differ")
+    for key, val in payloads[1].items():
+        if key == "_stats":
+            continue
+        check(payloads[0][key].dtype == val.dtype
+              and payloads[0][key].tobytes() == val.tobytes(),
+              f"live metro: customized payload {key} differs")
+    check(_strip_timings(hc.stats) == _strip_timings(hw.stats),
+          "live metro: customized stats differ")
+    held = _live_hold(card, cpu, "metro", rng)
+    epoch = card.live_epoch
+    rec = {"nodes": card.n_nodes, "edges": len(card.senders),
+           "corridor_edges": len(cor), "fleet_events": len(events["card"]),
+           "observations": sum(len(e["obs"]) for e in events["card"]),
+           "obs_edges": res["card"]["obs_edges"],
+           "customize_s": hc.stats["build_s"],
+           "full_build_s": card._hier.stats["build_s"],
+           "cpu_customize_s": hw.stats["build_s"],
+           "cpu_full_build_s": cpu._hier.stats["build_s"],
+           "cycle_s": cycle["card"], "cpu_cycle_s": cycle["cpu"],
+           "install_s": _install_s(card, metric, epoch + 1),
+           "cpu_install_s": _install_s(cpu, metric, epoch + 1),
+           "levels": [lv["n_cells"] for lv in hc.stats["levels"]], **held}
+    s = rec["solves"]
+    print(f"[live] metro {rec['nodes']} nodes: {rec['fleet_events']} probe "
+          f"events ({rec['observations']} observations, corridor "
+          f"{rec['corridor_edges']} edges) → {rec['obs_edges']} observed "
+          f"edges; customize {rec['customize_s']} s on {CARD} against a "
+          f"full build of {rec['full_build_s']} s (CPU path "
+          f"{rec['cpu_customize_s']} / {rec['cpu_full_build_s']} s); "
+          f"install {rec['install_s']:.3f} s (CPU path "
+          f"{rec['cpu_install_s']:.3f}); payloads, solves, meters and the "
+          f"10-stop route bitwise the CPU path's; live solve ms "
+          + ", ".join(f"{b}: {v['ms']:.3f} (CPU path {v['cpu_ms']:.3f}; "
+                      f"distance metric {v['distance_metric_ms']:.3f})"
+                      for b, v in s.items()))
+    return rec
+
+
+def _live_flat(rng):
+    """(2): the default 2048-node router (GNN, transformer): the metric
+    flipped on the card from the probe stream (GNN base priced on the
+    card), the same metric installed on the CPU path, solves, meters and
+    a route held bitwise. → record."""
+    from routest_tpu_torch.optimize import road_router
+
+    card = road_router.default_router(CARD)
+    cpu = road_router.default_router("cpu")
+    check(card.leg_cost_model == "gnn", "live flat: the GNN is not live")
+    res, events, cycle = _live_flip(card, _live_corridor(card), seed=1)
+    metric = card.live_metric_export()
+    install_cpu = _install_s(cpu, metric, card.live_epoch)
+    check(cpu.live_metric_export().tobytes() == metric.tobytes(),
+          "live flat: the installed metrics differ")
+    held = _live_hold(card, cpu, "flat", rng)
+    rec = {"nodes": card.n_nodes, "edges": len(card.senders),
+           "fleet_events": len(events), "obs_edges": res["obs_edges"],
+           "cycle_s": cycle,
+           "install_s": _install_s(card, metric, card.live_epoch + 1),
+           "cpu_install_s": install_cpu, **held}
+    print(f"[live] flat {rec['nodes']} nodes: {rec['fleet_events']} probe "
+          f"events → {rec['obs_edges']} observed edges; flip cycle "
+          f"{cycle:.3f} s on {CARD}; install {rec['install_s']:.4f} s (CPU "
+          f"path {install_cpu:.4f}); solves, meters and the 10-stop route "
+          f"({rec['route_leg_cost_model']}) bitwise the CPU path's; live "
+          f"solve ms " + ", ".join(
+              f"{b}: {v['ms']:.3f} (CPU path {v['cpu_ms']:.3f})"
+              for b, v in rec["solves"].items()))
+    return rec
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _sse(port, path, headers=None):
+    """A bounded SSE stream's frames → [(id, event)]."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", path, headers=headers or {})
+        resp = conn.getresponse()
+        check(resp.status == 200 and resp.getheader("Content-Type")
+              == "text/event-stream", f"stream {path}: {resp.status}")
+        body = resp.read().decode()
+    finally:
+        conn.close()
+    frames = []
+    for frame in body.split("\n\n")[:-1]:
+        head, data = frame.split("\n", 1)
+        check(head.startswith("id: ") and data.startswith("data: "),
+              f"stream {path}: frame {frame!r}")
+        frames.append((int(head[4:]), json.loads(data[6:])))
+    return frames
+
+
+def _wait_for(what, fn, timeout_s, proc):
+    t0 = time.perf_counter()
+    while True:
+        check(proc.poll() is None, f"live serving: the server exited "
+                                   f"({proc.returncode}) waiting for {what}")
+        try:
+            out = fn()
+        except OSError:
+            out = None
+        if out:
+            return out, time.perf_counter() - t0
+        check(time.perf_counter() - t0 < timeout_s,
+              f"live serving: no {what} in {timeout_s} s")
+        time.sleep(0.1)
+
+
+def _live_serve(rng):
+    """(3): ``python -m routest_tpu_torch.serve`` with ``RTPU_LIVE=1`` on
+    the card: probes over HTTP until ``/api/live`` reads a flipped
+    metric, ``use_ml_eta`` road routes priced ``live+``, then a seeded
+    tracked route over SSE and a ``Last-Event-ID`` reconnect; the fused
+    kernel's launches over the server's requests from its
+    ``serve_listening`` and ``serve_stopped`` log lines. → record."""
+    import signal
+    import tempfile
+
+    import numpy as np
+
+    from routest_tpu_torch.optimize import road_router
+
+    port = _free_port()
+    env = dict(os.environ, PORT=str(port), RTPU_HOST="127.0.0.1",
+               RTPU_LIVE="1", RTPU_LIVE_CUSTOMIZE_S="0.5",
+               ROUTEST_HIER_CACHE="0",
+               ROUTEST_DEVICE=CARD)
+    for var in ("ROAD_GRAPH_OSM", "ROAD_GNN_PATH", "ROUTE_TRANSFORMER_PATH",
+                "ROUTEST_HIER_MIN_NODES", "REDIS_URL", "ETA_MODEL_PATH"):
+        env.pop(var, None)
+    log = tempfile.TemporaryFile(mode="w+")
+    t_start = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "routest_tpu_torch.serve"],
+                            cwd=ROOT, env=env, stdout=log,
+                            stderr=subprocess.STDOUT)
+    try:
+        _, boot_s = _wait_for("ping", lambda: _request(
+            port, "GET", "/api/ping")[0] == 200, 300, proc)
+
+        def live():
+            return _request(port, "GET", "/api/live")[1]
+
+        snap, ready_s = _wait_for("live ready", lambda: (
+            live() if live().get("ready") else None), 300, proc)
+        check(snap["epoch"] == 0 and snap["channel"] == "rtpu.probes",
+              f"live serving: {snap}")
+        n_edges = snap["ingest"]["edges"]
+        check(n_edges == len(road_router.default_router("cpu").senders),
+              "live serving: not the default graph")
+        t_probe = time.perf_counter()
+        for k in range(LIVE_PROBE_BATCHES):
+            edges = rng.integers(0, n_edges, LIVE_PROBE_OBS)
+            speeds = rng.uniform(1.5, 14.0, LIVE_PROBE_OBS)
+            status, out = _request(port, "POST", "/api/probe", {
+                "obs": [[int(e), round(float(v), 3)]
+                        for e, v in zip(edges, speeds)],
+                "t": time.time(), "hour": 8, "driver": f"smoke{k}"})
+            check(status == 200 and out == {"status": "published",
+                                             "count": LIVE_PROBE_OBS},
+                  f"/api/probe: {status} {out}")
+        probes_s = time.perf_counter() - t_probe
+        snap, flip_s = _wait_for("a live metric", lambda: (
+            live() if live().get("epoch", 0) >= 1 else None), 120, proc)
+        status, health = _request(port, "GET", "/api/health")
+        check(health["checks"]["engine"]["live"]["epoch"] >= 1
+              and health["checks"]["bus"]["backend"] == "memory",
+              f"live serving: health {health['checks']['engine'].get('live')}")
+        routes, route_ms = [], []
+        for r in range(LIVE_ROUTES):
+            t0 = time.perf_counter()
+            status, out = _request(port, "POST", "/api/optimize_route",
+                                   _road_body(10, r, 5, **_ML))
+            route_ms.append((time.perf_counter() - t0) * 1e3)
+            props = (out or {}).get("properties") or {}
+            check(status == 200 and props.get("leg_cost_model", "")
+                  .startswith("live+"), f"live route: {status} "
+                                        f"{props.get('leg_cost_model')}")
+            check(props["eta_minutes_ml_p10"] <= props["eta_minutes_ml"]
+                  <= props["eta_minutes_ml_p90"], "live route: ETA band")
+            routes.append(out)
+        scoring = health["checks"]["model"]["scoring"]
+        check(scoring["kernel"] == ("cuda_fused" if CARD == "cuda"
+                                    else "torch_plain"),
+              f"live serving: scoring {scoring}")
+        coords = routes[0]["geometry"]["coordinates"][:LIVE_TRACK_POINTS]
+        check(len(coords) == LIVE_TRACK_POINTS, "tracked route too short")
+        props = routes[0]["properties"]
+        status, out = _request(port, "POST", "/api/confirm_route", {
+            "driver_details": {"driver_name": "smoke-driver",
+                               "vehicle_type": "car"},
+            "route_details": {"geometry": {"coordinates": coords},
+                              "properties": {
+                                  "destinations": [{"lat": 14.55,
+                                                    "lon": 121.02}],
+                                  "summary": props["summary"]}},
+            "sim_seed": 7})
+        check(status == 200 and out == {"status":
+                                         "route simulation initialized."},
+              f"/api/confirm_route: {status} {out}")
+        t0 = time.perf_counter()
+        first = _sse(port, "/api/realtime_feed?channel=smoke-driver&"
+                     f"max_events={LIVE_TRACK_FIRST}", {"Last-Event-ID": "0"})
+        rest = _sse(port, "/api/realtime_feed?channel=smoke-driver&max_events="
+                    f"{LIVE_TRACK_POINTS - LIVE_TRACK_FIRST}",
+                    {"Last-Event-ID": str(LIVE_TRACK_FIRST)})
+        track_s = time.perf_counter() - t0
+        frames = first + rest
+        check([i for i, _ in frames] == list(range(1, LIVE_TRACK_POINTS + 1)),
+              f"tracked route: event ids {[i for i, _ in frames]}")
+        check([len(ev["remaining_routes"]) for _, ev in frames]
+              == list(range(LIVE_TRACK_POINTS, 0, -1))
+              and all(ev["assigned_driver"] == "smoke-driver"
+                      for _, ev in frames), "tracked route: frames")
+        final = live()
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        log.seek(0)
+        text = log.read()
+        log.close()
+        if proc.returncode not in (0, -signal.SIGTERM):
+            print(f"[live] server log tail:\n{text[-3000:]}")
+    check(proc.returncode in (0, -signal.SIGTERM),
+          f"live serving: the server exited {proc.returncode} at SIGTERM")
+    counts = {}
+    for line in text.splitlines():
+        try:
+            event = json.loads(line)
+        except ValueError:
+            continue
+        if isinstance(event, dict) and event.get("event") in (
+                "serve_listening", "serve_stopped"):
+            counts[event["event"]] = event["fused_launches"]
+    check(len(counts) == 2, f"live serving: launch counts logged {counts}")
+    # Only the use_ml_eta routes score ETAs among the server's requests.
+    launches = counts["serve_stopped"] - counts["serve_listening"]
+    if CARD == "cuda":
+        check(launches > 0, f"live serving: no fused launch over "
+                            f"{LIVE_ROUTES} use_ml_eta routes")
+    rec = {"boot_s": boot_s, "live_ready_s": ready_s,
+           "probe_batches": LIVE_PROBE_BATCHES,
+           "probe_observations": LIVE_PROBE_BATCHES * LIVE_PROBE_OBS,
+           "probes_post_s": probes_s, "flip_after_probes_s": flip_s,
+           "epoch": final["epoch"],
+           "edges_observed": final["ingest"]["edges_observed"],
+           "flips": final["customize"]["flips"],
+           "route_median_ms": _median(route_ms),
+           "route_leg_cost_model": routes[0]["properties"]["leg_cost_model"],
+           "fused_launches": launches, "tracked_frames": len(frames),
+           "resumed_ids": [i for i, _ in rest], "track_read_s": track_s,
+           "server_exit": proc.returncode,
+           "wall_s": time.perf_counter() - t_start}
+    print(f"[live] serving: booted in {boot_s:.1f} s, live ready after "
+          f"{ready_s:.1f} s more; {rec['probe_observations']} observations "
+          f"over {LIVE_PROBE_BATCHES} /api/probe posts ({probes_s:.2f} s), "
+          f"epoch >= 1 {flip_s:.2f} s later (now epoch {rec['epoch']}, "
+          f"{rec['edges_observed']} edges observed); {LIVE_ROUTES} use_ml_eta"
+          f" road routes ({rec['route_leg_cost_model']}) median "
+          f"{rec['route_median_ms']:.2f} ms, {launches} fused launches; "
+          f"tracked route: {len(frames)} frames, reconnect resumed at ids "
+          f"{rec['resumed_ids']}")
+    return rec, launches
+
+
+def phase_live():
+    """Live traffic on the card: (1) the metro overlay re-priced by a
+    probe stream, (2) the default router's live metric, (3) the live
+    loop through the port's server. → (record, fused launches over
+    (3)'s use_ml_eta routes)."""
+    import numpy as np
+
+    rng = np.random.default_rng(10)
+    os.environ["ROUTEST_HIER_CACHE"] = "0"
+    metro = _live_metro(rng)
+    flat = _live_flat(rng)
+    serving, launches = _live_serve(rng)
+    record = {"metro_8192": metro, "default_2048": flat,
+              "serving": serving}
+    print(json.dumps({"live": record}))
+    return record, launches
+
+
 def phase_times(rng):
     """Per-bucket times of every variant on the served artifact
     (quantile): → {variant: [row per batch]}."""
@@ -1694,6 +2178,8 @@ def main() -> int:
         _, road_launches = phase_road()
         phase = "overlay"
         _, overlay_launches = phase_overlay()
+        phase = "live"
+        _, live_launches = phase_live()
         phase = "times"
         table = phase_times(rng)
     except Exception as e:
@@ -1720,6 +2206,8 @@ def main() -> int:
     kernels[0]["launches_road"] = road_launches
     # ... and over the metro overlay deployment's use_ml_eta requests
     kernels[0]["launches_overlay"] = overlay_launches
+    # ... and over the live phase's use_ml_eta routes (a server process)
+    kernels[0]["launches_live"] = live_launches
     print(json.dumps({"kernels": kernels}))
     print(f"{smi_line}")
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,8 @@
 
 The fields the port reads, carried over from
 ``routest_tpu/core/config.py`` with the same environment variable names
-and defaults (``ETA_MODEL_PATH``, ``PORT``, ``RTPU_*``, ``SUPABASE_*``),
-plus the port's own ``ROUTEST_DEVICE``.
+and defaults (``ETA_MODEL_PATH``, ``PORT``, ``RTPU_*``, ``RTPU_LIVE_*``,
+``SUPABASE_*``, ``REDIS_URL``), plus the port's own ``ROUTEST_DEVICE``.
 """
 
 from __future__ import annotations
@@ -62,12 +62,42 @@ class ServeConfig:
     # = the in-memory store.
     supabase_url: Optional[str] = None
     supabase_service_key: Optional[str] = None
+    # SSE bus backend (REDIS_URL); unset = the in-memory bus, the only
+    # one the port has.
+    redis_url: Optional[str] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class LiveConfig:
+    """Live traffic (``routest_tpu_torch/live``): probe-stream ingest,
+    incremental congestion state, periodic metric refresh of the road
+    router. All knobs are ``RTPU_LIVE_*`` env vars, with the JAX
+    package's names and defaults; disabled by default.
+
+    ``customize_s`` bounds served-route staleness from above: a probe
+    observation is reflected in routes/ETAs within one ingest hop plus
+    one customize interval. ``half_life_s``/``stale_s``/``conf_obs``
+    shape the estimator (EWMA decay, staleness window, observations to
+    full confidence). ``route_metric=False`` prices legs live but keeps
+    route CHOICE on the distance metric. The continuous trainer's
+    ``RTPU_LIVE_RETRAIN_*`` knobs arrive with it."""
+
+    enabled: bool = False
+    channel: str = "rtpu.probes"
+    customize_s: float = 10.0
+    half_life_s: float = 60.0
+    stale_s: float = 300.0
+    conf_obs: float = 3.0
+    min_obs_edges: int = 1
+    window: int = 65536
+    route_metric: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
 class Config:
     model: ModelConfig = ModelConfig()
     serve: ServeConfig = ServeConfig()
+    live: LiveConfig = LiveConfig()
 
 
 def resolve_device(device=None, who: str = "routest_tpu_torch"):
@@ -136,5 +166,34 @@ def load_config(env: Optional[Mapping[str, str]] = None) -> Config:
         version=_env(env, "RENDER_GIT_COMMIT", "GIT_COMMIT_SHA"),
         supabase_url=env.get("SUPABASE_URL"),
         supabase_service_key=env.get("SUPABASE_SERVICE_ROLE_KEY"),
+        redis_url=env.get("REDIS_URL"),
     )
-    return Config(model=model, serve=serve)
+    return Config(model=model, serve=serve, live=load_live_config(env))
+
+
+def _env_num(env: Mapping[str, str], name: str, default, cast):
+    """Ops-knob number parse: a malformed value keeps the default (a
+    typo in an env var must never abort server boot)."""
+    raw = env.get(name)
+    if not raw:
+        return default
+    try:
+        return cast(raw)
+    except ValueError:
+        return default
+
+
+def load_live_config(env: Optional[Mapping[str, str]] = None) -> LiveConfig:
+    """Just the live-traffic knobs (``RTPU_LIVE=1`` turns it on)."""
+    env = dict(env if env is not None else os.environ)
+    return LiveConfig(
+        enabled=env.get("RTPU_LIVE", "0") == "1",
+        channel=env.get("RTPU_LIVE_CHANNEL") or "rtpu.probes",
+        customize_s=_env_num(env, "RTPU_LIVE_CUSTOMIZE_S", 10.0, float),
+        half_life_s=_env_num(env, "RTPU_LIVE_HALF_LIFE_S", 60.0, float),
+        stale_s=_env_num(env, "RTPU_LIVE_STALE_S", 300.0, float),
+        conf_obs=_env_num(env, "RTPU_LIVE_CONF_OBS", 3.0, float),
+        min_obs_edges=_env_num(env, "RTPU_LIVE_MIN_OBS_EDGES", 1, int),
+        window=_env_num(env, "RTPU_LIVE_WINDOW", 65536, int),
+        route_metric=env.get("RTPU_LIVE_ROUTE_METRIC", "1") != "0",
+    )

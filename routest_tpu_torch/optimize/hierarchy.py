@@ -8,8 +8,9 @@ overlay, the v4 cache format, and the same query (ascend, top, tiered
 descend stitch, chain synthesis). Host parts (partition, contraction,
 packing, the cache file) are copies of the JAX package's numpy code;
 device parts are torch ops that the JAX package runs as ``jit``
-programs, called eagerly here. Left out: metric customization
-(``customize``, live traffic) and the per-bucket AOT programs.
+programs, called eagerly here. :meth:`HierarchicalIndex.customize`
+re-prices a built or loaded overlay against a live metric from the same
+structure. Left out: the per-bucket AOT programs.
 
 Every float operation on the device is a min, a single float32 add or
 subtract, or the one multiply ``T * (1 + slack)`` of
@@ -1450,6 +1451,138 @@ class HierarchicalIndex:
         if cache_path:
             index._save(cache_path, fingerprint)
         return index
+
+    # -- metric customization (CRP-style re-pricing) ----------------------
+
+    def customize(self, w_full: np.ndarray) -> "HierarchicalIndex":
+        """Re-price this overlay against a NEW per-edge metric without
+        rebuilding its structure — the CRP metric-customization phase
+        (JAX ``HierarchicalIndex.customize``).
+
+        ``w_full`` is the full-graph edge weight array (same edge order
+        as the ``senders``/``receivers`` the index was built from; any
+        positive metric). Reused as-is: the bisection-tree cuts, the
+        chain-contraction walk (new chain weights are composition sums
+        over ``w_full``, in float64 as in the JAX package), every
+        level's cell membership and boundary sets. Recomputed on the
+        index's device: in-cell boundary tables, clique pruning and
+        overlay weights (``_build_level``), and the hub labels.
+
+        Returns a NEW index on the same device (the current one keeps
+        serving — callers flip atomically); raises ``ValueError`` when
+        the index carries no structure (direct construction)."""
+        s = self._structure
+        if s is None:
+            raise ValueError(
+                "index has no customization structure (built by an "
+                "older cache version? rebuild the overlay)")
+        t0 = time.perf_counter()
+        device = self.device
+        w_full = np.asarray(w_full, np.float32)
+        ecp = s.get("edge_comp_ptr")
+        if ecp is not None:
+            # Chain-contracted graph: contracted edge k's weight is the
+            # sum of its original-edge composition; seed and fill
+            # offsets likewise (cumulative-sum ragged reduction: empty
+            # segments sum to 0).
+            comp = s["edge_comp"]
+            cs = np.concatenate([
+                [0.0], np.cumsum(w_full[comp], dtype=np.float64)])
+            g_w = (cs[ecp[1:]] - cs[ecp[:-1]]).astype(np.float32)
+            scp = s["seed_comp_ptr"]
+            scs = np.concatenate([
+                [0.0], np.cumsum(w_full[s["seed_comp"]],
+                                 dtype=np.float64)])
+            seed_sums = (scs[scp[1:]] - scs[scp[:-1]]).reshape(-1, 2)
+            seed_w = np.where(self._seed_node >= 0, seed_sums,
+                              _INF_NP).astype(np.float32)
+            fcp = s["fill_comp_ptr"]
+            fcs = np.concatenate([
+                [0.0], np.cumsum(w_full[s["fill_comp"]],
+                                 dtype=np.float64)])
+            fill_sums = (fcs[fcp[1:]] - fcs[fcp[:-1]]).reshape(-1, 2)
+            fill = dict(self._fill or _identity_fill(len(w_full)))
+            fill["w"] = np.where(
+                np.asarray(fill["node"]) >= 0, fill_sums,
+                _INF_NP).astype(np.float32)
+        else:
+            g_w = w_full
+            seed_w = self._seed_w  # identity contraction: col0 = 0,
+            #                        col1 = INF — weight-independent
+            fill = self._fill      # all pads — weight-independent
+        g_s = s["c_senders"]
+        g_r = s["c_receivers"]
+        g_w0 = g_w                 # level-0 weights, before the loop
+        #                            rebinds g_w to overlay weights
+        prune_slack = float(self.stats.get("prune_slack", _prune_slack()))
+        lmax = _labels_max()
+        node_origin = np.arange(len(self.levels[0].cell))
+        levels: List[_Level] = []
+        for li, (cell0, P) in enumerate(s["parts"]):
+            t_lvl = time.perf_counter()
+            built = _build_level(g_s, g_r, g_w,
+                                 cell0[node_origin].astype(np.int32), P,
+                                 prune_slack=prune_slack, device=device)
+            if built is None:
+                if li == 0:
+                    raise ValueError("customization built no levels — "
+                                     "graph/structure mismatch")
+                break
+            payload, lstats, ovl = built
+            B = len(payload["b_global"])
+            stalled = (B >= len(node_origin) if lmax
+                       else 2 * B > len(node_origin))
+            if li > 0 and stalled:
+                break
+            payload["src_cell"] = payload["cell_remap"][
+                cell0].astype(np.int32)
+            lstats["level"] = li + 1
+            lstats["build_s"] = round(time.perf_counter() - t_lvl, 3)
+            levels.append(_Level(payload, lstats, device))
+            g_s, g_r, g_w = ovl
+            node_origin = node_origin[payload["b_global"]]
+            if (lmax and B <= min(lmax, _LABEL_STOP)
+                    and B * 8 <= len(self.levels[0].cell)):
+                break
+        # Re-price the labels too (same build, new top weights): a
+        # live-metric flip then keeps the fold path instead of falling
+        # back to the iterative top BF.
+        labels = None
+        n_top = levels[-1].n_overlay
+        label_stats: Optional[Dict] = None
+        if lmax and 2 <= n_top <= lmax and len(g_s):
+            labels, label_stats = _build_labels(g_s, g_r, g_w, n_top,
+                                                device)
+        l1 = levels[0].stats
+        stats = {
+            "n_cells": l1["n_cells"], "c_max": l1["c_max"],
+            "b_max": l1["b_max"],
+            "n_overlay_nodes": l1["n_overlay_nodes"],
+            "n_overlay_edges": l1["n_overlay_edges"],
+            "clique_edges_kept": l1["clique_edges_kept"],
+            "clique_edges_pruned": l1["clique_edges_pruned"],
+            "n_levels": len(levels),
+            "top_nodes": levels[-1].n_overlay,
+            "top_edges": int(len(g_s)),
+            "prune_slack": prune_slack,
+            "partition_s": 0.0,        # reused — that is the point
+            "contraction": dict(self.stats.get("contraction", {})),
+            "levels": [dict(lvl.stats) for lvl in levels],
+            "customized": True,
+            "full_build_s": self.stats.get("build_s", 0.0),
+        }
+        if label_stats is not None:
+            stats["labels"] = label_stats
+        l0 = dict(self._l0) if self._l0 is not None else None
+        if l0 is not None:
+            l0["w"] = np.asarray(g_w0, np.float32)
+        out = type(self)(levels, g_s, g_r, g_w, stats,
+                         expand_idx=self._expand_idx,
+                         seed_node=self._seed_node, seed_w=seed_w,
+                         l0=l0, fill=fill, labels=labels)
+        out._structure = s
+        stats["build_s"] = round(time.perf_counter() - t0, 3)
+        return out
 
     def _save(self, cache_path: str, fingerprint: Optional[Dict]) -> None:
         flat: Dict[str, np.ndarray] = {

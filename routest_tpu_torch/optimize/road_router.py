@@ -15,17 +15,25 @@ on this graph, re-priced in route context by the route transformer).
   file or built at construction) and its fused solve. Distances and
   predecessors equal the JAX package's bit for bit on either path.
 - **Duration table** (device): pointer doubling over the predecessor
-  trees (``_time_table``), for matrix responses.
+  trees (``_time_table``), for matrix responses; the same machinery
+  recovers leg meters along time-shortest trees (``_meters_along``).
+- **Live traffic**: ``install_live_metric`` floors and uploads a blended
+  per-edge travel-time metric, re-prices the overlay against it
+  (``HierarchicalIndex.customize``) on the router's device, and flips
+  ``_live`` in one assignment. Requests snapshot ``_live`` once per
+  batch: with the route metric armed they solve over travel time (the
+  customized overlay, or the flat sweep on the time weights) and price
+  legs ``live+<model>``.
 - **Host**: component bridging (union-find), snapping (a haversine
   table), predecessor walks and polylines stay in numpy, as in the JAX
   package.
 
 Every tensor lives on the router's ``device`` (``cuda`` unless the
 caller asks for the CPU; asking for the card without one raises).
-Learned pricers load once, at construction. Not ported yet: live
-traffic metrics and overlay customization (``live`` is always None), the
-verified GNN hot-swap and mtime reload, the AOT solve buckets, the
-overlay gauges, the trace spans and the efficiency ledger.
+Learned pricers load once, at construction. Not ported yet: the
+verified GNN hot-swap and mtime reload, the AOT solve buckets (for the
+distance and the live overlay alike), the overlay gauges, the trace
+spans and the efficiency ledger.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ from routest_tpu_torch.core.dtypes import backend_compute_policy
 from routest_tpu_torch.data.road_graph import (_CLASS_SPEED_MPS,
                                                generate_road_graph,
                                                haversine_np)
+from routest_tpu_torch.live import set_metric_epoch
 from routest_tpu_torch.models.gnn import edge_feature_array
 from routest_tpu_torch.optimize.hierarchy import (_CACHE_VERSION, _INF,
                                                   HierarchicalIndex,
@@ -134,11 +143,40 @@ def _batcher_config() -> Tuple[bool, int, float]:
     return enabled, max_rows, max(0.0, window_ms) / 1000.0
 
 
-class _BatchEntry:
-    __slots__ = ("sources", "event", "dist", "pred", "error")
+class _LiveMetric:
+    """One immutable live-traffic metric generation: the blended
+    per-edge travel seconds, their receiver-sorted copy on the device,
+    the customized overlay (when the router has one) and its solve.
+    Built off-path by ``install_live_metric`` and installed with a single
+    reference flip — requests snapshot ``router._live`` once, so a flip
+    can never tear a solve."""
 
-    def __init__(self, sources: np.ndarray) -> None:
+    __slots__ = ("epoch", "gen", "time_s", "d_time_bf", "hier", "solve",
+                 "route", "installed_unix", "timings")
+
+    def __init__(self, epoch: int, time_s: np.ndarray, d_time_bf,
+                 hier, solve, route: bool, timings: Dict,
+                 gen: int = 0) -> None:
+        self.epoch = int(epoch)
+        # Router-internal monotonic install counter: the route fast lane
+        # keys on (epoch, gen), so two installs that reuse an epoch
+        # number can never alias onto one cache key.
+        self.gen = int(gen)
+        self.time_s = time_s
+        self.d_time_bf = d_time_bf
+        self.hier = hier
+        self.solve = solve
+        self.route = route
+        self.installed_unix = time.time()
+        self.timings = timings
+
+
+class _BatchEntry:
+    __slots__ = ("sources", "live", "event", "dist", "pred", "error")
+
+    def __init__(self, sources: np.ndarray, live) -> None:
         self.sources = sources
+        self.live = live
         self.event = threading.Event()
         self.dist = self.pred = None
         self.error: Optional[BaseException] = None
@@ -153,6 +191,11 @@ class _SolveBatcher:
     With the default 0 ms window a lone request dispatches at once;
     arrivals during an in-flight solve queue and drain as the NEXT
     merged batch. ``window_s > 0`` adds a fixed wait before each drain.
+
+    Requests under different route-metric generations never share a
+    dispatch (their edge weights differ): the key is the live generation
+    itself (None for the distance metric), so the leader drains one
+    generation per round, in arrival order around a flip.
     """
 
     def __init__(self, router: "RoadRouter", max_rows: int,
@@ -181,8 +224,10 @@ class _SolveBatcher:
                     "max_occupancy": self._max_occupancy,
                     "mean_rows_per_dispatch": round(self._rows / d, 3)}
 
-    def solve(self, sources: np.ndarray):
-        entry = _BatchEntry(sources)
+    def solve(self, sources: np.ndarray, live=None):
+        entry = _BatchEntry(sources,
+                            live if live is not None and live.route
+                            else None)
         with self._lock:
             self._queue.append(entry)
             self._requests += 1
@@ -207,11 +252,13 @@ class _SolveBatcher:
                         # between would wait on a leader that left.
                         self._busy = False
                         break
+                    k0 = self._queue[0].live
                     batch: List[_BatchEntry] = []
                     rest: List[_BatchEntry] = []
                     rows = 0
                     for it in self._queue:
-                        if rows + len(it.sources) <= self.max_rows:
+                        if (it.live is k0
+                                and rows + len(it.sources) <= self.max_rows):
                             batch.append(it)
                             rows += len(it.sources)
                         else:
@@ -244,7 +291,7 @@ class _SolveBatcher:
         merged = (batch[0].sources if len(batch) == 1
                   else np.concatenate([it.sources for it in batch]))
         try:
-            dist, pred = self._router._solve_rows(merged)
+            dist, pred = self._router._solve_rows(merged, batch[0].live)
         except BaseException as e:  # propagate to every merged caller
             for it in batch:
                 it.error = e
@@ -355,6 +402,12 @@ class RoadRouter:
         # (module, trained seq_len)
         self._transformer = (None if tf is None
                              else (tf[0], int(tf[1].get("seq_len", 24))))
+        # Live-traffic metric: installed by the customizer, snapshotted
+        # once per request batch. None = frozen world (free-flow / GNN
+        # pricing, distance-metric routing).
+        self._live: Optional[_LiveMetric] = None
+        self._live_installs = 0  # monotonic; part of the route-cache key
+        self._live_lock = threading.Lock()  # serializes installs only
 
     @property
     def leg_cost_model(self) -> str:
@@ -385,7 +438,75 @@ class RoadRouter:
             info["batch"] = self._solve_batcher.stats()
         if self._route_cache is not None:
             info["route_cache"] = self._route_cache.stats()
+        if self._live is not None:
+            info["live"] = self.live_info
         return info
+
+    # ── live traffic: metric install / flip ───────────────────────────
+
+    @property
+    def live_epoch(self) -> int:
+        """Metric generation currently serving (0 = no live metric)."""
+        live = self._live
+        return live.epoch if live is not None else 0
+
+    @property
+    def live_info(self) -> Optional[Dict]:
+        """Health's and ``/api/live``'s view of the installed metric."""
+        live = self._live
+        if live is None:
+            return None
+        return {"epoch": live.epoch, "route_metric": live.route,
+                "installed_unix": round(live.installed_unix, 3),
+                **live.timings}
+
+    def live_metric_export(self) -> Optional[np.ndarray]:
+        """The (E,) blended edge seconds the live generation serves."""
+        live = self._live
+        return None if live is None else live.time_s
+
+    def install_live_metric(self, time_s: np.ndarray, epoch: int, *,
+                            route: bool = True) -> Dict:
+        """Build and atomically flip to a new live metric generation.
+
+        ``time_s`` is the blended per-edge travel seconds (original edge
+        order). Bad entries (non-finite, non-positive) become free-flow
+        time, and every edge is floored at free-flow at an arterial
+        ceiling (``length_m / 16.7``). The receiver-sorted time weights
+        upload to the router's device and, on an overlay router with
+        ``route``, the overlay is customized against the metric there —
+        all before the flip, on the caller's (customizer) thread, so
+        requests keep solving the previous generation and the flip
+        itself is one reference assignment. ``route=False`` installs the
+        metric for leg PRICING only. Raises on a bad metric or a failed
+        customization; the previous generation keeps serving."""
+        time_s = np.array(time_s, np.float32, copy=True)
+        if time_s.shape != self.length_m.shape:
+            raise ValueError(
+                f"live metric has {time_s.shape} entries, graph has "
+                f"{self.length_m.shape}")
+        bad = ~np.isfinite(time_s) | (time_s <= 0)
+        if bad.any():
+            time_s[bad] = self.freeflow_time_s[bad]
+        np.maximum(time_s, self.length_m / 16.7, out=time_s)
+        timings: Dict = {}
+        hier_live = solve = None
+        d_time_bf = torch.from_numpy(time_s[self._bf_perm]).to(self.device)
+        if self._hier is not None and route:
+            t0 = time.perf_counter()
+            hier_live = self._hier.customize(time_s)
+            timings["customize_s"] = round(time.perf_counter() - t0, 3)
+            timings["full_build_s"] = self._hier.stats.get("build_s", 0.0)
+            solve = self._make_overlay_solve(hier_live)
+        with self._live_lock:
+            self._live_installs += 1
+            live = _LiveMetric(epoch, time_s, d_time_bf, hier_live, solve,
+                               route, timings, gen=self._live_installs)
+            self._live = live
+        set_metric_epoch(live.epoch)
+        _log.info("live_metric_installed", epoch=live.epoch, route=route,
+                  **timings)
+        return dict(timings, epoch=live.epoch)
 
     @staticmethod
     def _make_overlay_solve(hier: HierarchicalIndex):
@@ -526,40 +647,48 @@ class RoadRouter:
         return np.argmin(d, axis=1).astype(np.int32)
 
     def shortest(self, source_nodes: np.ndarray, live=None):
-        """(S,) nodes → ((S, N) distances m, (S, N) predecessor edge ids
+        """(S,) nodes → ((S, N) distances, (S, N) predecessor edge ids
         in the original edge order), host numpy.
 
-        Concurrent callers merge into one device solve through the solve
-        batcher; requests above its row limit solve directly. ``live``
-        (a live-traffic metric) is not ported and must be None."""
-        if live is not None:
-            raise ValueError("live traffic metrics are not ported")
+        Concurrent callers under the same metric merge into one device
+        solve through the solve batcher; requests above its row limit
+        solve directly. With ``live`` (a snapshot of ``self._live``
+        taken ONCE by the caller, so one request batch never straddles a
+        flip) and its route metric armed, the solve runs over the live
+        travel-time metric: distances come back in seconds, and the
+        trees are time-shortest (``_meters_along`` recovers meters)."""
         source_nodes = np.asarray(source_nodes, np.int32)
         batcher = self._solve_batcher
         if batcher is not None and 0 < len(source_nodes) <= batcher.max_rows:
-            return batcher.solve(source_nodes)
-        return self._solve_rows(source_nodes)
+            return batcher.solve(source_nodes, live)
+        return self._solve_rows(source_nodes, live)
 
-    def _solve_rows(self, source_nodes: np.ndarray):
+    def _solve_rows(self, source_nodes: np.ndarray, live=None):
         """One device solve (the batcher calls this with merged rows).
         The source axis pads to a power of two by repeating source 0, as
         the JAX package pads to reuse a compiled program; the padding
         rows are dropped. One host fetch per solve besides the relax
-        loops' checks."""
+        loops' checks. Under a live route metric the overlay is the
+        customized one and the flat sweep's weights are the time
+        metric's (the same code, other tensors: a flip recompiles
+        nothing)."""
         source_nodes = np.asarray(source_nodes, np.int32)
         n_src = len(source_nodes)
         bucket = 1 << max(0, (n_src - 1)).bit_length()
         padded = np.full(bucket, source_nodes[0] if n_src else 0, np.int64)
         padded[:n_src] = source_nodes
         sources = torch.from_numpy(padded).to(self.device)
-        if self._hier is not None:
+        if live is not None and live.route:
+            hier, solve, w = live.hier, live.solve, live.d_time_bf
+        else:
+            hier, solve, w = self._hier, self._overlay_solve, self._bf_length
+        if hier is not None:
             # Overlay path: exact by construction (no exhaustion re-run),
             # and full_solve_fn already returns ORIGINAL edge ids.
-            dist, pred = self._overlay_solve(
-                *self._hier.prep_sources(padded), sources)
+            dist, pred = solve(*hier.prep_sources(padded), sources)
             return self._fetch(dist[:n_src], pred[:n_src])
         dist, pred, converged = _bellman_ford(
-            self._bf_senders, self._bf_receivers, self._bf_length, sources,
+            self._bf_senders, self._bf_receivers, w, sources,
             n_nodes=self.n_nodes, max_iters=self.max_iters)
         if not converged:
             # The O(√N) heuristic was exhausted while distances were
@@ -568,7 +697,7 @@ class RoadRouter:
                          heuristic=self.max_iters, exact=self.n_nodes,
                          n_sources=n_src)
             dist, pred, _ = _bellman_ford(
-                self._bf_senders, self._bf_receivers, self._bf_length,
+                self._bf_senders, self._bf_receivers, w,
                 sources, n_nodes=self.n_nodes, max_iters=self.n_nodes)
         dist, pred = self._fetch(dist[:n_src], pred[:n_src])
         # sorted-edge ids → original edge ids
@@ -583,6 +712,32 @@ class RoadRouter:
         both = torch.cat([dist.view(torch.int32),
                           pred.to(torch.int32)]).cpu().numpy()
         return both[:n].view(np.float32), both[n:]
+
+    def _tree_table(self, pred: np.ndarray, edge_cost: np.ndarray,
+                    dist_rows: np.ndarray) -> np.ndarray:
+        """(S, N) per-edge ``edge_cost`` summed along the predecessor
+        trees (``_time_table``) on the router's device, host numpy;
+        ``dist_rows`` marks the unreachable nodes (inf)."""
+        n_rounds = max(1, (max(self.n_nodes - 1, 1)).bit_length())
+
+        def on_device(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+        return _time_table(
+            self._d_senders, on_device(pred.astype(np.int64)),
+            on_device(edge_cost), on_device(dist_rows),
+            n_rounds=n_rounds).cpu().numpy()
+
+    def _meters_along(self, pred: np.ndarray,
+                      metric_rows: np.ndarray) -> np.ndarray:
+        """(S, N) meters accumulated along the given predecessor trees.
+        Live-metric solves are time-shortest, so leg DISTANCES are
+        recovered along those trees rather than read from the solve's
+        own (seconds) table. Unreachable → 3e38, the distance solve's
+        sentinel."""
+        meters = self._tree_table(pred, self.length_m, metric_rows)
+        return np.where(np.isfinite(meters), meters,
+                        np.float32(3e38)).astype(np.float32)
 
     def _walk(self, pred_row: np.ndarray, source: int, target: int) -> List[int]:
         """Predecessor edges → node sequence source..target (host-side)."""
@@ -620,9 +775,15 @@ class RoadRouter:
         problem skips snap and solve, and concurrent identical problems
         collapse onto one solve. The remainder concatenates along the
         source axis in groups whose fetch stays under ~64 MB, and splits
-        back as row slices, bitwise what per-problem solves return."""
+        back as row slices, bitwise what per-problem solves return.
+
+        ONE live-metric snapshot serves the whole batch: every problem
+        in it prices (and, with the route metric armed, routes) against
+        the same generation, and a concurrent flip affects only later
+        batches."""
         pts_list = [np.asarray(p, np.float32) for p, _, _ in problems]
         counts = [len(p) for p in pts_list]
+        live = self._live
         out: List[Optional[RoadLegs]] = [None] * len(problems)
         cache = self._route_cache
         keys: List = [None] * len(problems)
@@ -630,15 +791,16 @@ class RoadRouter:
         waits: List[Tuple[int, object]] = []       # (idx, flight)
         solve_idx: List[int] = list(range(len(problems)))
         if cache is not None:
+            epoch = ((live.epoch, live.gen) if live is not None
+                     else (0, 0))
             my_leads: Dict = {}
             solve_idx = []
             for i, pts in enumerate(pts_list):
                 _, time_scale, hour = problems[i]
                 eff_hour = 12 if hour is None else int(hour) % 24
-                # (live epoch, install gen) and model generation: always
-                # zero in the port (no live metric, no hot-swap).
+                # road-model generation: always 0 (no hot-swap yet)
                 key = (pts.tobytes(), len(pts), float(time_scale),
-                       eff_hour, (0, 0), 0)
+                       eff_hour, epoch, 0)
                 keys[i] = key
                 lead = my_leads.get(key)
                 if lead is not None:
@@ -657,7 +819,7 @@ class RoadRouter:
         try:
             if solve_idx:
                 self._solve_problems(problems, pts_list, counts, solve_idx,
-                                     out, copy_rows=cache is not None)
+                                     live, out, copy_rows=cache is not None)
         except BaseException as e:
             if cache is not None:
                 for i in solve_idx:
@@ -676,8 +838,8 @@ class RoadRouter:
                 out[i] = cache.wait(flight, budget)
         return out
 
-    def _solve_problems(self, problems, pts_list, counts, solve_idx, out, *,
-                        copy_rows: bool) -> None:
+    def _solve_problems(self, problems, pts_list, counts, solve_idx, live,
+                        out, *, copy_rows: bool) -> None:
         """Snap + grouped solves + :class:`RoadLegs` for the selected
         problems. ``copy_rows`` detaches each problem's rows from the
         group's arrays so a cached entry never pins a whole group."""
@@ -715,20 +877,33 @@ class RoadRouter:
         for g in groups:
             sel = np.concatenate([np.arange(offsets[j], offsets[j + 1])
                                   for j in g])
-            dist, pred = self.shortest(all_nodes[sel])
+            dist, pred = self.shortest(all_nodes[sel], live=live)
+            meters = (self._meters_along(pred, dist)
+                      if live is not None and live.route else None)
             pos = 0
             for j in g:
                 i = solve_idx[j]
                 m = sel_counts[j]
                 _, time_scale, hour = problems[i]
                 eff_hour = 12 if hour is None else int(hour) % 24
+                if live is not None:
+                    # Live pricing: the legs' per-edge seconds ARE the
+                    # installed metric (hour blending happened at flip
+                    # time), so solves, leg durations and the export
+                    # stay coherent.
+                    time_arr = live.time_s
+                    cost_model = f"live+{self.leg_cost_model}"
+                else:
+                    time_arr = self.edge_time_s(eff_hour)
+                    cost_model = self.leg_cost_model
                 out[i] = RoadLegs(
                     self, pts_list[i],
                     all_nodes[offsets[j]:offsets[j + 1]],
                     _rows(dist, pos, pos + m), _rows(pred, pos, pos + m),
                     all_snap[offsets[j]:offsets[j + 1]],
-                    time_scale, self.edge_time_s(eff_hour),
-                    self.leg_cost_model, hour=eff_hour)
+                    time_scale, time_arr, cost_model, hour=eff_hour,
+                    meters_rows=(_rows(meters, pos, pos + m)
+                                 if meters is not None else None))
                 pos += m
 
 
@@ -750,7 +925,8 @@ class RoadLegs:
                  snap_m: np.ndarray, time_scale: float,
                  time_s: Optional[np.ndarray] = None,
                  cost_model: str = "freeflow",
-                 hour: int = 12) -> None:
+                 hour: int = 12,
+                 meters_rows: Optional[np.ndarray] = None) -> None:
         self._r = router
         self._hour = hour
         self._points = points
@@ -760,9 +936,15 @@ class RoadLegs:
         self._time_scale = time_scale
         self._time_s = time_s if time_s is not None else router.freeflow_time_s
         self.cost_model = cost_model
+        # Live-metric solves are TIME-shortest: ``dist`` rows are
+        # seconds and ``meters_rows`` carries the meters recovered along
+        # those trees — distance fields stay in meters whatever metric
+        # chose the paths.
+        self._live_metric = meters_rows is not None
         m = len(points)
         # Full matrix (the VRP input): graph distance + first/last mile.
-        self.dist_m = dist[np.arange(m)[:, None], nodes[None, :]] \
+        phys = meters_rows if meters_rows is not None else dist
+        self.dist_m = phys[np.arange(m)[:, None], nodes[None, :]] \
             + snap_m[:, None] + snap_m[None, :]
         np.fill_diagonal(self.dist_m, 0.0)
         self._dist_rows = dist            # (M, N): duration_matrix masks by it
@@ -828,6 +1010,11 @@ class RoadLegs:
         in ONE forward on the router's device."""
         t = self._r._transformer
         if t is None or not trips:
+            return None
+        if self._live_metric:
+            # The transformer was trained on the frozen world; letting
+            # it re-price would overwrite the live durations the metric
+            # flip just installed. Base (live) pricing stands.
             return None
         model, seq_len = t
         r = self._r
@@ -913,16 +1100,8 @@ class RoadLegs:
         table (``_time_table``), computed once per solve. Values match
         the per-pair walk to f32 rounding (the sums re-associate)."""
         if self._dur_rows is None:
-            r = self._r
-            n_rounds = max(1, (max(r.n_nodes - 1, 1)).bit_length())
-
-            def on_device(a):
-                return torch.from_numpy(np.ascontiguousarray(a)).to(r.device)
-
-            self._dur_rows = _time_table(
-                r._d_senders, on_device(self._pred.astype(np.int64)),
-                on_device(self._time_s), on_device(self._dist_rows),
-                n_rounds=n_rounds).cpu().numpy()
+            self._dur_rows = self._r._tree_table(self._pred, self._time_s,
+                                                 self._dist_rows)
         dur = self._dur_rows[:, self._nodes].astype(np.float64)
         dur = self._time_scale * (
             dur + (self._snap_m[:, None] + self._snap_m[None, :])

@@ -8,8 +8,10 @@ under::
     (waypoint bytes, waypoint count, time_scale, hour,
      live metric epoch, road-model generation)
 
-The port serves no live metric and never swaps a road model, so the last
-two are always ``(0, 0)`` and ``0``. The budget is bytes
+The live metric epoch is the router's ``(epoch, install gen)`` pair
+(``(0, 0)`` while no live metric is installed), so a metric flip retires
+every cached route; the port never swaps a road model yet, so the last
+entry is always ``0``. The budget is bytes
 (``ROUTEST_ROUTE_CACHE_MB``), since an entry pins (M, N) predecessor and
 distance rows; a TTL (``ROUTEST_ROUTE_CACHE_TTL_S``) is a freshness
 backstop; ``ROUTEST_ROUTE_CACHE=0`` turns it off. N concurrent identical

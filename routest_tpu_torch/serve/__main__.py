@@ -1,12 +1,19 @@
 """Server entry point: ``python -m routest_tpu_torch.serve``.
 
-Serves the ETA, route-optimization, history and locations endpoints on
-``RTPU_HOST``:``PORT`` (default 127.0.0.1:5000), scoring on the card
-through the fused kernel from the artifact at ``ETA_MODEL_PATH``
-(default ``artifacts/eta_mlp.msgpack``) and solving routes on the card.
-``ROUTEST_DEVICE=cpu`` serves on the CPU (the kernel's plain version). A missing artifact is a hard error: training a bootstrap
-model waits for the training slice. SIGTERM/SIGINT drain in-flight
-requests before exit.
+Serves the ETA, route-optimization, history, locations, live-tracking
+(``/api/confirm_route``, ``/api/update_tracker``, SSE
+``/api/realtime_feed``) and live-traffic (``/api/probe``, ``/api/live``)
+endpoints on ``RTPU_HOST``:``PORT`` (default 127.0.0.1:5000), scoring
+on the card through the fused kernel from the artifact at
+``ETA_MODEL_PATH`` (default ``artifacts/eta_mlp.msgpack``) and solving
+routes on the card. ``ROUTEST_DEVICE=cpu`` serves on the CPU (the
+kernel's plain version). ``RTPU_LIVE=1`` arms live traffic on the road
+router (``RTPU_LIVE_*`` knobs). A missing artifact is a hard error:
+training a bootstrap model waits for the training slice. SIGTERM/SIGINT
+drain in-flight requests (open SSE streams are not waited for) before
+exit. ``serve_listening`` and ``serve_stopped`` log the fused kernel's
+launch count in this process (``fused_launches``): their difference is
+the launches over the requests served.
 """
 
 from __future__ import annotations
@@ -14,6 +21,7 @@ from __future__ import annotations
 import os
 
 from routest_tpu_torch.core.config import load_config
+from routest_tpu_torch.ops.fused_mlp import fused_eta_forward
 from routest_tpu_torch.serve.app import create_app
 from routest_tpu_torch.serve.ml_service import EtaService
 from routest_tpu_torch.serve.wsgi import run_with_graceful_shutdown
@@ -34,9 +42,10 @@ def main() -> None:
               scoring=eta.scoring_info(), error=eta.load_error)
     app = create_app(config, eta_service=eta)
     _log.info("serve_listening", host=config.serve.host,
-              port=config.serve.port)
+              port=config.serve.port,
+              fused_launches=fused_eta_forward.launches)
     run_with_graceful_shutdown(app, config.serve.host, config.serve.port)
-    _log.info("serve_stopped")
+    _log.info("serve_stopped", fused_launches=fused_eta_forward.launches)
 
 
 if __name__ == "__main__":

@@ -10,15 +10,24 @@ serves, with the same status codes, keys and error strings:
   ``POST /api/optimize_route`` (with ``use_ml_eta``, then persisted),
   ``POST /api/optimize_route_batch``, ``POST /api/matrix`` (JSON);
 - history: ``GET /api/history``, ``GET``/``DELETE /api/history/<id>``;
+- live tracking: ``POST /api/confirm_route`` (starts a driver
+  simulation publishing to the bus), ``POST /api/update_tracker``,
+  ``GET /api/realtime_feed`` (SSE, resumable by ``Last-Event-ID``);
+- live traffic: ``POST /api/probe`` (publishes probe observations to the
+  probe channel) and ``GET /api/live``; ``RTPU_LIVE=1`` arms the ingest
+  and the metric customizer on the road router of the serving device;
 - ``GET /api/locations``, ``GET /api/ping`` and ``GET /api/health``.
 
 Health keeps the degraded-not-down contract (always HTTP 200) and
 reports the scoring path (``checks.model.scoring``), the device
 (``checks.engine.mesh``), the road router once one is built
-(``checks.engine.road_router``) and the store (``checks.store``). The bus, SSE
-tracking, auth and the binary wire path arrive with later slices; auth
-is required by ``ROUTEST_AUTH=require``, so that setting refuses to boot
-rather than serve an ungated ``DELETE``.
+(``checks.engine.road_router``), live traffic when armed
+(``checks.engine.live``), the bus (``checks.bus``, the JAX app's
+``checks.redis``) and the store (``checks.store``). Auth, the dispatch
+registration of confirmed routes, the static pages and the binary wire
+path arrive with later slices; auth is required by
+``ROUTEST_AUTH=require``, so that setting refuses to boot rather than
+serve an ungated ``DELETE``.
 """
 
 from __future__ import annotations
@@ -39,6 +48,8 @@ from routest_tpu_torch.optimize.engine import (MAX_BATCH_PROBLEMS,
                                                optimize_route,
                                                optimize_route_batch,
                                                travel_matrix)
+from routest_tpu_torch.serve import sim
+from routest_tpu_torch.serve.bus import make_bus, sse_stream
 from routest_tpu_torch.serve.deadline import DeadlineExceeded
 from routest_tpu_torch.serve.ml_service import EtaService
 from routest_tpu_torch.serve.store import StoreUnavailable, make_store
@@ -62,9 +73,12 @@ def _obj(value) -> dict:
 
 def create_app(config: Optional[Config] = None,
                eta_service: Optional[EtaService] = None,
-               store=None) -> App:
+               store=None, bus=None,
+               sim_tick_range=(2.0, 5.0)) -> App:
     """The app. Route optimization runs on ``config.serve.device``;
-    ``store`` defaults to :func:`make_store` of the configured backend."""
+    ``store`` and ``bus`` default to :func:`make_store` and
+    :func:`make_bus` of the configured backends; ``sim_tick_range`` is
+    the driver simulation's tick interval in seconds."""
     config = config or load_config()
     if os.environ.get("ROUTEST_AUTH") == "require":
         raise RuntimeError(
@@ -72,6 +86,7 @@ def create_app(config: Optional[Config] = None,
             "refusing to serve DELETE /api/history ungated")
     store = store if store is not None else make_store(
         config.serve.supabase_url, config.serve.supabase_service_key)
+    bus = bus if bus is not None else make_bus(config.serve.redis_url)
     eta = eta_service if eta_service is not None else EtaService(
         config.serve, model_path=default_model_path(config.model))
     device = config.serve.device
@@ -79,6 +94,18 @@ def create_app(config: Optional[Config] = None,
     app = App()
     app.eta = eta  # for tests / introspection
     app.store = store
+    app.bus = bus
+
+    # Live traffic (RTPU_LIVE=1): probe-stream ingest → per-edge
+    # congestion state → periodic metric refresh of the road router on
+    # the serving device. Armed asynchronously: the router build on a
+    # metro extract must not stall boot.
+    app.live = None
+    if config.live.enabled:
+        from routest_tpu_torch.live.service import LiveTrafficService
+
+        app.live = LiveTrafficService(bus, config.live, device=device)
+        app.live.start()
 
     # ── optimization ────────────────────────────────────────────────────
 
@@ -193,6 +220,131 @@ def create_app(config: Optional[Config] = None,
         if "error" in result:
             return result, 400
         return result, 200
+
+    # ── live tracking ──────────────────────────────────────────────────
+
+    @app.route("/api/confirm_route", methods=("POST",))
+    def confirm_route(request):
+        data = get_json(request)
+        if not data or "route_details" not in data or "driver_details" not in data:
+            return {"error": "driver_details and route_details required"}, 400
+        # Validate the structure the simulator dereferences up front —
+        # a daemon thread dying on KeyError would 200 then go silent.
+        route = _obj(data["route_details"])
+        driver = _obj(data["driver_details"])
+        coords = _obj(route.get("geometry")).get("coordinates")
+        summary = _obj(route.get("properties")).get("summary")
+        if not isinstance(coords, list) or not coords or not isinstance(summary, dict):
+            return {"error": "route_details must carry geometry.coordinates and properties.summary"}, 400
+        if not driver.get("driver_name") or not driver.get("vehicle_type"):
+            return {"error": "driver_details must carry driver_name and vehicle_type"}, 400
+        if "destinations" not in _obj(route.get("properties")):
+            return {"error": "route_details.properties.destinations required"}, 400
+        # Optional deterministic replay: a caller-supplied sim_seed makes
+        # the tick jitter (and so the publish cadence) bit-identical
+        # across runs.
+        seed = data.get("sim_seed")
+        if seed is not None and not isinstance(seed, int):
+            return {"error": "sim_seed must be an integer"}, 400
+        sim.start_simulation(data, bus.publish, sim_tick_range, seed=seed)
+        # The dispatch registration of confirmed routes arrives with the
+        # dispatch slice: the answer is the JAX app's without a dispatch
+        # service.
+        return {"status": "route simulation initialized."}, 200
+
+    @app.route("/api/update_tracker", methods=("POST",))
+    def update_tracker(request):
+        data = get_json(request)
+        if not data:
+            return {"error": "no data provided in the publish request."}, 400
+        try:
+            event = sim.format_sse_data(data)
+        except (KeyError, ValueError, TypeError, OverflowError) as e:
+            # TypeError: right fields, wrong types; OverflowError:
+            # timedelta on an infinite/huge duration — all client errors.
+            return {"error": f"malformed tracker payload: {e}"}, 400
+        bus.publish(str(data.get("route_id")), event)
+        return {"status": "published"}, 200
+
+    @app.route("/api/probe", methods=("POST",))
+    def probe(request):
+        """Probe-observation ingest over HTTP. The handler only
+        PUBLISHES to the probe channel; the live ingester folds the
+        event through its own bus subscription, so HTTP- and
+        bus-sourced probes take one code path into the estimator."""
+        data = get_json(request)
+        if not data:
+            return {"error": "no probe data provided."}, 400
+        obs = data.get("obs") if isinstance(data.get("obs"), list) \
+            else data.get("observations")
+        if not isinstance(obs, list) or not obs:
+            return {"error": "obs must be a non-empty list of "
+                             "[edge_id, speed_mps] pairs"}, 400
+        if len(obs) > 4096:
+            return {"error": "probe batch too large (max 4096)"}, 400
+        for o in obs:
+            if (not isinstance(o, (list, tuple)) or len(o) != 2
+                    or not isinstance(o[0], int)
+                    or not isinstance(o[1], (int, float))):
+                return {"error": "each observation must be "
+                                 "[edge_id, speed_mps]"}, 400
+        channel = (app.live.cfg.channel if app.live is not None
+                   else os.environ.get("RTPU_LIVE_CHANNEL", "rtpu.probes"))
+        event = {"t": float(data.get("t") or time.time()),
+                 "driver": str(data.get("driver") or "http"),
+                 "obs": [[int(e), float(s)] for e, s in obs]}
+        # A frame that already crossed a region bridge keeps its origin
+        # stamp (the JAX package's bridge reads it).
+        if data.get("origin_region") is not None:
+            event["origin_region"] = str(data["origin_region"])
+        if data.get("hour") is not None:
+            try:
+                event["hour"] = int(data["hour"]) % 24
+            except (TypeError, ValueError):
+                return {"error": "hour must be an integer"}, 400
+        bus.publish(channel, event)
+        return {"status": "published", "count": len(obs)}, 200
+
+    @app.route("/api/live", methods=("GET",))
+    def live_state(request):
+        """Live-traffic surface: ingest and customizer state, the
+        serving metric epoch, and — with ``?metric=1`` — the blended
+        per-edge seconds themselves."""
+        live = app.live
+        if live is None:
+            return {"enabled": False}, 200
+        out = live.snapshot()
+        if request.args.get("metric") and live.router is not None:
+            metric = live.router.live_metric_export()
+            if metric is not None:
+                out["edge_time_s"] = [round(float(v), 4) for v in metric]
+                out["n_edges"] = len(metric)
+        return out, 200
+
+    @app.route("/api/realtime_feed", methods=("GET",))
+    def realtime_feed(request):
+        channel = request.args.get("channel", "sse")
+        try:
+            max_events = int(request.args["max_events"]) \
+                if "max_events" in request.args else None
+        except ValueError:
+            max_events = None
+        # SSE resume: EventSource sends Last-Event-ID on reconnect; the
+        # bus's replay ring resumes from it.
+        last_id = None
+        raw_lei = (request.header("Last-Event-ID")
+                   or request.args.get("last_event_id"))
+        if raw_lei:
+            try:
+                last_id = int(raw_lei)
+            except ValueError:
+                last_id = None
+        subscription = bus.subscribe(channel, last_event_id=last_id)
+        return Response(
+            sse_stream(subscription, max_events=max_events),
+            content_type="text/event-stream",
+            headers={"Cache-Control": "no-cache", "X-Accel-Buffering": "no"},
+        )
 
     # ── history ────────────────────────────────────────────────────────
 
@@ -429,6 +581,11 @@ def create_app(config: Optional[Config] = None,
     @app.route("/api/health", methods=("GET",))
     def health(request):
         t0 = time.time()
+        bus_ok = bus.ping()
+        bus_res = {"status": "ok" if bus_ok else "error",
+                   "latency_ms": int((time.time() - t0) * 1000),
+                   "backend": bus.kind}
+        t0 = time.time()
         store_ok = store.ping()
         store_res = {"status": "ok" if store_ok else "error",
                      "latency_ms": int((time.time() - t0) * 1000),
@@ -449,17 +606,35 @@ def create_app(config: Optional[Config] = None,
                 "transformer": bool(router.has_transformer),
                 **router.solver_info,
             }
+        # Live-traffic gauge (absent when RTPU_LIVE is off): armed state,
+        # estimator coverage and the serving metric epoch.
+        if app.live is not None:
+            live_snap = app.live.snapshot()
+            engine_res["live"] = {
+                "ready": live_snap.get("ready", False),
+                "epoch": live_snap.get("epoch", 0),
+                "edges_observed": live_snap.get(
+                    "ingest", {}).get("edges_observed", 0),
+                "confidence_mean": live_snap.get(
+                    "ingest", {}).get("confidence_mean", 0.0),
+                "flips": live_snap.get(
+                    "customize", {}).get("flips", 0),
+                **({"error": live_snap["error"]}
+                   if live_snap.get("error") else {}),
+            }
         model_res = {"status": "ok" if eta.available else "degraded",
                      "generation": eta.generation,
                      "fingerprint": eta.fingerprint,
                      "scoring": eta.scoring_info(),
                      **({"error": eta.load_error} if eta.load_error else {})}
         overall = ("ok" if model_res["status"] == "ok"
-                   and store_res["status"] == "ok" else "degraded")
+                   and store_res["status"] == "ok"
+                   and bus_res["status"] == "ok" else "degraded")
         return {
             "backend": True,
             "checks": {
                 "engine": engine_res,
+                "bus": bus_res,
                 "store": store_res,
                 "model": model_res,
                 "device": {"batcher": eta.stats,

@@ -33,6 +33,7 @@ import torch
 from routest_tpu_torch.core.config import ServeConfig, resolve_device
 from routest_tpu_torch.core.dtypes import backend_compute_policy
 from routest_tpu_torch.data.features import encode_requests
+from routest_tpu_torch.live import metric_epoch
 from routest_tpu_torch.obs import get_registry
 from routest_tpu_torch.ops.fused_mlp import (fused_eta_forward,
                                              pack_eta_params,
@@ -726,9 +727,10 @@ class EtaService:
             rows = np.where(bad[:, None], np.float32(0.0), rows)
         fl = self._fastlane
         if fl is not None and fl.accepts(len(rows)):
-            # Cache key = (model generation, live-metric epoch); the epoch
-            # is the constant 0 until live traffic is ported.
-            preds = fl.predict(rows, (serving.generation, 0),
+            # Cache key = (model generation, live-metric epoch): a metric
+            # flip retires every cached prediction the same way a model
+            # swap does. The epoch is 0 while live traffic is off.
+            preds = fl.predict(rows, (serving.generation, metric_epoch()),
                                lambda miss: self._submit_chunked(batcher, miss))
         else:
             preds = self._submit_chunked(batcher, rows)

@@ -5,10 +5,11 @@ the machine with the card does not have: a small :class:`Request` /
 :class:`Response` over the WSGI environ, method+path routing with
 ``<param>`` captures, JSON request/response helpers with the same
 400/413/504 behaviour and error bodies, the reference's CORS policy
-(localhost:3000 + ``*.vercel.app``, ``Flaskr/__init__.py:14-23``), and a
-threaded ``wsgiref`` server that drains in-flight handlers on SIGTERM.
-The flight recorder, request stats and trace spans arrive with the
-observability slice.
+(localhost:3000 + ``*.vercel.app``, ``Flaskr/__init__.py:14-23``),
+streamed responses for SSE, and a threaded ``wsgiref`` server that
+drains in-flight handlers on SIGTERM. The flight recorder, request
+stats (which skip streamed responses in the JAX package) and trace
+spans arrive with the observability slice.
 """
 
 from __future__ import annotations
@@ -98,10 +99,19 @@ class Request:
 
 
 class Response:
+    """A whole body (``str`` or bytes), or a streamed one: any other
+    iterable of byte chunks (an SSE generator), sent without a
+    ``Content-Length`` as the iterable yields, until it ends or the
+    client goes away (the server then closes the iterable)."""
+
     def __init__(self, body=b"", status: int = 200,
                  content_type: str = "text/plain; charset=utf-8",
                  headers: Optional[Dict[str, str]] = None) -> None:
-        self.body = body.encode() if isinstance(body, str) else bytes(body)
+        if isinstance(body, str):
+            body = body.encode()
+        self.is_streamed = not isinstance(body, (bytes, bytearray,
+                                                 memoryview))
+        self.body = body if self.is_streamed else bytes(body)
         self.status_code = status
         self.headers = {"Content-Type": content_type}
         if headers:
@@ -113,6 +123,10 @@ class Response:
         except ValueError:
             reason = "Unknown"
         headers = dict(self.headers)
+        if self.is_streamed:
+            start_response(f"{self.status_code} {reason}",
+                           list(headers.items()))
+            return self.body
         headers["Content-Length"] = str(len(self.body))
         start_response(f"{self.status_code} {reason}", list(headers.items()))
         return [self.body]
@@ -134,7 +148,10 @@ class App:
         # dict lookup instead of a linear regex scan.
         self._exact: Dict[Tuple[str, str], Tuple[Callable, str]] = {}
         # Graceful-drain bookkeeping: handlers currently executing (the
-        # SIGTERM path waits for this to hit zero before exiting).
+        # SIGTERM path waits for this to hit zero before exiting). A
+        # streamed (SSE) body is iterated after __call__ returns: it is
+        # a long-lived connection, not a unit of work, so the drain
+        # does not wait on open streams.
         self._inflight = 0
         self._inflight_lock = threading.Lock()
         self._m_expired = get_registry().counter(
@@ -341,8 +358,8 @@ def run_with_graceful_shutdown(app: App, host: str, port: int,
                                drain_timeout_s: float = 30.0,
                                ready_event: Optional[threading.Event] = None):
     """Serve ``app`` until SIGTERM/SIGINT, then drain: stop accepting,
-    wait up to ``drain_timeout_s`` for in-flight handlers to finish,
-    then return. Must run on the main thread (signal handlers). Returns
+    wait up to ``drain_timeout_s`` for in-flight handlers to finish
+    (streamed SSE bodies are not waited for), then return. Must run on the main thread (signal handlers). Returns
     the count of handlers still running at exit (0 = clean drain)."""
     log = get_logger("routest_tpu_torch.serve.boot")
     server = make_server(app, host, port)

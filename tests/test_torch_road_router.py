@@ -245,10 +245,10 @@ def test_merged_batcher_solves_equal_lone_solves(monkeypatch):
     real = tr._solve_rows
     calls = []
 
-    def slow_solve(sources):
+    def slow_solve(sources, live=None):
         calls.append(len(sources))
         gate.wait(5)
-        return real(sources)
+        return real(sources, live)
 
     monkeypatch.setattr(tr, "_solve_rows", slow_solve)
     out = {}
