@@ -98,11 +98,29 @@ of which fails the run:
    fused kernel's launches over them (health's
    ``checks.model.scoring.launches``), a seeded ``/api/confirm_route``
    read back over ``/api/realtime_feed`` and resumed with
-   ``Last-Event-ID``.
+   ``Last-Event-ID``;
+11. dispatch, run between phases 10 and 9: (a) drains of 1, 4, 16 and
+   64 problems at 12 and 32 stops (``scripts/bench_dispatch.py``'s
+   recipe; one problem in four with windows, stops over capacity and
+   unreachable, one non-zero diagonal) through
+   ``solve_host_dispatch_batch`` on the card, every plan bitwise the CPU
+   path's, with ms per drain, solves/s, host syncs, kernels and torch
+   ops per drain and the CPU path's ms; (b) an app on the card against
+   one on the CPU: 64 concurrent matrix-mode ``/api/dispatch`` requests
+   (the batcher must merge some), 10 geographic 20-stop requests with
+   windows, confirm / complete / complete (404), ``/api/confirm_route``
+   with lat/lon stops (a ``dispatch_id``); (c) on phase 10's default
+   router, a corridor flowing then jammed (``_live_flip``): one
+   ``ReoptLoop.tick()`` re-solves exactly the dispatch along the
+   corridor, not the one far from it, its ``plan_update`` arrives on its
+   channel and equals the CPU path's; (d) the pages (``/``, ``/ui``,
+   ``/health``, ``/lib/*.js``, ``/up``) and ops routes (``/api/version``,
+   ``/api/metrics``, both formats) answer as the CPU app's.
 
 The lines before the last are one ``{"optimize": {...}}``, one
-``{"road": {...}}``, one ``{"overlay": {...}}``, one ``{"live": {...}}``
-and one ``{"kernels": [...]}`` JSON object and the
+``{"road": {...}}``, one ``{"overlay": {...}}``, one ``{"live": {...}}``,
+one ``{"dispatch": {...}}`` and one ``{"kernels": [...]}`` JSON object
+and the
 card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
 there is no card or a phase fails.
@@ -1642,9 +1660,10 @@ LIVE_TRACK_POINTS = 3
 LIVE_TRACK_FIRST = 1
 
 
-def _live_flip(router, corridor, seed=0):
-    """A seeded ``ProbeFleet`` with a jammed corridor, stepped on the
-    fixed clock through a bus into the ingester and a fresh
+def _live_flip(router, corridor, seed=0, jam=True):
+    """A seeded ``ProbeFleet`` with a jammed corridor (``jam=False``: the
+    same fleet and observations with the corridor flowing), stepped on
+    the fixed clock through a bus into the ingester and a fresh
     ``CongestionState``, then one ``MetricCustomizer.run_once`` on
     ``router``. → (customizer result, fleet events, cycle wall s)."""
     from routest_tpu_torch.live.customize import MetricCustomizer
@@ -1657,7 +1676,7 @@ def _live_flip(router, corridor, seed=0):
     state = CongestionState(router.freeflow_time_s)
     ingester = ProbeIngester(bus, state, router.length_m)
     scenario = CongestionScenario(corridor, speed_factor=0.25)
-    scenario.set_active(True)
+    scenario.set_active(jam)
     fleet = ProbeFleet(router.graph_dict(), LIVE_DRIVERS, bus.publish,
                        seed=seed, scenario=scenario,
                        obs_per_tick=LIVE_OBS_PER_TICK)
@@ -1992,8 +2011,11 @@ def _live_serve(rng):
                                                     "lon": 121.02}],
                                   "summary": props["summary"]}},
             "sim_seed": 7})
-        check(status == 200 and out == {"status":
-                                         "route simulation initialized."},
+        # the destination carries lat/lon: registered for dispatch
+        # re-optimization (dispatch is on by default)
+        check(status == 200 and out.get("status")
+              == "route simulation initialized."
+              and set(out) == {"status", "dispatch_id"},
               f"/api/confirm_route: {status} {out}")
         t0 = time.perf_counter()
         first = _sse(port, "/api/realtime_feed?channel=smoke-driver&"
@@ -2080,6 +2102,441 @@ def phase_live():
               "serving": serving}
     print(json.dumps({"live": record}))
     return record, launches
+
+
+# ── phase 11: dispatch ──────────────────────────────────────────────────
+
+# Drains through the batched dispatch solver: problems per drain, and
+# stops per problem (12 as scripts/bench_dispatch.py's problems, 32 the
+# default RTPU_DISPATCH_MAX_STOPS).
+DISPATCH_BATCHES = (1, 4, 16, 64)
+DISPATCH_STOPS = (12, 32)
+DISPATCH_REPS = 5
+DISPATCH_CPU_REPS = 2
+# Over HTTP: concurrent matrix-mode requests, and geographic requests
+# with windows at 20 stops over SEED_LOCATIONS.
+DISPATCH_CONCURRENT = 64
+DISPATCH_GEO_REPS = 10
+DISPATCH_PAGES = ("/", "/ui", "/health", "/lib/classify.js",
+                  "/lib/dashboard_logic.js", "/lib/missing.js", "/up")
+DISPATCH_OPS = ("/api/version", "/api/metrics",
+                "/api/metrics?format=prometheus")
+# The re-optimization check's RTPU_DISPATCH_DEGRADE_RATIO: the jam (a
+# quarter of the speed on the observed corridor edges, blended by
+# confidence, routed around where it can) raises the corridor plan's
+# cost by about a tenth on the default graph; the far plan's stays
+# exactly 1.0.
+REOPT_RATIO = 1.05
+
+
+def _dispatch_problem(rng, n, windows=False, diagonal=False):
+    """``scripts/bench_dispatch.py::_problem``'s recipe (points on a
+    60×60 square, costs rounded to 0.001, demands 1-3, capacity 7, budget
+    500), with about one stop in ten over capacity (demand 9), one in
+    twelve unreachable (its depot legs 300 each way), windows that open
+    within 50 and close 20-400 later (one in four never closes), and on
+    request a non-zero diagonal. → solver arguments."""
+    import numpy as np
+
+    from routest_tpu_torch.optimize.vrp import NO_WINDOW
+
+    pts = np.round(rng.random((n + 1, 2)) * 60.0, 3)
+    dist = np.round(np.sqrt(((pts[:, None] - pts[None]) ** 2).sum(-1)),
+                    3).astype(np.float32)
+    demands = rng.integers(1, 4, n).astype(np.float32)
+    demands[rng.random(n) < 0.1] = 9.0
+    far = 1 + np.flatnonzero(rng.random(n) < 1 / 12)
+    dist[0, far] = dist[far, 0] = 300.0
+    if diagonal:
+        dist[np.diag_indices(n + 1)] = rng.integers(1, 5, n + 1)
+    tw_open = tw_close = None
+    if windows:
+        tw_open = rng.integers(0, 50, n).astype(np.float32)
+        tw_close = (tw_open + rng.integers(20, 400, n)).astype(np.float32)
+        tw_close[rng.random(n) < 0.25] = NO_WINDOW
+    return dist, demands, 7.0, 500.0, tw_open, tw_close
+
+
+def _dispatch_drains(rng):
+    """(1): drains of ``DISPATCH_BATCHES`` × ``DISPATCH_STOPS`` through
+    ``solve_host_dispatch_batch`` on the card, every plan bitwise the CPU
+    path's; ms per drain, solves/s, syncs, kernels and torch ops per
+    drain, the CPU path's ms. → {"<batch>x<stops>": record}."""
+    from routest_tpu_torch.optimize.vrp import solve_host_dispatch_batch
+
+    out = {}
+    for stops in DISPATCH_STOPS:
+        for batch in DISPATCH_BATCHES:
+            probs = [_dispatch_problem(rng, stops, windows=i % 4 == 3,
+                                       diagonal=i == 0)
+                     for i in range(batch)]
+            args = [list(x) for x in zip(*probs)]
+
+            def drain(device, args=args):
+                return solve_host_dispatch_batch(
+                    *args[:4], tw_opens=args[4], tw_closes=args[5],
+                    device=device)
+
+            got, want = drain(CARD), drain("cpu")
+            for i, (g, w) in enumerate(zip(got, want)):
+                check(g == w, f"dispatch {batch}x{stops}: problem {i}'s "
+                              f"plan differs from the CPU path: {g} {w}")
+            ms = _cpu_ms(lambda: drain(CARD), DISPATCH_REPS)
+            work = _device_work(lambda: drain(CARD))
+            rec = {"ms_per_drain": ms,
+                   "solves_per_s": batch / (ms / 1e3),
+                   "syncs_per_drain": work["syncs"],
+                   "cuda_kernels_per_drain": work["cuda_kernels"],
+                   "cuda_memcpy_per_drain": work["cuda_memcpy"],
+                   "torch_ops_per_drain": work["aten_ops"],
+                   "cpu_ms_per_drain": _cpu_ms(lambda: drain("cpu"),
+                                               DISPATCH_CPU_REPS),
+                   "trips": sum(len(p["trips"]) for p in got),
+                   "spilled": sum(len(p["spilled"]) for p in got),
+                   "unroutable": sum(len(p["unroutable"]) for p in got),
+                   "penalty": sum(p["penalty"] for p in got)}
+            out[f"{batch}x{stops}"] = rec
+            print(f"[dispatch] drain {batch:2d} x {stops} stops on "
+                  f"{CARD}: {ms:.2f} ms ({rec['solves_per_s']:.1f} solves/"
+                  f"s), {rec['syncs_per_drain']} syncs, "
+                  f"{rec['cuda_kernels_per_drain']} kernels, "
+                  f"{rec['torch_ops_per_drain']} torch ops; CPU path "
+                  f"{rec['cpu_ms_per_drain']:.2f} ms; plans bitwise "
+                  f"({rec['trips']} trips, {rec['spilled']} spilled, "
+                  f"{rec['unroutable']} unroutable)")
+    return out
+
+
+def _raw(port, path):
+    """→ (status, content type, body bytes)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, resp.getheader("Content-Type"), resp.read()
+    finally:
+        conn.close()
+
+
+def _geo_dispatch_body(rep, n=20, **extra):
+    """A geographic body over SEED_LOCATIONS: the warehouse and ``n`` of
+    the malls from a rotating start, windows on every third stop."""
+    from routest_tpu_torch.data.locations import SEED_LOCATIONS
+
+    malls = SEED_LOCATIONS[1:]
+    dests = [{"lat": malls[(rep + i) % len(malls)][1],
+              "lon": malls[(rep + i) % len(malls)][2],
+              "payload": 1 + (rep + i) % 3} for i in range(n)]
+    body = {"source_point": {"lat": SEED_LOCATIONS[0][1],
+                             "lon": SEED_LOCATIONS[0][2]},
+            "destination_points": dests,
+            "driver_details": {"driver_name": f"geo-{rep}",
+                               "vehicle_type": "car",
+                               "vehicle_capacity": 6 + rep % 4,
+                               "maximum_distance": 60_000},
+            "time_windows": [[0, None] if i % 3 else
+                             [60 * (i % 5), 900 + 120 * i + 30 * rep]
+                             for i in range(n)]}
+    body.update(extra)
+    return body
+
+
+def _same_dispatch(got, want, path="dispatch"):
+    """The card app's dispatch answer against the CPU app's: equal JSON,
+    but ``cost``/``baseline_cost``/``penalty`` within rtol 1e-5 plus the
+    0.001 rounding step (geographic matrices come from the card's
+    haversine)."""
+    key = path.rsplit(".", 1)[-1]
+    if isinstance(want, dict):
+        check(isinstance(got, dict) and set(got) == set(want),
+              f"{path}: keys {sorted(got or {})} != {sorted(want)}")
+        for k in want:
+            _same_dispatch(got[k], want[k], f"{path}.{k}")
+    elif isinstance(want, list):
+        check(isinstance(got, list) and len(got) == len(want),
+              f"{path}: length")
+        for i, (g, w) in enumerate(zip(got, want)):
+            _same_dispatch(g, w, f"{path}[{i}]")
+    elif key in ("cost", "baseline_cost", "penalty"):
+        check(abs(got - want) <= 1e-5 * abs(want) + 1e-3 + 1e-9,
+              f"{path}: {got} vs {want}")
+    else:
+        check(got == want, f"{path}: {got!r} != {want!r}")
+
+
+def _dispatch_http(rng):
+    """(2) and (4): an app on the card and one on the CPU: concurrent
+    matrix-mode requests (merged by the batcher), geographic requests
+    with windows, confirm / complete / complete again, confirm_route
+    with lat/lon stops, then the pages and ops routes. → record."""
+    from routest_tpu_torch.core.config import Config, ServeConfig
+    from routest_tpu_torch.serve.ml_service import EtaService
+
+    artifact = os.path.join(ROOT, "artifacts", "eta_mlp.msgpack")
+    matrix_bodies = []
+    for i in range(DISPATCH_CONCURRENT):
+        dist, dem, cap, maxd, o, c = _dispatch_problem(
+            rng, 12, windows=i % 4 == 3, diagonal=i == 0)
+        body = {"matrix": dist.tolist(), "demands": dem.tolist(),
+                "capacity": cap, "max_distance": maxd}
+        if o is not None:
+            body["time_windows"] = [[float(a), None if b >= 1e30
+                                     else float(b)] for a, b in zip(o, c)]
+        matrix_bodies.append(body)
+    geo_bodies = [_geo_dispatch_body(r) for r in range(DISPATCH_GEO_REPS)]
+    confirm = _geo_dispatch_body(DISPATCH_GEO_REPS, n=8, confirm=True,
+                                 sim_seed=5)
+    confirm["driver_details"].pop("vehicle_type")   # no driver simulation
+    route_dests = geo_bodies[0]["destination_points"][:4]
+    coords = ([[geo_bodies[0]["source_point"]["lon"],
+                geo_bodies[0]["source_point"]["lat"]]]
+              + [[d["lon"], d["lat"]] for d in route_dests])
+    confirm_route = {
+        "route_details": {"geometry": {"coordinates": coords},
+                          "properties": {"summary": {"duration": 600,
+                                                     "distance": 9000,
+                                                     "trips": 1},
+                                         "destinations": route_dests}},
+        "driver_details": {"driver_name": "confirm-dispatch",
+                           "vehicle_type": "car", "vehicle_capacity": 10,
+                           "maximum_distance": 80_000}}
+
+    def serve(srv, concurrent):
+        answers = {"matrix": [None] * len(matrix_bodies)}
+        t0 = time.perf_counter()
+        if concurrent:
+            barrier = threading.Barrier(len(matrix_bodies))
+
+            def worker(i):
+                barrier.wait()
+                answers["matrix"][i] = _request(srv.port, "POST",
+                                                "/api/dispatch",
+                                                matrix_bodies[i])
+
+            threads = [threading.Thread(target=worker, args=(i,))
+                       for i in range(len(matrix_bodies))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+        else:
+            answers["matrix"] = [_request(srv.port, "POST", "/api/dispatch",
+                                          b) for b in matrix_bodies]
+        answers["matrix_wall_ms"] = (time.perf_counter() - t0) * 1e3
+        answers["state"] = _request(srv.port, "GET", "/api/dispatch")
+        answers["geo"], answers["geo_ms"] = [], []
+        for body in geo_bodies:
+            t0 = time.perf_counter()
+            answers["geo"].append(_request(srv.port, "POST",
+                                           "/api/dispatch", body))
+            answers["geo_ms"].append((time.perf_counter() - t0) * 1e3)
+        status, conf = _request(srv.port, "POST", "/api/dispatch", confirm)
+        answers["confirm"] = (status, conf)
+        did = conf.get("dispatch_id")
+        answers["complete"] = [_request(srv.port, "POST", "/api/dispatch",
+                                        {"complete": did})
+                               for _ in range(2)]
+        answers["confirm_route"] = _request(srv.port, "POST",
+                                            "/api/confirm_route",
+                                            confirm_route)
+        answers["pages"] = {p: _raw(srv.port, p)
+                            for p in DISPATCH_PAGES + DISPATCH_OPS}
+        return answers
+
+    cpu_svc = EtaService(ServeConfig(device="cpu"), model_path=artifact,
+                         device="cpu")
+    with _Server(cpu_svc, Config(serve=ServeConfig(device="cpu"))) as srv:
+        want = serve(srv, concurrent=False)
+    svc = EtaService(ServeConfig(), model_path=artifact, device=CARD)
+    with _Server(svc, Config(serve=ServeConfig(device=CARD))) as srv:
+        got = serve(srv, concurrent=True)
+
+    for kind in ("matrix", "geo"):
+        for i, (g, w) in enumerate(zip(got[kind], want[kind])):
+            check(g[0] == w[0] == 200, f"dispatch {kind} {i}: HTTP {g[0]} "
+                                       f"(CPU app {w[0]}): {g[1]}")
+            _same_dispatch(g[1], w[1], f"dispatch.{kind}[{i}]")
+    batcher = got["state"][1]["batcher"]
+    check(batcher["merged_requests"] > 0,
+          f"dispatch: {DISPATCH_CONCURRENT} concurrent requests never "
+          f"merged: {batcher}")
+    check(got["confirm"][0] == want["confirm"][0] == 200,
+          f"dispatch confirm: {got['confirm']}")
+    _same_dispatch(got["confirm"][1], want["confirm"][1], "dispatch.confirm")
+    check([c[0] for c in got["complete"]] == [c[0] for c in
+                                              want["complete"]] == [200, 404],
+          f"dispatch complete: {got['complete']}")
+    check(got["confirm_route"] == want["confirm_route"]
+          and "dispatch_id" in got["confirm_route"][1],
+          f"confirm_route: {got['confirm_route']} vs "
+          f"{want['confirm_route']}")
+    for path in DISPATCH_PAGES + DISPATCH_OPS:
+        (gs, gt, gb), (ws, wt, wb) = got["pages"][path], want["pages"][path]
+        check((gs, gt) == (ws, wt), f"{path}: {gs} {gt} vs {ws} {wt}")
+        if path in DISPATCH_PAGES:
+            check(gb == wb, f"{path}: the bytes differ from the CPU app's")
+        elif "prometheus" not in path:
+            check(set(json.loads(gb)) == set(json.loads(wb)),
+                  f"{path}: keys differ")
+    check(got["pages"]["/lib/missing.js"][0] == 404, "lib: unknown name")
+    version = json.loads(got["pages"]["/api/version"][2])
+    print(f"[dispatch] http on {CARD}: {DISPATCH_CONCURRENT} concurrent "
+          f"matrix requests in {got['matrix_wall_ms']:.1f} ms over "
+          f"{batcher['dispatches']} drains ({batcher['merged_requests']} "
+          f"merged); geographic 20 stops median "
+          f"{_median(got['geo_ms']):.2f} ms (CPU app "
+          f"{_median(want['geo_ms']):.2f}); confirm/complete/complete "
+          f"200/200/404; confirm_route "
+          f"{got['confirm_route'][1]['dispatch_id']}; pages and ops routes "
+          f"as the CPU app's")
+    return {"concurrent_requests": DISPATCH_CONCURRENT,
+            "concurrent_wall_ms": got["matrix_wall_ms"],
+            "cpu_sequential_wall_ms": want["matrix_wall_ms"],
+            "batcher": batcher,
+            "geo_requests": DISPATCH_GEO_REPS,
+            "geo_median_ms": _median(got["geo_ms"]),
+            "geo_cpu_median_ms": _median(want["geo_ms"]),
+            "confirm_route_dispatch_id": got["confirm_route"][1][
+                "dispatch_id"],
+            "pages": {p: got["pages"][p][0]
+                      for p in DISPATCH_PAGES + DISPATCH_OPS},
+            "build": version["build"]}
+
+
+def _dispatch_reopt():
+    """(3): re-optimization on a live flip, on the default router (phase
+    10's): a corridor flowing, two dispatches confirmed (one along the
+    corridor, one far from it), then the corridor jammed; one
+    ``ReoptLoop.tick()`` on the card and on the CPU path must re-solve
+    exactly the corridor dispatch, stream its ``plan_update`` on its
+    channel and agree on the new plan. → record."""
+    import types
+
+    import numpy as np
+
+    from routest_tpu_torch.core.config import (Config, DispatchConfig,
+                                               ServeConfig)
+    from routest_tpu_torch.dispatch import DispatchProblem, plan_cost
+    from routest_tpu_torch.optimize import road_router
+    from routest_tpu_torch.serve import app as app_mod
+    from routest_tpu_torch.serve.bus import InMemoryBus
+
+    card = road_router.default_router(CARD)
+    cpu = road_router.default_router("cpu")
+    corridor = _live_corridor(card)
+    on_cor = np.unique(card.senders[corridor])
+    on_cor = on_cor[np.argsort(card.coords[on_cor, 1])]
+    cor_nodes = on_cor[np.linspace(0, len(on_cor) - 1, 7).astype(int)]
+    # far: the node farthest from the corridor and its 5 nearest nodes
+    d2 = ((card.coords[:, None, :] - card.coords[None, on_cor, :]) ** 2
+          ).sum(-1).min(axis=1)
+    far0 = int(np.argmax(d2))
+    near = np.argsort(((card.coords - card.coords[far0]) ** 2).sum(-1))
+    far_nodes = near[:6]
+
+    def flip(jam, epoch):
+        _live_flip(card, corridor, seed=2, jam=jam)
+        metric = card.live_metric_export()
+        for router in (card, cpu):
+            router.install_live_metric(metric, epoch)
+
+    epoch0 = max(card.live_epoch, cpu.live_epoch) + 1
+    flip(False, epoch0)
+    sides = {}
+    for name, router, device in (("card", card, CARD), ("cpu", cpu, "cpu")):
+        bus = InMemoryBus()
+        fake = types.SimpleNamespace(
+            live=types.SimpleNamespace(ready=True, router=router))
+        svc = app_mod._dispatch_service(
+            Config(serve=ServeConfig(device=device),
+                   dispatch=DispatchConfig(reopt_poll_s=0.0,
+                                           degrade_ratio=REOPT_RATIO)),
+            fake, bus, (2.0, 5.0))
+        recs = []
+        for label, nodes in (("corridor", cor_nodes), ("far", far_nodes)):
+            latlon = card.coords[nodes].astype(np.float32)
+            n = len(nodes) - 1
+            matrix = svc.matrix_fn(latlon)
+            dem = np.ones(n, np.float32)
+            plan = svc.batcher.solve([DispatchProblem(
+                matrix, dem, 3.0, 1e6)])[0]
+            recs.append(svc.registry.register(
+                channel=f"reopt-{label}", latlon=latlon, demands=dem,
+                capacity=3.0, max_cost=1e6, plan=plan,
+                baseline_cost=plan_cost(matrix, plan),
+                epoch=svc.epoch_fn()))
+        check(svc.reopt.tick()["result"] == "armed", "reopt: not armed")
+        subs = {r.channel: bus.subscribe(r.channel) for r in recs}
+        sides[name] = (svc, recs, subs)
+    cor_rec, far_rec = sides["card"][1]
+    check([r.plan for r in sides["card"][1]]
+          == [r.plan for r in sides["cpu"][1]],
+          "reopt: the confirmed plans differ from the CPU path's")
+
+    cor_base = cor_rec.baseline_cost
+    flip(True, epoch0 + 1)
+    ticks, frames, t_tick = {}, {}, {}
+    for name, (svc, recs, subs) in sides.items():
+        t0 = time.perf_counter()
+        ticks[name] = svc.reopt.tick()
+        t_tick[name] = (time.perf_counter() - t0) * 1e3
+        frames[name] = {ch: sub.get(timeout=5.0)
+                        for ch, sub in subs.items()}
+        for sub in subs.values():
+            sub.close()
+    tick = ticks["card"]
+    check(tick["result"] == "resolved"
+          and tick["resolved"] == [cor_rec.id]
+          and tick["degraded"] == [cor_rec.id],
+          f"reopt: not exactly the corridor dispatch re-solved: {tick}")
+    check(ticks["cpu"]["resolved"] == tick["resolved"],
+          f"reopt: the CPU path re-solved {ticks['cpu']}")
+    ev = frames["card"][cor_rec.channel]
+    check(ev is not None and ev.get("event") == "plan_update"
+          and ev["dispatch_id"] == cor_rec.id
+          and ev["epoch"] == epoch0 + 1,
+          f"reopt: no plan_update on {cor_rec.channel}: {ev}")
+    check(frames["card"][far_rec.channel] is None,
+          f"reopt: a frame on the far channel: "
+          f"{frames['card'][far_rec.channel]}")
+    _same_dispatch(ev, frames["cpu"][cor_rec.channel], "reopt.plan_update")
+    rec = {"corridor_edges": int(len(corridor)),
+           "corridor_stops": len(cor_nodes) - 1,
+           "far_stops": len(far_nodes) - 1,
+           "resolved": tick["resolved"], "checked": tick["checked"],
+           "previous_cost": ev["reason"]["previous_cost"],
+           "new_cost": ev["reason"]["new_cost"],
+           "corridor_ratio": ev["reason"]["previous_cost"]
+           / max(cor_base, 1e-9),
+           "far_ratio": plan_cost(sides["card"][0].matrix_fn(far_rec.latlon),
+                                  far_rec.plan) / far_rec.baseline_cost,
+           "tick_ms": t_tick["card"], "cpu_tick_ms": t_tick["cpu"]}
+    print(f"[dispatch] reopt: flip to epoch {epoch0 + 1} re-solved "
+          f"{tick['resolved']} of {tick['checked']} (corridor plan "
+          f"ratio {rec['corridor_ratio']:.4f}, cost {rec['previous_cost']} "
+          f"→ {rec['new_cost']}; far plan ratio {rec['far_ratio']:.4f}); "
+          f"plan_update on {cor_rec.channel}, "
+          f"equal to the CPU path's; tick {rec['tick_ms']:.1f} ms (CPU "
+          f"path {rec['cpu_tick_ms']:.1f})")
+    return rec
+
+
+def phase_dispatch():
+    """Dispatch on the card: (1) solver drains held bitwise against the
+    CPU path, (2) dispatch over HTTP against an app on the CPU, (3)
+    re-optimization on a live flip, (4) the pages and ops routes. →
+    record."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(11)
+    record = {"device": torch.cuda.get_device_name(0) if CARD == "cuda"
+              else CARD}
+    record["drains"] = _dispatch_drains(rng)
+    record["http"] = _dispatch_http(rng)
+    record["reopt"] = _dispatch_reopt()
+    print(json.dumps({"dispatch": record}))
+    return record
 
 
 def phase_times(rng):
@@ -2180,6 +2637,8 @@ def main() -> int:
         _, overlay_launches = phase_overlay()
         phase = "live"
         _, live_launches = phase_live()
+        phase = "dispatch"
+        phase_dispatch()
         phase = "times"
         table = phase_times(rng)
     except Exception as e:

@@ -13,8 +13,12 @@ forward (``ops``), and the batcher, fast lane and HTTP surface
 greedy VRP, its refiners, top-k ranking and the GeoJSON engine), and
 slice 3 street-network routing (``optimize.road_router`` over
 ``data.road_graph``/``data.osm``, priced by ``models.gnn`` and
-``models.route_transformer``). Entry points run on ``cuda`` unless the
-caller asks for the CPU.
+``models.route_transformer``), then metro-scale routing
+(``optimize.hierarchy``), the live loop (``serve.bus``, ``serve.sim``,
+``live``) and dispatch (``dispatch``: the batched time-window VRP,
+confirmed-route registration and live re-optimization) with the
+dispatcher's pages and ops routes. Entry points run on ``cuda`` unless
+the caller asks for the CPU.
 """
 
 __version__ = "0.1.0"

@@ -3,7 +3,8 @@
 The fields the port reads, carried over from
 ``routest_tpu/core/config.py`` with the same environment variable names
 and defaults (``ETA_MODEL_PATH``, ``PORT``, ``RTPU_*``, ``RTPU_LIVE_*``,
-``SUPABASE_*``, ``REDIS_URL``), plus the port's own ``ROUTEST_DEVICE``.
+``RTPU_DISPATCH_*``, ``SUPABASE_*``, ``REDIS_URL``), plus the port's own
+``ROUTEST_DEVICE``.
 """
 
 from __future__ import annotations
@@ -94,10 +95,40 @@ class LiveConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class DispatchConfig:
+    """Dispatch (``routest_tpu_torch/dispatch``): batched VRP serving
+    over ``POST /api/dispatch`` with live re-optimization. All knobs are
+    ``RTPU_DISPATCH_*`` env vars, with the JAX package's names and
+    defaults; enabled by default.
+
+    ``max_rows`` bounds one merged batcher drain; ``window_s`` adds a
+    fixed pre-drain wait (0 = natural batching only); ``max_stops``
+    bounds stops per problem. ``reopt``/``reopt_poll_s``/
+    ``degrade_ratio`` drive the re-optimization loop: every
+    ``reopt_poll_s`` it reads the live metric epoch, and on a flip
+    re-solves exactly the active dispatches whose corridor cost degraded
+    past ``degrade_ratio`` × baseline (``reopt_poll_s`` 0: no thread,
+    ticks by hand). ``max_active`` bounds the registry (oldest evicted
+    first); ``speed_mps > 0`` overrides the vehicle-profile speed when
+    pricing geographic corridors into travel seconds."""
+
+    enabled: bool = True
+    max_rows: int = 64
+    window_s: float = 0.0
+    max_stops: int = 32
+    reopt: bool = True
+    reopt_poll_s: float = 1.0
+    degrade_ratio: float = 1.2
+    max_active: int = 256
+    speed_mps: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     model: ModelConfig = ModelConfig()
     serve: ServeConfig = ServeConfig()
     live: LiveConfig = LiveConfig()
+    dispatch: DispatchConfig = DispatchConfig()
 
 
 def resolve_device(device=None, who: str = "routest_tpu_torch"):
@@ -168,7 +199,8 @@ def load_config(env: Optional[Mapping[str, str]] = None) -> Config:
         supabase_service_key=env.get("SUPABASE_SERVICE_ROLE_KEY"),
         redis_url=env.get("REDIS_URL"),
     )
-    return Config(model=model, serve=serve, live=load_live_config(env))
+    return Config(model=model, serve=serve, live=load_live_config(env),
+                  dispatch=load_dispatch_config(env))
 
 
 def _env_num(env: Mapping[str, str], name: str, default, cast):
@@ -196,4 +228,23 @@ def load_live_config(env: Optional[Mapping[str, str]] = None) -> LiveConfig:
         min_obs_edges=_env_num(env, "RTPU_LIVE_MIN_OBS_EDGES", 1, int),
         window=_env_num(env, "RTPU_LIVE_WINDOW", 65536, int),
         route_metric=env.get("RTPU_LIVE_ROUTE_METRIC", "1") != "0",
+    )
+
+
+def load_dispatch_config(
+        env: Optional[Mapping[str, str]] = None) -> DispatchConfig:
+    """Just the dispatch knobs (``RTPU_DISPATCH=0`` turns it off)."""
+    env = dict(env if env is not None else os.environ)
+    return DispatchConfig(
+        enabled=env.get("RTPU_DISPATCH", "1") != "0",
+        max_rows=_env_num(env, "RTPU_DISPATCH_MAX_ROWS", 64, int),
+        window_s=_env_num(env, "RTPU_DISPATCH_WINDOW_S", 0.0, float),
+        max_stops=_env_num(env, "RTPU_DISPATCH_MAX_STOPS", 32, int),
+        reopt=env.get("RTPU_DISPATCH_REOPT", "1") != "0",
+        reopt_poll_s=_env_num(env, "RTPU_DISPATCH_REOPT_POLL_S",
+                              1.0, float),
+        degrade_ratio=_env_num(env, "RTPU_DISPATCH_DEGRADE_RATIO",
+                               1.2, float),
+        max_active=_env_num(env, "RTPU_DISPATCH_MAX_ACTIVE", 256, int),
+        speed_mps=_env_num(env, "RTPU_DISPATCH_SPEED_MPS", 0.0, float),
     )

@@ -3,9 +3,11 @@
 Copied from ``routest_tpu/obs/registry.py``: one registry per process
 (``get_registry()``) behind one API with two export formats, a JSON
 snapshot and Prometheus exposition text (``text/plain; version=0.0.4``).
-The batcher, the fast lane and the WSGI layer register their metrics
-here. Trace exemplars and the build-identity gauges arrive with the
-observability slice, which brings the tracer they read.
+The batcher, the fast lane, dispatch and the WSGI layer register their
+metrics here, and ``register_build_info`` the build-identity gauges
+(labelled with ``torch`` and its version where the JAX package names
+``jax``). Trace exemplars arrive with the observability slice, which
+brings the tracer they read.
 
 Histograms use FIXED log-scale buckets (1–2.5–5 per decade) rather than
 reservoirs: observation is O(log buckets) with no RNG, series from
@@ -20,6 +22,7 @@ from __future__ import annotations
 import bisect
 import math
 import threading
+import time
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 # Latency seconds, 500 µs … 60 s: the serving stack's observed range.
@@ -292,3 +295,60 @@ _default_registry = MetricsRegistry()
 def get_registry() -> MetricsRegistry:
     """The process-wide registry every layer records into."""
     return _default_registry
+
+
+_PROCESS_START = time.time()
+
+
+def _git_sha() -> str:
+    """Best-effort build identity: the deploy platforms' env stamps
+    first (``RENDER_GIT_COMMIT`` / ``GIT_COMMIT_SHA``, as the health
+    version field), then the working tree's ``.git/HEAD`` (a file read,
+    no subprocess at serve boot)."""
+    import os
+
+    for name in ("RENDER_GIT_COMMIT", "GIT_COMMIT_SHA"):
+        sha = os.environ.get(name)
+        if sha:
+            return sha[:40]
+    try:
+        root = os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
+        with open(os.path.join(root, ".git", "HEAD")) as f:
+            head = f.read().strip()
+        if head.startswith("ref:"):
+            with open(os.path.join(root, ".git", head.split(None, 1)[1])) as f:
+                return f.read().strip()[:40]
+        return head[:40]
+    except OSError:
+        return "unknown"
+
+
+def build_info() -> Dict[str, str]:
+    """The ``rtpu_build_info`` identity labels as a plain dict (also
+    ``/api/version``'s ``build``): the package version, the runtime
+    (``torch`` and its version) and the git sha."""
+    import torch
+
+    from routest_tpu_torch import __version__ as version
+
+    return {"version": version, "torch": torch.__version__,
+            "git_sha": _git_sha()}
+
+
+def register_build_info(registry: Optional[MetricsRegistry] = None) -> None:
+    """Register the standard identity gauges on ``registry`` (default:
+    the process registry): ``rtpu_build_info`` — constant 1 with
+    version/torch/git-sha labels, the Prometheus ``*_build_info``
+    convention — and ``rtpu_process_start_time_seconds``. Idempotent;
+    called from serving bring-up."""
+    reg = registry if registry is not None else _default_registry
+    reg.gauge(
+        "rtpu_build_info",
+        "Build identity: constant 1, carried in the labels.",
+        ("version", "torch", "git_sha"),
+    ).labels(**build_info()).set(1)
+    reg.gauge(
+        "rtpu_process_start_time_seconds",
+        "Unix time this process imported the metrics registry.",
+    ).set(_PROCESS_START)

@@ -1,12 +1,14 @@
-"""Capacity- and range-constrained greedy VRP and its refiners, as batched
-tensor code on the device.
+"""Capacity- and range-constrained greedy VRP, its refiners and the
+dispatch core, as batched tensor code on the device.
 
-The counterpart of the non-dispatch part of ``routest_tpu/optimize/
-vrp.py``, with the same observable semantics (reference solver
-``Flaskr/utils.py:111-139``): origin-sorted candidate scan, capacity and
-``trip + leg + return <= maximum_distance`` acceptance where only the leg
-accumulates, multi-trip spill, individually infeasible stops reported as
-unroutable; then the 2-opt, relocate, swap and Or-opt-2/3 local searches.
+The counterpart of ``routest_tpu/optimize/vrp.py``, with the same
+observable semantics (reference solver ``Flaskr/utils.py:111-139``):
+origin-sorted candidate scan, capacity and ``trip + leg + return <=
+maximum_distance`` acceptance where only the leg accumulates, multi-trip
+spill, individually infeasible stops reported as unroutable; then the
+2-opt, relocate, swap and Or-opt-2/3 local searches; and the dispatch
+core behind ``/api/dispatch``: the same scan under a global clock with
+time windows, and a penalty lane for the stops that spill.
 
 Every solver works on a batch: ``dist (B, N+1, N+1)``, ``demands (B,
 N)``, ``capacity``/``max_distance (B,)``, ``order``/``trip_ids (B, N)``
@@ -669,3 +671,298 @@ def solve_host(dist, demands: np.ndarray, capacity: float,
     order, trip_ids, n_routed, unroutable = _fetch(sol, order, trips)
     return _unpack_solution(order[0], trip_ids[0], int(n_routed[0]),
                             unroutable[0], len(demands))
+
+
+# ── dispatch: time windows and the spill lane ─────────────────────────
+#
+# The dispatch core (JAX ``vrp.py:791-1094``): the greedy scan under a
+# global clock ``t`` that runs through every trip, return legs included;
+# a candidate's arrival is ``max(t + leg, tw_open)`` (an early arrival
+# waits) and it must not pass ``tw_close``. Stops the real trips cannot
+# take (window closed, or demand over capacity while still reachable)
+# spill into ONE penalty-lane trip after the real trips, where their
+# lateness past the window adds up to ``penalty``. Only stops whose
+# origin round trip exceeds the budget are unroutable.
+
+# Finite "no deadline" sentinel (not inf: the lateness term subtracts
+# it), far beyond any real clock and float32-safe (2e30 << float32 max).
+NO_WINDOW = 1e30
+# Batch padding: a padded stop's legs and demand (unreachable under any
+# finite budget below 2e30).
+_FAR = 1e30
+
+
+class DispatchSolution(NamedTuple):
+    order: torch.Tensor       # (B, N) stop indices in visit order, -1 padded;
+    #                           [0, n_routed) the real trips, then
+    #                           [n_routed, n_routed + n_spilled) the lane
+    trip_ids: torch.Tensor    # (B, N) trip per position (lane = n_trips)
+    n_trips: torch.Tensor     # (B,) real trips, the lane excluded
+    n_routed: torch.Tensor    # (B,) stops placed in real trips
+    n_spilled: torch.Tensor   # (B,) stops placed in the penalty lane
+    unroutable: torch.Tensor  # (B, N) bool — physically unservable stops
+    spilled: torch.Tensor     # (B, N) bool — reachable but infeasible stops
+    penalty: torch.Tensor     # (B,) total window lateness in the lane
+
+
+def greedy_vrp_dispatch_batch(dist: torch.Tensor, demands: torch.Tensor,
+                              capacity: torch.Tensor,
+                              max_distance: torch.Tensor,
+                              tw_open: torch.Tensor,
+                              tw_close: torch.Tensor) -> DispatchSolution:
+    """Greedy VRP with time windows and a demand-spillover penalty lane,
+    for a batch: ``dist (B, N+1, N+1)`` (row/col 0 the depot), ``demands``
+    / ``tw_open`` / ``tw_close (B, N)``, ``capacity`` / ``max_distance
+    (B,)``.
+
+    Trips are a Python loop with one host check per round (does some
+    problem still have stops left and did its last trip take one?). A
+    problem whose answer is no is frozen — every update of the round is
+    masked off for it, the clock's return leg included — as the JAX
+    package's ``vmap``-ed ``while_loop`` keeps its state. The scan and
+    the penalty lane are unrolled with no sync. A placed stop gets the
+    key ``trip * N + scan step`` (the lane's stops the trip after the
+    last real one), so sorting the keys gives the JAX scatter-at-``pos``
+    order without indexing at ``pos``.
+    """
+    b, n = demands.shape
+    dev = dist.device
+    demands = demands.to(dist.dtype)
+    tw_open = tw_open.to(dist.dtype)
+    tw_close = tw_close.to(dist.dtype)
+    cap = capacity.to(dist.dtype)
+    maxd = max_distance.to(dist.dtype)
+
+    roundtrip = dist[:, 0, 1:] + dist[:, 1:, 0]
+    unreachable = roundtrip > maxd[:, None]
+    over_cap = (demands > cap[:, None]) & ~unreachable
+    # Stable, like jnp.argsort: batch pads and integer costs tie.
+    scan = torch.argsort(dist[:, 0, 1:], dim=1, stable=True)
+    node_s = scan + 1
+    dem_s = demands.gather(1, scan)
+    back_s = dist[:, 1:, 0].gather(1, scan)
+    open_s = tw_open.gather(1, scan)
+    close_s = tw_close.gather(1, scan)
+    # over-capacity stops skip the real trips (they go to the lane);
+    # unreachable stops are dropped
+    visited = (unreachable | over_cap).gather(1, scan)
+    never = n * (n + 1)
+    key = torch.full((b, n), never, dtype=torch.int64, device=dev)
+    trip = torch.zeros(b, dtype=torch.int64, device=dev)
+    t = torch.zeros(b, dtype=dist.dtype, device=dev)
+    progress = torch.ones(b, dtype=torch.bool, device=dev)
+    rows = torch.arange(b, device=dev)
+    # Every round but a problem's last places at least one stop, so N + 1
+    # rounds always suffice.
+    for _ in range(n + 1):
+        live = ~visited.all(dim=1) & progress
+        if not bool(live.any()):
+            break
+        current = torch.zeros(b, dtype=torch.int64, device=dev)
+        load = torch.zeros(b, dtype=dist.dtype, device=dev)
+        trip_dist = torch.zeros_like(load)
+        accepted_any = torch.zeros(b, dtype=torch.bool, device=dev)
+        for s in range(n):
+            node = node_s[:, s]
+            leg = dist[rows, current, node]
+            arrive = torch.maximum(t + leg, open_s[:, s])
+            accept = (live & ~visited[:, s]
+                      & (load + dem_s[:, s] <= cap)
+                      & (trip_dist + leg + back_s[:, s] <= maxd)
+                      & (arrive <= close_s[:, s]))
+            visited[:, s] |= accept
+            key[:, s] = torch.where(accept, trip * n + s, key[:, s])
+            t = torch.where(accept, arrive, t)
+            current = torch.where(accept, node, current)
+            load = load + torch.where(accept, dem_s[:, s], 0.0)
+            trip_dist = trip_dist + torch.where(accept, leg, 0.0)
+            accepted_any |= accept
+        trip = trip + accepted_any.to(torch.int64)
+        # the clock pays the return leg (dist[0, 0] on an empty trip)
+        t = torch.where(live, t + dist[rows, current, 0], t)
+        progress = torch.where(live, accepted_any, progress)
+
+    # The penalty lane: everything reachable the real trips could not
+    # take, visited in scan order on the same clock. Batch padding never
+    # lands here (padded stops are unreachable).
+    spilled_s = ~unreachable.gather(1, scan) & (over_cap.gather(1, scan)
+                                                 | ~visited)
+    current = torch.zeros(b, dtype=torch.int64, device=dev)
+    penalty = torch.zeros(b, dtype=dist.dtype, device=dev)
+    zero = torch.zeros((), dtype=dist.dtype, device=dev)
+    for s in range(n):
+        take = spilled_s[:, s]
+        node = node_s[:, s]
+        arrive = torch.maximum(t + dist[rows, current, node], open_s[:, s])
+        late = torch.maximum(arrive - close_s[:, s], zero)
+        key[:, s] = torch.where(take, trip * n + s, key[:, s])
+        current = torch.where(take, node, current)
+        t = torch.where(take, arrive, t)
+        penalty = penalty + torch.where(take, late, 0.0)
+
+    placed = torch.argsort(key, dim=1, stable=True)
+    key_sorted = key.gather(1, placed)
+    in_plan = key_sorted < never
+    spilled = torch.zeros_like(spilled_s).scatter_(1, scan, spilled_s)
+    return DispatchSolution(
+        order=torch.where(in_plan, scan.gather(1, placed), -1),
+        trip_ids=torch.where(in_plan, key_sorted // max(n, 1), -1),
+        n_trips=trip,
+        n_routed=(key < (trip * n)[:, None]).sum(dim=1),
+        n_spilled=spilled_s.sum(dim=1),
+        unroutable=unreachable,
+        spilled=spilled,
+        penalty=penalty)
+
+
+def greedy_vrp_dispatch(dist, demands, capacity, max_distance, tw_open,
+                        tw_close) -> DispatchSolution:
+    """One problem: ``dist (N+1, N+1)``, ``demands`` / ``tw_open`` /
+    ``tw_close (N,)``, scalar constraints → a solution whose fields have
+    no batch axis."""
+    sol = greedy_vrp_dispatch_batch(
+        dist[None], demands[None], _one(capacity, dist),
+        _one(max_distance, dist), tw_open[None], tw_close[None])
+    return DispatchSolution(*(f[0] for f in sol))
+
+
+def greedy_vrp_tw(dist, demands, capacity, max_distance, tw_open,
+                  tw_close) -> DispatchSolution:
+    """Time-window variant (naming alias of the dispatch core)."""
+    return greedy_vrp_dispatch(dist, demands, capacity, max_distance,
+                               tw_open, tw_close)
+
+
+def greedy_vrp_spill(dist, demands, capacity,
+                     max_distance) -> DispatchSolution:
+    """Pure demand-spillover variant: no windows (all open from clock 0,
+    closing at ``NO_WINDOW``), so the only spill source is demand over
+    capacity on reachable stops."""
+    n = dist.shape[0] - 1
+    return greedy_vrp_dispatch(
+        dist, demands, capacity, max_distance,
+        torch.zeros(n, dtype=dist.dtype, device=dist.device),
+        torch.full((n,), NO_WINDOW, dtype=dist.dtype, device=dist.device))
+
+
+def _unpack_dispatch(order: np.ndarray, trip_ids: np.ndarray, n_routed: int,
+                     n_spilled: int, unroutable: np.ndarray,
+                     spilled: np.ndarray, penalty: np.float32,
+                     n_real: int) -> dict:
+    """One problem's solver arrays → host dict (shared by single and
+    batch); ``n_real`` masks batch padding out of the stop masks."""
+    trips: list = []
+    for pos in range(n_routed):
+        tid = int(trip_ids[pos])
+        while len(trips) <= tid:
+            trips.append([])
+        trips[tid].append(int(order[pos]))
+    trips = [t for t in trips if t]
+    return {
+        "trips": trips,
+        "optimized_order": [int(i) for i in order[:n_routed]],
+        "n_trips": len(trips),
+        "spill_lane": [int(i) for i in
+                       order[n_routed:n_routed + n_spilled]],
+        "spilled": [int(i) for i in np.flatnonzero(spilled[:n_real])],
+        "penalty": float(penalty),
+        "unroutable": [int(i) for i in np.flatnonzero(unroutable[:n_real])],
+    }
+
+
+def _solve_dispatch(dist_b: np.ndarray, dem_b: np.ndarray,
+                    open_b: np.ndarray, close_b: np.ndarray,
+                    caps: np.ndarray, maxds: np.ndarray, n_real: List[int],
+                    device) -> list:
+    """Padded host arrays → the plans of the first ``len(n_real)``
+    problems: one host→device copy of every input, the batched solve,
+    one device→host copy of every output (the penalty rides as its
+    float32 bits)."""
+    b, p = dem_b.shape
+    host = np.concatenate([dist_b.reshape(b, -1), dem_b, open_b, close_b,
+                           caps[:, None], maxds[:, None]], axis=1)
+    packed = torch.from_numpy(host.astype(np.float32)).to(device)
+    k = (p + 1) * (p + 1)
+    cols = [packed[:, k + i * p:k + (i + 1) * p] for i in range(3)]
+    sol = greedy_vrp_dispatch_batch(
+        packed[:, :k].reshape(b, p + 1, p + 1), cols[0],
+        packed[:, -2], packed[:, -1], cols[1], cols[2])
+    out = torch.cat([sol.order, sol.trip_ids, sol.n_routed[:, None],
+                     sol.n_spilled[:, None], sol.unroutable.to(torch.int64),
+                     sol.spilled.to(torch.int64),
+                     sol.penalty.view(torch.int32).to(torch.int64)[:, None]],
+                    dim=1).cpu().numpy()
+    penalty = out[:, -1].astype(np.int32).view(np.float32)
+    return [
+        _unpack_dispatch(out[i, :p], out[i, p:2 * p], int(out[i, 2 * p]),
+                         int(out[i, 2 * p + 1]),
+                         out[i, 2 * p + 2:3 * p + 2].astype(bool),
+                         out[i, 3 * p + 2:4 * p + 2].astype(bool),
+                         penalty[i], n)
+        for i, n in enumerate(n_real)
+    ]
+
+
+def solve_host_dispatch(dist: np.ndarray, demands: np.ndarray,
+                        capacity: float, max_distance: float,
+                        tw_open=None, tw_close=None, device=None) -> dict:
+    """One dispatch problem on ``device`` (``cuda`` unless the caller
+    asks for the CPU): numpy in, plain Python out. ``tw_open`` /
+    ``tw_close`` default to the no-window problem (spillover only); for
+    window-free problems whose demands all fit the vehicle, the real
+    trips equal :func:`solve_host`'s."""
+    n = len(demands)
+    if not (np.isfinite(np.float32(capacity))
+            and np.isfinite(np.float32(max_distance))):
+        raise ValueError("solve_host_dispatch: capacity/max_distance "
+                         "must be finite")
+    dev = resolve_device(device, "solve_host_dispatch")
+    opens = (np.zeros(n, np.float32) if tw_open is None
+             else np.asarray(tw_open, np.float32))
+    closes = (np.full(n, NO_WINDOW, np.float32) if tw_close is None
+              else np.asarray(tw_close, np.float32))
+    return _solve_dispatch(
+        np.asarray(dist, np.float32)[None],
+        np.asarray(demands, np.float32)[None], opens[None], closes[None],
+        np.asarray([capacity], np.float32),
+        np.asarray([max_distance], np.float32), [n], dev)[0]
+
+
+def solve_host_dispatch_batch(dists, demands, capacities, max_distances,
+                              tw_opens=None, tw_closes=None,
+                              device=None) -> list:
+    """Many dispatch problems in one batched solve on ``device`` — the
+    program behind the dispatch batcher. The JAX package's padding
+    recipe: stops pad to the batch's largest count rounded up to a power
+    of two, the batch to a power of two, padded stops are ``_FAR`` (so
+    unreachable, reported in ``unroutable`` and cut by ``n_real``, never
+    in the lane), window pads open from 0 and never close."""
+    b = len(dists)
+    if b == 0:
+        return []
+    caps_np = np.asarray(capacities, np.float32)
+    maxd_np = np.asarray(max_distances, np.float32)
+    if not (np.isfinite(caps_np).all() and np.isfinite(maxd_np).all()):
+        raise ValueError("solve_host_dispatch_batch: capacity/"
+                         "max_distance must be finite")
+    dev = resolve_device(device, "solve_host_dispatch_batch")
+    n_real = [np.shape(d)[0] - 1 for d in dists]
+    p = 1 << max(0, (max(n_real) - 1)).bit_length()
+    b_pad = 1 << max(0, (b - 1)).bit_length()
+
+    far = np.float32(_FAR)
+    dist_b = np.full((b_pad, p + 1, p + 1), far, np.float32)
+    dem_b = np.full((b_pad, p), far, np.float32)
+    open_b = np.zeros((b_pad, p), np.float32)
+    close_b = np.full((b_pad, p), np.float32(NO_WINDOW), np.float32)
+    for i, (d, dem, n) in enumerate(zip(dists, demands, n_real)):
+        dist_b[i, : n + 1, : n + 1] = d
+        dem_b[i, :n] = dem
+        if tw_opens is not None and tw_opens[i] is not None:
+            open_b[i, :n] = np.asarray(tw_opens[i], np.float32)
+        if tw_closes is not None and tw_closes[i] is not None:
+            close_b[i, :n] = np.asarray(tw_closes[i], np.float32)
+    pad_ones = np.ones(b_pad - b, np.float32)
+    return _solve_dispatch(dist_b, dem_b, open_b, close_b,
+                           np.concatenate([caps_np, pad_ones]),
+                           np.concatenate([maxd_np, pad_ones]), n_real, dev)

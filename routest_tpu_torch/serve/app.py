@@ -16,6 +16,15 @@ serves, with the same status codes, keys and error strings:
 - live traffic: ``POST /api/probe`` (publishes probe observations to the
   probe channel) and ``GET /api/live``; ``RTPU_LIVE=1`` arms the ingest
   and the metric customizer on the road router of the serving device;
+- dispatch (on unless ``RTPU_DISPATCH=0``): ``POST``/``GET
+  /api/dispatch`` — the batched time-window VRP on the serving device,
+  confirmed dispatches registered for live re-optimization, which
+  ``POST /api/confirm_route`` also does for bodies that carry lat/lon
+  stops;
+- the dispatcher's pages (``/`` the point-to-point map, ``/ui`` the
+  dispatch dashboard, ``/health`` the status page, ``/lib/<name>``
+  their scripts) and ops routes (``/up``, ``/api/version``,
+  ``/api/metrics`` in JSON or ``?format=prometheus``);
 - ``GET /api/locations``, ``GET /api/ping`` and ``GET /api/health``.
 
 Health keeps the degraded-not-down contract (always HTTP 200) and
@@ -23,9 +32,8 @@ reports the scoring path (``checks.model.scoring``), the device
 (``checks.engine.mesh``), the road router once one is built
 (``checks.engine.road_router``), live traffic when armed
 (``checks.engine.live``), the bus (``checks.bus``, the JAX app's
-``checks.redis``) and the store (``checks.store``). Auth, the dispatch
-registration of confirmed routes, the static pages and the binary wire
-path arrive with later slices; auth is required by
+``checks.redis``) and the store (``checks.store``). Auth and the binary
+wire path arrive with later slices; auth is required by
 ``ROUTEST_AUTH=require``, so that setting refuses to boot rather than
 serve an ungated ``DELETE``.
 """
@@ -41,13 +49,17 @@ from typing import Optional
 import numpy as np
 import torch
 
-from routest_tpu_torch.core.config import Config, load_config
+from routest_tpu_torch.core.config import Config, load_config, resolve_device
+from routest_tpu_torch.data import geo
 from routest_tpu_torch.data.locations import locations_table
+from routest_tpu_torch.obs import build_info, get_registry, register_build_info
 from routest_tpu_torch.optimize import road_router
 from routest_tpu_torch.optimize.engine import (MAX_BATCH_PROBLEMS,
+                                               _parse_problem,
                                                optimize_route,
                                                optimize_route_batch,
                                                travel_matrix)
+from routest_tpu_torch.optimize.vrp import NO_WINDOW
 from routest_tpu_torch.serve import sim
 from routest_tpu_torch.serve.bus import make_bus, sse_stream
 from routest_tpu_torch.serve.deadline import DeadlineExceeded
@@ -62,6 +74,14 @@ _log = get_logger("routest_tpu_torch.serve")
 # Largest batch one request may carry (rows), checked before any
 # per-row work.
 MAX_BATCH_ROWS = 131_072
+
+_m_dispatch_requests = get_registry().counter(
+    "rtpu_dispatch_requests_total",
+    "POST /api/dispatch solves accepted, by problem mode.", ("mode",))
+
+_HTML = "text/html; charset=utf-8"
+_STATIC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "static")
 
 
 def _obj(value) -> dict:
@@ -106,6 +126,19 @@ def create_app(config: Optional[Config] = None,
 
         app.live = LiveTrafficService(bus, config.live, device=device)
         app.live.start()
+
+    # Standard identity gauges (rtpu_build_info + process start time) on
+    # the process registry /api/metrics exposes.
+    register_build_info()
+
+    # Dispatch: concurrent POST /api/dispatch VRP problems merge into one
+    # padded batch on the serving device (dispatch/batcher.py);
+    # confirmed dispatches register their corridor (dispatch/
+    # registry.py); on live metric flips the re-optimization loop
+    # re-solves exactly the degraded plans and pushes plan_update events
+    # over the bus (dispatch/reopt.py).
+    app.dispatch = (_dispatch_service(config, app, bus, sim_tick_range)
+                    if config.dispatch.enabled else None)
 
     # ── optimization ────────────────────────────────────────────────────
 
@@ -221,6 +254,107 @@ def create_app(config: Optional[Config] = None,
             return result, 400
         return result, 200
 
+    # ── dispatch ───────────────────────────────────────────────────────
+
+    @app.route("/api/dispatch", methods=("POST",))
+    def dispatch_endpoint(request):
+        """Batched VRP dispatch.
+
+        Geographic mode (reference-shaped body): ``{"source_point",
+        "destination_points": [{lat, lon, payload}, …],
+        "driver_details", "time_windows": [[open_s, close_s|null],
+        …]?, "confirm": bool?, "sim_seed": int?}`` — stops price into
+        travel seconds under the current metric and solve through the
+        shared dispatch batcher (time-window + demand-spillover VRP).
+
+        Matrix mode: ``{"matrix": (N+1)×(N+1), "demands": [N],
+        "capacity", "max_distance", "time_windows"?}`` — the caller
+        brings the cost matrix.
+
+        ``{"complete": "<dispatch_id>"}`` retires an active dispatch.
+
+        With ``confirm`` the plan registers for live re-optimization
+        (``plan_update`` over SSE on corridor degradation) and — when
+        the body carries a driver — starts the driver simulation.
+        """
+        svc = app.dispatch
+        if svc is None:
+            return {"error": "dispatch disabled (RTPU_DISPATCH=0)"}, 503
+        body = get_json(request) or {}
+
+        done = body.get("complete")
+        if done is not None:
+            if not isinstance(done, str):
+                return {"error": "complete must be a dispatch id"}, 400
+            if not svc.registry.complete(done):
+                return {"error": "not found"}, 404
+            return {"status": "completed", "dispatch_id": done}, 200
+
+        seed = body.get("sim_seed")
+        if seed is not None and not isinstance(seed, int):
+            return {"error": "sim_seed must be an integer"}, 400
+
+        if "matrix" in body:
+            parsed = _parse_matrix_dispatch(body, svc.cfg.max_stops)
+        else:
+            parsed = _parse_geo_dispatch(body, svc.cfg.max_stops)
+        if "error" in parsed:
+            return parsed, 400
+
+        from routest_tpu_torch.dispatch import DispatchProblem, plan_cost
+
+        mode = parsed["mode"]
+        if mode == "geographic":
+            speed = parsed["speed"]
+            matrix = svc.matrix_fn(parsed["latlon"], speed_mps=speed)
+            max_cost = parsed["max_dist"] / speed  # meters → seconds
+        else:
+            matrix = parsed["matrix"]
+            max_cost = parsed["max_cost"]
+        problem = DispatchProblem(matrix, parsed["demands"],
+                                  parsed["capacity"], max_cost,
+                                  parsed["tw_open"], parsed["tw_close"])
+        try:
+            plan = svc.batcher.solve([problem])[0]
+        except TimeoutError:
+            return {"error": "dispatch solver saturated; retry"}, 503
+        _m_dispatch_requests.labels(mode=mode).inc()
+        cost = plan_cost(matrix, plan)
+        out = {"mode": mode, "plan": plan,
+               "cost": round(float(cost), 3), "epoch": svc.epoch_fn()}
+
+        if body.get("confirm"):
+            driver = dict(parsed.get("driver_details") or {})
+            if mode == "geographic":
+                driver.setdefault("speed_mps", round(speed, 3))
+            rec = svc.registry.register(
+                channel=driver.get("driver_name"),
+                latlon=parsed.get("latlon"),
+                demands=parsed["demands"],
+                capacity=parsed["capacity"], max_cost=max_cost,
+                plan=plan, baseline_cost=cost, epoch=out["epoch"],
+                tw_open=parsed["tw_open"], tw_close=parsed["tw_close"],
+                sim_seed=seed, driver_details=driver,
+                destinations=parsed.get("destinations"))
+            out["dispatch_id"] = rec.id
+            out["channel"] = rec.channel
+            svc.sim_restart(rec)  # no-op without a named driver
+        return out, 200
+
+    @app.route("/api/dispatch", methods=("GET",))
+    def dispatch_state(request):
+        # Active registry, batcher merge stats, re-optimization loop
+        # snapshot.
+        svc = app.dispatch
+        if svc is None:
+            return {"enabled": False}, 200
+        out = {"enabled": True, "epoch": svc.epoch_fn(),
+               "registry": svc.registry.snapshot(),
+               "batcher": svc.batcher.stats()}
+        if svc.reopt is not None:
+            out["reopt"] = svc.reopt.snapshot()
+        return out, 200
+
     # ── live tracking ──────────────────────────────────────────────────
 
     @app.route("/api/confirm_route", methods=("POST",))
@@ -247,10 +381,22 @@ def create_app(config: Optional[Config] = None,
         if seed is not None and not isinstance(seed, int):
             return {"error": "sim_seed must be an integer"}, 400
         sim.start_simulation(data, bus.publish, sim_tick_range, seed=seed)
-        # The dispatch registration of confirmed routes arrives with the
-        # dispatch slice: the answer is the JAX app's without a dispatch
-        # service.
-        return {"status": "route simulation initialized."}, 200
+        # A confirmed route also registers for live re-optimization when
+        # the body carries enough of the problem to re-solve (lat/lon
+        # stops, finite constraints), with its sim_seed; other bodies
+        # keep the reference's answer.
+        out = {"status": "route simulation initialized."}
+        svc = app.dispatch
+        if svc is not None:
+            try:
+                rec = _register_confirmed_route(svc, data, seed)
+            except Exception as e:  # best-effort: never fail the confirm
+                rec = None
+                _log.debug("dispatch_register_skipped",
+                           error=f"{type(e).__name__}: {e}")
+            if rec is not None:
+                out["dispatch_id"] = rec.id
+        return out, 200
 
     @app.route("/api/update_tracker", methods=("POST",))
     def update_tracker(request):
@@ -574,9 +720,80 @@ def create_app(config: Optional[Config] = None,
             return predict_eta_batch(request)
         return predict_eta(request)
 
+    # ── pages (the reference frontend's layout: "/" the point-to-point
+    # map, "/ui" the dispatch dashboard, "/health" the status page) ─────
+
+    pages = {}
+    for name in ("dashboard", "mvp", "health"):
+        with open(os.path.join(_STATIC_DIR, name + ".html"), "rb") as f:
+            pages[name] = f.read()  # immutable assets: read once
+    lib_dir = os.path.join(_STATIC_DIR, "lib")
+    lib_files = {}
+    for name in sorted(os.listdir(lib_dir)):
+        if name.endswith(".js"):
+            with open(os.path.join(lib_dir, name), "rb") as f:
+                lib_files[name] = f.read()
+
+    @app.route("/lib/<name>", methods=("GET",))
+    def lib_js(request, name):
+        body = lib_files.get(name)
+        if body is None:
+            return {"error": "not found"}, 404
+        return Response(body, content_type="text/javascript; charset=utf-8")
+
+    @app.route("/", methods=("GET",))
+    def mvp_page(request):
+        return Response(pages["mvp"], content_type=_HTML)
+
+    @app.route("/ui", methods=("GET",))
+    def dashboard(request):
+        return Response(pages["dashboard"], content_type=_HTML)
+
+    @app.route("/health", methods=("GET",))
+    def health_page(request):
+        return Response(pages["health"], content_type=_HTML)
+
     @app.route("/api/ping", methods=("GET",))
     def ping(request):
         return {"ok": True, "service": "route-optimizer"}, 200
+
+    @app.route("/up", methods=("GET",))
+    def up(request):
+        # Laravel's stock health endpoint (reference bootstrap/app.php:12):
+        # plain HTTP 200, no body contract beyond "the app is up".
+        return Response(b"OK", content_type=_HTML)
+
+    @app.route("/api/version", methods=("GET",))
+    def version_info(request):
+        # Which build and which model bytes this replica serves.
+        return {
+            "version_label": os.environ.get("RTPU_VERSION"),
+            "build": build_info(),
+            "model": {
+                "available": eta.available,
+                "generation": eta.generation,
+                "fingerprint": eta.fingerprint,
+                "path": eta.model_path,
+                "kernel": eta.kernel,
+                "quantiles": list(eta.quantiles),
+                "loaded_unix": eta.loaded_unix,
+            },
+        }, 200
+
+    @app.route("/api/metrics", methods=("GET",))
+    def metrics(request):
+        # Per-route latency percentiles + batcher gauges, plus the
+        # process registry; ?format=prometheus renders the same data in
+        # the exposition format.
+        snapshot = {"http": app.request_stats.snapshot(),
+                    "batcher": eta.stats}
+        if request.args.get("format") == "prometheus":
+            text = _prometheus_text(snapshot) + \
+                get_registry().prometheus_text()
+            return Response(text, 200, content_type=(
+                "text/plain; version=0.0.4; charset=utf-8"))
+        snapshot["registry"] = get_registry().snapshot()
+        return snapshot, 200
 
     @app.route("/api/health", methods=("GET",))
     def health(request):
@@ -677,3 +894,254 @@ def _persist(store, payload: dict, feature: dict) -> Optional[str]:
         "eta_completion_time_ml": props.get("eta_completion_time_ml"),
     })
     return request_id
+
+
+def _prometheus_text(snapshot: dict) -> str:
+    """metrics snapshot → Prometheus exposition format (text/plain
+    0.0.4). Route labels are sanitized; numeric leaves only."""
+
+    def esc(v: str) -> str:
+        return v.replace("\\", "\\\\").replace('"', '\\"').replace("\n", " ")
+
+    lines = [
+        "# HELP routest_http_uptime_seconds Server uptime.",
+        "# TYPE routest_http_uptime_seconds gauge",
+        f"routest_http_uptime_seconds "
+        f"{snapshot['http'].get('uptime_s', 0)}",
+    ]
+    route_keys = ("count", "errors", "mean_ms", "p50_ms", "p95_ms", "p99_ms")
+    for key in route_keys:
+        metric = f"routest_http_route_{key}"
+        kind = "counter" if key in ("count", "errors") else "gauge"
+        lines.append(f"# TYPE {metric} {kind}")
+        for route, s in sorted(snapshot["http"].get("routes", {}).items()):
+            if key in s:
+                lines.append(
+                    f'{metric}{{route="{esc(route)}"}} {s[key]}')
+    lines.append("# TYPE routest_batcher gauge")
+    for key, val in sorted(snapshot.get("batcher", {}).items()):
+        if isinstance(val, bool):
+            val = int(val)
+        if isinstance(val, (int, float)):
+            lines.append(f'routest_batcher{{stat="{esc(key)}"}} {val}')
+    return "\n".join(lines) + "\n"
+
+
+def _dispatch_service(config: Config, app, bus, sim_tick_range):
+    """The dispatch service of ``app``: registry, batcher and (with
+    ``RTPU_DISPATCH_REOPT``) the re-optimization loop, solving on
+    ``config.serve.device``. The loop's thread runs when
+    ``reopt_poll_s > 0``; 0 leaves ticks to the caller."""
+    from types import SimpleNamespace
+
+    from routest_tpu_torch.dispatch import (DispatchBatcher,
+                                            DispatchRegistry, ReoptLoop)
+
+    cfg = config.dispatch
+    device = config.serve.device
+
+    def live_epoch() -> int:
+        live = app.live
+        if live is not None and live.router is not None:
+            return int(live.router.live_epoch)
+        return 0
+
+    def corridor_matrix(latlon, speed_mps=None):
+        """(N+1, 2) lat/lon → (N+1, N+1) float32 travel SECONDS under
+        the CURRENT metric: road-router shortest paths priced by the
+        live leg models when the live router is armed, great-circle ×
+        the car road factor otherwise (on the serving device). One unit
+        everywhere, so a dispatch's baseline cost and its re-priced
+        corridor cost stay comparable across metric flips."""
+        latlon = np.asarray(latlon, np.float32)
+        car = geo.profile_for_vehicle("car")
+        speed = float(speed_mps or cfg.speed_mps
+                      or geo.PROFILE_SPEED_MPS[car])
+        live = app.live
+        if live is not None and live.ready and live.router is not None:
+            legs = live.router.route_legs(latlon)
+            return np.asarray(legs.duration_matrix(), np.float32)
+        dist_m = geo.distance_matrix_m(
+            torch.from_numpy(latlon).to(resolve_device(device, "dispatch")),
+            geo.PROFILE_ROAD_FACTOR[car]).cpu().numpy()
+        return (dist_m / speed).astype(np.float32)
+
+    def sim_restart(rec) -> None:
+        """plan_update → re-target the driver sim at the NEW stop order,
+        replaying under the dispatch's stored sim_seed (None keeps the
+        reference's random gait)."""
+        if rec.latlon is None \
+                or not rec.driver_details.get("driver_name") \
+                or not rec.driver_details.get("vehicle_type"):
+            return
+        order = list(rec.plan.get("optimized_order") or []) \
+            + list(rec.plan.get("spill_lane") or [])
+        coords = [[float(rec.latlon[0][1]), float(rec.latlon[0][0])]]
+        coords += [[float(rec.latlon[j + 1][1]),
+                    float(rec.latlon[j + 1][0])] for j in order]
+        coords.append(list(coords[0]))
+        speed = float(rec.driver_details.get("speed_mps") or 1.0)
+        data = {
+            "route_details": {
+                "geometry": {"coordinates": coords},
+                "properties": {
+                    "summary": {
+                        "duration": round(rec.baseline_cost, 1),
+                        "distance": round(rec.baseline_cost * speed, 1),
+                        "trips": rec.plan.get("n_trips", 1),
+                    },
+                    "destinations": rec.destinations or [],
+                },
+            },
+            "driver_details": rec.driver_details,
+        }
+        sim.start_simulation(data, bus.publish, sim_tick_range,
+                             seed=rec.sim_seed)
+
+    registry = DispatchRegistry(max_active=cfg.max_active)
+    batcher = DispatchBatcher(max_rows=cfg.max_rows, window_s=cfg.window_s,
+                              epoch_fn=live_epoch, device=device)
+    reopt = None
+    if cfg.reopt:
+        reopt = ReoptLoop(registry, batcher, bus.publish, live_epoch,
+                          corridor_matrix, degrade_ratio=cfg.degrade_ratio,
+                          poll_s=cfg.reopt_poll_s, sim_restart=sim_restart)
+        if cfg.reopt_poll_s > 0:
+            reopt.start()
+    return SimpleNamespace(cfg=cfg, registry=registry, batcher=batcher,
+                           reopt=reopt, matrix_fn=corridor_matrix,
+                           epoch_fn=live_epoch, sim_restart=sim_restart)
+
+
+def _parse_windows(body: dict, n: int):
+    """``time_windows``: list of N ``[open_s, close_s|null]`` pairs →
+    (tw_open, tw_close) float32 arrays, (None, None) when absent, or
+    ``{"error"}``. A null close means "no deadline" (``NO_WINDOW``);
+    non-finite values are client errors — a NaN window would poison the
+    feasibility mask."""
+    raw = body.get("time_windows")
+    if raw is None:
+        return None, None
+    if not isinstance(raw, list) or len(raw) != n:
+        return {"error": f"time_windows must be a list of {n} "
+                         "[open_s, close_s] pairs"}, None
+    opens, closes = [], []
+    for tw in raw:
+        if not isinstance(tw, (list, tuple)) or len(tw) != 2:
+            return {"error": "each time window must be "
+                             "[open_s, close_s]"}, None
+        o, c = tw
+        try:
+            o = float(o or 0)
+            c = NO_WINDOW if c is None else float(c)
+        except (TypeError, ValueError):
+            return {"error": "time window bounds must be numeric"}, None
+        if not (math.isfinite(o) and (c == NO_WINDOW or math.isfinite(c))):
+            return {"error": "time window bounds must be finite"}, None
+        opens.append(o)
+        closes.append(min(c, NO_WINDOW))
+    return (np.asarray(opens, np.float32), np.asarray(closes, np.float32))
+
+
+def _parse_matrix_dispatch(body: dict, max_stops: int) -> dict:
+    """Matrix-mode dispatch body → problem fields or ``{"error"}``."""
+    matrix = body.get("matrix")
+    if not isinstance(matrix, list) or len(matrix) < 2:
+        return {"error": "matrix must be a square cost matrix "
+                         "(row/col 0 = depot) with at least one stop"}
+    n = len(matrix) - 1
+    if n > max_stops:
+        return {"error": f"too many stops (max {max_stops})"}
+    try:
+        m = np.asarray(matrix, np.float32)
+    except ValueError:
+        return {"error": "matrix must be numeric and square"}
+    if m.shape != (n + 1, n + 1) or not np.isfinite(m).all():
+        return {"error": "matrix must be numeric, square and finite"}
+    demands = body.get("demands")
+    if not isinstance(demands, list) or len(demands) != n:
+        return {"error": f"demands must be a list of {n} numbers"}
+    try:
+        dem = np.asarray([float(d or 0) for d in demands], np.float32)
+        capacity = float(body.get("capacity", 9e12))
+        max_cost = float(body.get("max_distance", 9e12))
+    except (TypeError, ValueError):
+        return {"error": "demands/capacity/max_distance must be numeric"}
+    if not (np.isfinite(dem).all() and math.isfinite(capacity)
+            and math.isfinite(max_cost)):
+        return {"error": "demands/capacity/max_distance must be finite"}
+    tw_open, tw_close = _parse_windows(body, n)
+    if isinstance(tw_open, dict):
+        return tw_open
+    return {"mode": "matrix", "matrix": m, "demands": dem,
+            "capacity": capacity, "max_cost": max_cost,
+            "tw_open": tw_open, "tw_close": tw_close, "latlon": None,
+            "driver_details": _obj(body.get("driver_details")),
+            "destinations": None}
+
+
+def _parse_geo_dispatch(body: dict, max_stops: int) -> dict:
+    """Geographic dispatch body → problem fields or ``{"error"}``.
+    Shares the optimizer's body validation, so a malformed dispatch
+    fails exactly like a malformed optimize_route."""
+    p = _parse_problem(body)
+    if "error" in p:
+        return p
+    if len(p["destinations"]) > max_stops:
+        return {"error": f"too many stops (max {max_stops})"}
+    tw_open, tw_close = _parse_windows(body, len(p["destinations"]))
+    if isinstance(tw_open, dict):
+        return tw_open
+    return {"mode": "geographic", "latlon": p["latlon"],
+            "demands": p["demands"], "capacity": p["cap"],
+            "max_dist": p["max_dist"], "speed": p["speed"],
+            "tw_open": tw_open, "tw_close": tw_close,
+            "driver_details": p["driver_details"],
+            "destinations": p["destinations"]}
+
+
+def _register_confirmed_route(svc, data: dict, seed):
+    """Best-effort: register a confirm_route body's route as an active
+    dispatch so the re-optimization loop watches its corridor. Needs
+    lat/lon on every destination and finite constraints; returns None
+    (the caller keeps the reference's answer) when the body cannot
+    support a re-solve. The confirmed stop ORDER is the baseline plan."""
+    from routest_tpu_torch.dispatch import plan_cost
+
+    route = _obj(data["route_details"])
+    driver = dict(_obj(data["driver_details"]))
+    props = _obj(route.get("properties"))
+    dests = props.get("destinations")
+    if not isinstance(dests, list) or not dests:
+        return None
+    coords = _obj(route.get("geometry")).get("coordinates")
+    try:
+        origin = [float(coords[0][1]), float(coords[0][0])]  # lonlat row
+        latlon = np.asarray(
+            [origin] + [[float(d["lat"]), float(d["lon"])] for d in dests],
+            np.float32)
+        demands = np.asarray(
+            [float(_obj(d).get("payload", 0) or 0) for d in dests],
+            np.float32)
+        capacity = float(driver.get("vehicle_capacity", 9e12))
+        max_dist = float(driver.get("maximum_distance", 9e12))
+    except (KeyError, TypeError, ValueError, IndexError):
+        return None
+    if not (np.isfinite(latlon).all() and np.isfinite(demands).all()
+            and math.isfinite(capacity) and math.isfinite(max_dist)):
+        return None
+    profile = geo.profile_for_vehicle(
+        str(driver.get("vehicle_type") or "car").lower().strip())
+    speed = float(svc.cfg.speed_mps or geo.PROFILE_SPEED_MPS[profile])
+    driver.setdefault("speed_mps", round(speed, 3))
+    matrix = svc.matrix_fn(latlon, speed_mps=speed)
+    plan = {"trips": [list(range(len(dests)))],
+            "optimized_order": list(range(len(dests))),
+            "n_trips": 1, "spill_lane": [], "spilled": [],
+            "penalty": 0.0, "unroutable": []}
+    return svc.registry.register(
+        channel=driver.get("driver_name"), latlon=latlon,
+        demands=demands, capacity=capacity, max_cost=max_dist / speed,
+        plan=plan, baseline_cost=plan_cost(matrix, plan),
+        epoch=svc.epoch_fn(), sim_seed=seed, driver_details=driver,
+        destinations=dests, source="confirm_route")

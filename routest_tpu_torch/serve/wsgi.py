@@ -6,10 +6,11 @@ the machine with the card does not have: a small :class:`Request` /
 ``<param>`` captures, JSON request/response helpers with the same
 400/413/504 behaviour and error bodies, the reference's CORS policy
 (localhost:3000 + ``*.vercel.app``, ``Flaskr/__init__.py:14-23``),
-streamed responses for SSE, and a threaded ``wsgiref`` server that
-drains in-flight handlers on SIGTERM. The flight recorder, request
-stats (which skip streamed responses in the JAX package) and trace
-spans arrive with the observability slice.
+streamed responses for SSE, per-route request stats
+(``App.request_stats``, read by ``/api/metrics``; streamed responses are
+skipped, their lifetime is connection time), and a threaded ``wsgiref``
+server that drains in-flight handlers on SIGTERM. The flight recorder
+and trace spans arrive with the observability slice.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from routest_tpu_torch.serve.deadline import (DEADLINE_HEADER,
                                               reset_deadline)
 from routest_tpu_torch.utils.logging import (get_logger, reset_request_id,
                                              set_request_id)
+from routest_tpu_torch.utils.profiling import RequestStats
 
 _PARAM_RE = re.compile(r"<([a-zA-Z_][a-zA-Z0-9_]*)>")
 # A caller-supplied correlation id is echoed only if it is shaped like
@@ -140,13 +142,14 @@ def json_response(payload: Any, status: int = 200,
 
 
 class App:
-    """Route table + WSGI callable."""
+    """Route table + WSGI callable with per-route latency stats."""
 
     def __init__(self) -> None:
         self._routes: List[Tuple[str, str, re.Pattern, Callable]] = []
         # Exact-match fast path: parameterless routes resolve with ONE
         # dict lookup instead of a linear regex scan.
         self._exact: Dict[Tuple[str, str], Tuple[Callable, str]] = {}
+        self.request_stats = RequestStats()
         # Graceful-drain bookkeeping: handlers currently executing (the
         # SIGTERM path waits for this to hit zero before exiting). A
         # streamed (SSE) body is iterated after __call__ returns: it is
@@ -211,6 +214,13 @@ class App:
             try:
                 if deadline_ms is not None and deadline_ms <= 0:
                     self._m_expired.inc()
+                    # An edge rejection counts in the route's stats: a
+                    # deadline storm is an availability incident.
+                    _fn, template, _kw, _al = self._match(request.method,
+                                                          request.path)
+                    self.request_stats.add(
+                        f"{request.method} {template or request.path}",
+                        0.0, error=True)
                     response = json_response(
                         {"error": "deadline exceeded",
                          "deadline_ms": deadline_ms}, 504)
@@ -238,30 +248,45 @@ class App:
     def _dispatch(self, request: Request) -> Response:
         if request.method == "OPTIONS":
             return Response("", 204)
-        fn, _template, kwargs, allowed = self._match(request.method,
+        fn, template, kwargs, allowed = self._match(request.method,
                                                      request.path)
         if fn is None:
             if allowed:
                 return json_response({"error": "method not allowed"}, 405,
                                      {"Allow": ", ".join(sorted(set(allowed)))})
             return json_response({"error": "not found"}, 404)
+        t0 = time.perf_counter()
+        response: Optional[Response] = None
         try:
             result = fn(request, **kwargs)
+            if isinstance(result, Response):
+                response = result
+            elif isinstance(result, tuple):
+                payload, status = result
+                response = json_response(payload, status)
+            else:
+                response = json_response(result)
+            return response
         except RequestEntityTooLarge:
-            return json_response(
+            response = json_response(
                 {"error": "request body too large "
                           f"(max {_max_body_bytes() >> 20} MB)"}, 413)
+            return response
         except DeadlineExceeded:
             # The budget ran out mid-handler (typically: the batcher
             # dropped this request's rows at drain time).
             self._m_expired.inc()
-            return json_response({"error": "deadline exceeded"}, 504)
-        if isinstance(result, Response):
-            return result
-        if isinstance(result, tuple):
-            payload, status = result
-            return json_response(payload, status)
-        return json_response(result)
+            response = json_response({"error": "deadline exceeded"}, 504)
+            return response
+        finally:
+            # An unhandled exception (→ 500 in __call__) counts as an
+            # error; a streamed (SSE) body's lifetime is connection
+            # time, not handler latency, so it is skipped.
+            if response is None or not response.is_streamed:
+                self.request_stats.add(
+                    f"{request.method} {template}",
+                    time.perf_counter() - t0,
+                    error=response is None or response.status_code >= 500)
 
     @staticmethod
     def _apply_cors(request: Request, response: Response) -> None:
@@ -337,6 +362,9 @@ def get_json(request: Request, silent: bool = True) -> Optional[dict]:
 
 class _ThreadingWSGIServer(socketserver.ThreadingMixIn, WSGIServer):
     daemon_threads = True
+    # werkzeug's listen backlog (the stdlib default of 5 resets bursts
+    # of concurrent connections, e.g. merged dispatch requests)
+    request_queue_size = 128
 
 
 class _QuietHandler(WSGIRequestHandler):

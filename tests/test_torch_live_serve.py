@@ -7,9 +7,10 @@ request bodies.
 wall-clock stamps apart), health's bus block is the JAX app's
 ``checks.redis``, and the SSE frames of a seeded simulation are
 byte-equal between the two apps (``dt.datetime.now`` pinned in both
-``sim`` modules). ``Last-Event-ID`` resumes by header and by query. The
-JAX app runs without its dispatch service, whose confirm-route
-registration is not ported. Every test that reads a stream bounds it
+``sim`` modules). ``Last-Event-ID`` resumes by header and by query. Both
+apps run on their default config, dispatch on: a confirmed route whose
+destinations carry lat/lon registers for re-optimization, and both apps
+answer with the same ``dispatch_id``. Every test that reads a stream bounds it
 with ``max_events`` and reads it on a thread with its own timeout, so a
 hang fails that test alone."""
 
@@ -26,7 +27,6 @@ from werkzeug.test import Client
 
 from routest_tpu import live as jlive
 from routest_tpu.core.config import Config as JConfig
-from routest_tpu.core.config import DispatchConfig as JDispatchConfig
 from routest_tpu.core.config import ServeConfig as JServeConfig
 from routest_tpu.core.config import load_live_config as jload_live_config
 from routest_tpu.data.road_graph import generate_road_graph
@@ -76,8 +76,7 @@ def services():
 
 
 def _jconfig(live=None):
-    return JConfig(dispatch=JDispatchConfig(enabled=False),
-                   **({"live": live} if live is not None else {}))
+    return JConfig(**({"live": live} if live is not None else {}))
 
 
 def _tconfig(live=None):
@@ -181,7 +180,10 @@ def test_confirm_route_answers_match(clients, name):
     assert tr.status_code == jr.status_code, name
     assert tr.get_json() == jr.get_json(), name
     if name.startswith("good"):
-        assert tr.get_json() == {"status": "route simulation initialized."}
+        # the destinations carry lat/lon: registered for re-optimization
+        assert tr.get_json()["status"] == "route simulation initialized."
+        assert tr.get_json()["dispatch_id"].startswith("d")
+        assert set(tr.get_json()) == {"status", "dispatch_id"}
     else:
         assert tr.status_code == 400
 
