@@ -115,12 +115,30 @@ of which fails the run:
    corridor, not the one far from it, its ``plan_update`` arrives on its
    channel and equals the CPU path's; (d) the pages (``/``, ``/ui``,
    ``/health``, ``/lib/*.js``, ``/up``) and ops routes (``/api/version``,
-   ``/api/metrics``, both formats) answer as the CPU app's.
+   ``/api/metrics``, both formats) answer as the CPU app's;
+12. the serving core, run between phases 11 and 9: (a) with
+   ``RTPU_WIRE=1``, seeded 4096- and 131,072-row batches as RTW1 frames
+   over HTTP and over the multiplexed channel, minutes, bands and
+   completion stamps bitwise the JSON path's on the same rows (1 and 32
+   fused launches), a malformed frame's 400 error frame, the 415 with
+   wire off, median ms per 4096-row request by transport, and
+   ``python -m routest_tpu_torch.serve`` answering over its own
+   channel; (b) ``eta_mlp_point.msgpack`` served with
+   ``ROUTEST_RELOAD_SEC=0.2`` under 8 threads of ``/api/predict_eta``,
+   replaced atomically by ``eta_mlp.msgpack``: no failed or torn answer,
+   every answer after the flip banded, then a truncated copy rejected,
+   and the golden-batch gate's launches; (c) ``use_ml_eta`` optimize
+   writes through ``tests/fake_postgrest.py``, the fake stopped (writes
+   journaled, history degraded) and restarted with its rows: every
+   acknowledged write read back, the store's op medians; (d)
+   ``ROUTEST_AUTH=require``: register, login, the DELETE gate, the
+   Sanctum cookies; (e) the road GNN swapped: a foreign and a truncated
+   artifact refused, a re-install and a Manila install accepted.
 
 The lines before the last are one ``{"optimize": {...}}``, one
 ``{"road": {...}}``, one ``{"overlay": {...}}``, one ``{"live": {...}}``,
-one ``{"dispatch": {...}}`` and one ``{"kernels": [...]}`` JSON object
-and the
+one ``{"dispatch": {...}}``, one ``{"serving_core": {...}}`` and one
+``{"kernels": [...]}`` JSON object and the
 card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
 there is no card or a phase fails.
@@ -2539,6 +2557,661 @@ def phase_dispatch():
     return record
 
 
+# ── phase 12: the serving core ──────────────────────────────────────────
+
+# Wire frames: the batch endpoint's largest bucket, and the most rows a
+# frame may hold (MAX_BATCH_ROWS: 32 launches at bucket 4096).
+WIRE_ROWS = (4096, 131_072)
+# Timed 4096-row requests per transport (JSON, wire over HTTP, channel).
+WIRE_REPS = 10
+# /api/predict_eta traffic threads during the ETA hot swap.
+SWAP_THREADS = 8
+# use_ml_eta optimize requests persisted through PostgREST, then more
+# while it is down (journaled).
+PERSIST_REQUESTS = 20
+PERSIST_OUTAGE_REQUESTS = 5
+WIRE_CT = "application/x-rtpu-wire"
+
+
+def _http(port, method, path, body=b"", headers=None, timeout=300):
+    """→ (status, {header: value} with Set-Cookie as a list, body)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, body=body, headers=headers or {})
+        resp = conn.getresponse()
+        head = {}
+        for k, v in resp.getheaders():
+            if k.lower() == "set-cookie":
+                head.setdefault("Set-Cookie", []).append(v)
+            else:
+                head[k] = v
+        return resp.status, head, resp.read()
+    finally:
+        conn.close()
+
+
+def _wire_batch(rng, n):
+    """A seeded columnar body of ``n`` rows and the same rows as an RTW1
+    frame, featurized as the JSON path featurizes them."""
+    import numpy as np
+
+    from routest_tpu_torch.serve import wirecodec
+
+    weather = ["Cloudy", "Stormy", "Sunny", "Windy", "Fog"]
+    traffic = ["High", "Jam", "Low", "Medium", "Gridlock"]
+    body = {"distance_m": rng.uniform(200.0, 40_000.0, n).round(1).tolist(),
+            "weather": [weather[i] for i in rng.integers(0, 5, n)],
+            "traffic": [traffic[i] for i in rng.integers(0, 5, n)],
+            "driver_age": rng.integers(18, 70, n).astype(float).tolist(),
+            "pickup_time": [
+                (dt.datetime(2026, 10, 12) + dt.timedelta(minutes=int(m)))
+                .isoformat() for m in rng.integers(0, 7 * 24 * 60, n)]}
+    pickups = [dt.datetime.fromisoformat(p) for p in body["pickup_time"]]
+    pickup_ms = np.asarray([np.datetime64(p, "ms") for p in pickups],
+                           "datetime64[ms]").astype(np.int64)
+    frame = wirecodec.encode_eta_request(
+        np.asarray(_batch_rows(body), np.float32), pickup_ms)
+    return json.dumps(body).encode(), frame
+
+
+def _same_as_json(wire_raw, json_raw, what):
+    """A wire answer against the JSON answer on the same rows: minutes,
+    bands (rounded as the JSON path rounds) and completion stamps
+    bitwise."""
+    import numpy as np
+
+    from routest_tpu_torch.serve import wirecodec
+
+    wire = wirecodec.decode_eta_response(wire_raw)
+    js = json.loads(json_raw)
+    n = js["count"]
+    check(len(wire["minutes"]) == n, f"{what}: {len(wire['minutes'])} rows")
+    pairs = [("eta_minutes_ml", wire["minutes"])] + [
+        (f"eta_minutes_ml_{k}", v) for k, v in wire["bands"].items()]
+    check(sorted(k for k, _ in pairs)
+          == sorted(k for k in js if k.startswith("eta_minutes_ml")),
+          f"{what}: columns")
+    for key, col in pairs:
+        want = np.asarray([np.nan if v is None else v for v in js[key]],
+                          np.float64)
+        check(np.round(col, 4).tobytes() == want.tobytes(),
+              f"{what}: {key} not bitwise the JSON path's")
+    ms = np.asarray(wire["completion_ms"], np.int64)
+    iso = np.datetime_as_string(ms.astype("datetime64[ms]"), unit="s")
+    check([None if m == wirecodec.COMPLETION_NAT else str(s)
+           for m, s in zip(ms, iso)] == js["eta_completion_time_ml"],
+          f"{what}: completion stamps")
+    check(np.isfinite(wire["minutes"]).all()
+          and (wire["bands"]["p10"] <= wire["minutes"]).all()
+          and (wire["minutes"] <= wire["bands"]["p90"]).all(),
+          f"{what}: band or finiteness")
+
+
+def _wire_phase(rng, artifact):
+    """(a): the HTTP negotiation and the channel on the card, then
+    ``python -m routest_tpu_torch.serve`` with ``RTPU_WIRE=1``."""
+    import signal
+    import tempfile
+
+    from routest_tpu_torch.core.config import ServeConfig
+    from routest_tpu_torch.ops.fused_mlp import fused_eta_forward
+    from routest_tpu_torch.serve import wirecodec
+    from routest_tpu_torch.serve.ml_service import EtaService
+    from routest_tpu_torch.serve.wirechannel import (WireChannelClient,
+                                                     WireChannelServer)
+
+    svc = EtaService(ServeConfig(), model_path=artifact, device=CARD)
+    check(svc.available, f"wire: EtaService not serving: {svc.load_error}")
+    os.environ["RTPU_WIRE"] = "1"
+    try:
+        srv = _Server(svc)
+    finally:
+        os.environ.pop("RTPU_WIRE")
+    batches = {n: _wire_batch(rng, n) for n in WIRE_ROWS}
+    rec = {"rows": {}}
+    launches = 0
+    with srv:
+        port = srv.port
+        chan = WireChannelServer(srv.server.get_app().wire_handlers,
+                                 "127.0.0.1", 0)
+        chan.start()
+        client = WireChannelClient("127.0.0.1", chan.port)
+        try:
+            for n, (body, frame) in batches.items():
+                fused_eta_forward.launches = 0
+                status, head, wire_raw = _http(
+                    port, "POST", "/api/predict_eta_batch", frame,
+                    {"Content-Type": WIRE_CT})
+                wire_launches = fused_eta_forward.launches
+                launches += wire_launches
+                check(status == 200 and head["Content-Type"] == WIRE_CT,
+                      f"wire {n}: {status}")
+                status, _, json_raw = _http(
+                    port, "POST", "/api/predict_eta_batch", body,
+                    {"Content-Type": "application/json"})
+                check(status == 200, f"json {n}: {status}")
+                _same_as_json(wire_raw, json_raw, f"wire {n} rows")
+                fused_eta_forward.launches = 0
+                status, chan_raw = client.request(
+                    "/api/predict_eta_batch", frame, timeout=300)
+                launches += fused_eta_forward.launches
+                check(status == 200 and chan_raw == wire_raw,
+                      f"channel {n}: {status}, not the HTTP frame")
+                rec["rows"][n] = {"wire_launches": wire_launches,
+                                  "frame_bytes": len(frame),
+                                  "json_bytes": len(body),
+                                  "response_frame_bytes": len(wire_raw),
+                                  "json_response_bytes": len(json_raw)}
+            if CARD == "cuda":
+                check(rec["rows"][4096]["wire_launches"] == 1
+                      and rec["rows"][131_072]["wire_launches"] == 32,
+                      f"wire launches {rec['rows']}")
+            body, frame = batches[4096]
+            times = {"json": [], "wire": [], "channel": []}
+            for _ in range(WIRE_REPS):
+                for kind in times:
+                    t0 = time.perf_counter()
+                    if kind == "channel":
+                        status, _ = client.request("/api/predict_eta_batch",
+                                                   frame)
+                    else:
+                        status, _, _ = _http(
+                            port, "POST", "/api/predict_eta_batch",
+                            body if kind == "json" else frame,
+                            {"Content-Type": "application/json"
+                             if kind == "json" else WIRE_CT})
+                    times[kind].append((time.perf_counter() - t0) * 1e3)
+                    check(status == 200, f"timed {kind}: {status}")
+            rec["median_ms_4096"] = {k: _median(v) for k, v in times.items()}
+            status, head, raw = _http(port, "POST", "/api/predict_eta_batch",
+                                      b"RTW1junk", {"Content-Type": WIRE_CT})
+            code, message = wirecodec.decode_error_frame(raw)
+            check(status == 400 and code == 400 and "malformed" in message,
+                  f"malformed frame: {status} {message}")
+        finally:
+            client.close()
+            chan.stop()
+    with _Server(svc) as off:  # RTPU_WIRE unset: the same request → 415
+        status, _, raw = _http(off.port, "POST", "/api/predict_eta_batch",
+                               batches[4096][1], {"Content-Type": WIRE_CT})
+        check(status == 415 and "RTPU_WIRE" in json.loads(raw)["error"],
+              f"wire off: {status}")
+    # the server entry point: the channel it starts, and its log's
+    # launch counts
+    port, wire_port = _free_port(), _free_port()
+    env = dict(os.environ, PORT=str(port), RTPU_HOST="127.0.0.1",
+               RTPU_WIRE="1", RTPU_WIRE_PORT=str(wire_port),
+               ROUTEST_DEVICE=CARD, ETA_MODEL_PATH=artifact)
+    log = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen([sys.executable, "-m", "routest_tpu_torch.serve"],
+                            cwd=ROOT, env=env, stdout=log,
+                            stderr=subprocess.STDOUT)
+    try:
+        _, boot_s = _wait_for("ping", lambda: _request(
+            port, "GET", "/api/ping")[0] == 200, 300, proc)
+        client = WireChannelClient("127.0.0.1", wire_port)
+        try:
+            status, raw = client.request("/api/predict_eta_batch",
+                                         batches[4096][1], timeout=120)
+        finally:
+            client.close()
+        check(status == 200, f"server channel: {status}")
+        _, _, json_raw = _http(port, "POST", "/api/predict_eta_batch",
+                               batches[4096][0],
+                               {"Content-Type": "application/json"})
+        _same_as_json(raw, json_raw, "server channel")
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        log.seek(0)
+        text = log.read()
+        log.close()
+    check(proc.returncode in (0, -signal.SIGTERM),
+          f"wire server exited {proc.returncode}: {text[-2000:]}")
+    events = [json.loads(line) for line in text.splitlines()
+              if line.startswith("{")]
+    names = {e.get("event") for e in events}
+    check("wire_channel_listening" in names, "server: no wire channel")
+    counts = {e["event"]: e["fused_launches"] for e in events
+              if e.get("event") in ("serve_listening", "serve_stopped")}
+    server_launches = counts["serve_stopped"] - counts["serve_listening"]
+    if CARD == "cuda":
+        check(server_launches == 2, f"server launches {server_launches}")
+    rec.update(server_boot_s=boot_s, server_launches=server_launches)
+    m = rec["median_ms_4096"]
+    print(f"[serving-core] wire: 4096 and 131072 rows bitwise the JSON "
+          f"path (minutes, bands, stamps) over HTTP and the channel; "
+          f"launches per request "
+          f"{[r['wire_launches'] for r in rec['rows'].values()]}; median "
+          f"ms per 4096-row request: JSON {m['json']:.2f}, wire "
+          f"{m['wire']:.2f}, channel {m['channel']:.2f}; 400 error frame, "
+          f"415 with wire off; the server's channel answered "
+          f"({server_launches} launches, boot {boot_s:.1f} s)")
+    return rec, launches
+
+
+def _swap_phase(artifact_dir):
+    """(b): the ETA model hot-swapped under concurrent traffic, then a
+    truncated replacement rejected."""
+    import shutil
+
+    from routest_tpu_torch.core.config import ServeConfig
+    from routest_tpu_torch.obs import get_registry
+    from routest_tpu_torch.ops.fused_mlp import fused_eta_forward
+    from routest_tpu_torch.serve.ml_service import EtaService, golden_batch
+
+    point = os.path.join(ROOT, "artifacts", "eta_mlp_point.msgpack")
+    quantile = os.path.join(ROOT, "artifacts", "eta_mlp.msgpack")
+    path = os.path.join(artifact_dir, "eta_served.msgpack")
+    shutil.copyfile(point, path)
+    svc = EtaService(ServeConfig(reload_sec=0.2), model_path=path,
+                     device=CARD)
+    check(svc.available and svc.quantiles == (), "swap: point model")
+    swaps = get_registry().counter("rtpu_model_swaps_total", "",
+                                   ("result",))
+    rejected0 = swaps.labels(result="rejected").value
+    gen0 = svc.generation
+    stop = threading.Event()
+    results, failures = [], []
+    flip = {}
+
+    def traffic(k):
+        i = 0
+        while not stop.is_set():
+            i += 1
+            t0 = time.perf_counter()
+            try:
+                status, out = _request(port, "POST", "/api/predict_eta", {
+                    "summary": {"distance": 1000 + 37 * i + k},
+                    "weather": "Stormy", "traffic": "Jam",
+                    "pickup_time": "2026-10-16T08:30:00",
+                    "driver_age": 30 + k})
+                results.append((t0, status, out))
+            except Exception as e:
+                failures.append(f"{type(e).__name__}: {e}")
+
+    def watch():
+        # the flip is done once the model field follows the serving
+        # reference (the last of the fields a swap copies)
+        while not stop.is_set():
+            if svc.quantiles and "t" not in flip:
+                flip["t"] = time.perf_counter()
+            time.sleep(0.001)
+
+    with _Server(svc) as srv:
+        port = srv.port
+        threads = [threading.Thread(target=traffic, args=(k,))
+                   for k in range(SWAP_THREADS)]
+        threads.append(threading.Thread(target=watch))
+        for t in threads:
+            t.start()
+        try:
+            time.sleep(1.0)
+            with open(quantile, "rb") as f:
+                data = f.read()
+            with open(path + ".tmp", "wb") as f:
+                f.write(data)
+            t_replace = time.perf_counter()
+            os.replace(path + ".tmp", path)
+            deadline = time.perf_counter() + 60
+            while "t" not in flip and time.perf_counter() < deadline:
+                time.sleep(0.01)
+            check("t" in flip, "swap: the generation never moved")
+            swap_s = flip["t"] - t_replace
+            time.sleep(1.0)
+            gen1, fp1 = svc.generation, svc.fingerprint
+            # a truncated replacement: rejected, the quantile model serves
+            with open(path + ".tmp", "wb") as f:
+                f.write(data[: len(data) // 2])
+            os.replace(path + ".tmp", path)
+            deadline = time.perf_counter() + 30
+            while (swaps.labels(result="rejected").value == rejected0
+                   and time.perf_counter() < deadline):
+                time.sleep(0.05)
+            time.sleep(0.5)
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(60)
+    check(not any(t.is_alive() for t in threads), "swap: traffic hung")
+    check(not failures, f"swap: {len(failures)} failed: {failures[:3]}")
+    bad = [(s, o) for _, s, o in results if s != 200]
+    check(not bad, f"swap: {len(bad)} non-200 answers: {bad[:3]}")
+    after = pre = torn = 0
+    for t0, _, out in results:
+        band = {"eta_minutes_ml_p10", "eta_minutes_ml_p90"} & set(out)
+        if band and (len(band) != 2 or not (
+                out["eta_minutes_ml_p10"] <= out["eta_minutes_ml"]
+                <= out["eta_minutes_ml_p90"])):
+            torn += 1
+        if t0 > flip["t"]:
+            after += 1
+            check(len(band) == 2, f"swap: a band missing after the flip "
+                                  f"{out}")
+        elif not band:
+            pre += 1
+    check(torn == 0, f"swap: {torn} torn answers")
+    check(gen1 == gen0 + 1 and svc.quantiles == (0.1, 0.5, 0.9),
+          f"swap: generation {gen0} → {gen1}")
+    check(swaps.labels(result="rejected").value == rejected0 + 1
+          and svc.generation == gen1 and svc.fingerprint == fp1
+          and svc.available, "swap: the truncated file was not rejected")
+    # the gate alone, on a quiet service: the golden batch on the
+    # replacement's batcher (and the live model's compare)
+    fresh = EtaService(ServeConfig(), model_path=quantile, device=CARD)
+    flushes = fresh._batcher.stats["flushes"]
+    fused_eta_forward.launches = 0
+    ok, verdict = svc._verify_swap(fresh)
+    golden_launches = fused_eta_forward.launches
+    golden_flushes = fresh._batcher.stats["flushes"] - flushes
+    check(ok and verdict.get("divergence") == 0.0,
+          f"swap gate: {ok} {verdict}")
+    if CARD == "cuda":
+        check(golden_flushes == 1 and golden_launches == 2,
+              f"swap gate launches {golden_launches}, flushes "
+              f"{golden_flushes}")
+    rec = {"requests": len(results), "failed": 0, "torn": 0,
+           "point_answers_before_flip": pre, "answers_after_flip": after,
+           "swap_s": swap_s, "generation": [gen0, gen1],
+           "rejected_truncated": True, "golden_launches": golden_launches,
+           "golden_flushes_replacement": golden_flushes,
+           "golden_rows": len(golden_batch())}
+    print(f"[serving-core] swap: {len(results)} /api/predict_eta answers "
+          f"from {SWAP_THREADS} threads, 0 failed, 0 torn; point → quantile "
+          f"flip {swap_s:.3f} s after the file was replaced (generation "
+          f"{gen0} → {gen1}), {after} answers after it all banded; the "
+          f"truncated copy rejected; golden gate {golden_launches} launches "
+          f"({golden_flushes} on the replacement)")
+    return rec
+
+
+def _persist_phase(artifact):
+    """(c): optimize persisted through the in-repo fake PostgREST, an
+    outage journaled, the restart replayed."""
+    import importlib.util
+
+    import numpy as np
+
+    from routest_tpu_torch.core.config import load_config
+    from routest_tpu_torch.obs import get_registry
+    from routest_tpu_torch.serve.ml_service import EtaService
+
+    # by path: an installed package named ``tests`` would shadow the
+    # repository's (a directory without ``__init__.py``)
+    spec = importlib.util.spec_from_file_location(
+        "fake_postgrest", os.path.join(ROOT, "tests", "fake_postgrest.py"))
+    fake = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fake)
+    start_fake_postgrest = fake.start_fake_postgrest
+
+    pg, pg_thread, url = start_fake_postgrest()
+    pg_port = pg.server_address[1]
+    env = {"SUPABASE_URL": url, "SUPABASE_SERVICE_ROLE_KEY": "smoke-key",
+           "RTPU_STORE_COOLDOWN_S": "0.5", "ROUTEST_DEVICE": CARD}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        config = load_config()
+        svc = EtaService(config.serve, model_path=artifact, device=CARD)
+        srv = _Server(svc, config)
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    acked, ms = [], []
+    pg2 = None
+
+    def optimize(rep):
+        t0 = time.perf_counter()
+        status, out = _request(port, "POST", "/api/optimize_route",
+                               _opt_body(3, rep, **_ML))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        props = (out or {}).get("properties") or {}
+        check(status == 200 and props.get("saved") is True
+              and np.isfinite(props.get("eta_minutes_ml", np.nan)),
+              f"persist: optimize {status} {props.get('saved')}")
+        acked.append(props["request_id"])
+        return props
+
+    try:
+        with srv:
+            port = srv.port
+            check(srv.server.get_app().store.kind == "postgrest",
+                  "persist: not the PostgREST store")
+            for rep in range(PERSIST_REQUESTS):
+                optimize(rep)
+            _, hist = _request(port, "GET", "/api/history?limit=100")
+            check(sorted(i["request_id"] for i in hist["items"])
+                  == sorted(acked), "persist: history before the outage")
+            state = pg.state
+            pg.shutdown()
+            pg.server_close()
+            pg_thread.join(10)
+            t_down = time.perf_counter()
+            for rep in range(PERSIST_OUTAGE_REQUESTS):
+                check(optimize(PERSIST_REQUESTS + rep).get("degraded")
+                      is True, "persist: outage write not marked degraded")
+            status, hist = _request(port, "GET", "/api/history")
+            check(status == 200 and hist == {"items": [], "degraded": True},
+                  f"persist: history in the outage {status} {hist}")
+            status, one = _request(port, "GET", f"/api/history/{acked[0]}")
+            check(status == 503 and one.get("degraded") is True,
+                  f"persist: detail in the outage {status} {one}")
+            _, health = _request(port, "GET", "/api/health")
+            journal = health["checks"]["store"]["resilience"]["journal_depth"]
+            check(journal == 2 * PERSIST_OUTAGE_REQUESTS,
+                  f"persist: journal depth {journal}")
+            pg2, pg2_thread, _ = start_fake_postgrest(pg_port)
+            pg2.state = state  # the database restarts with its rows
+            t_up = time.perf_counter()
+            while True:
+                _, health = _request(port, "GET", "/api/health")
+                store = health["checks"]["store"]
+                if store["status"] == "ok" and \
+                        store["resilience"]["journal_depth"] == 0:
+                    break
+                check(time.perf_counter() - t_up < 30,
+                      f"persist: no replay {store}")
+                time.sleep(0.1)
+            replay_s = time.perf_counter() - t_up
+            _, hist = _request(port, "GET", "/api/history?limit=100")
+            check(sorted(i["request_id"] for i in hist["items"])
+                  == sorted(acked), "persist: an acknowledged write lost")
+            for rid in acked:
+                status, one = _request(port, "GET", f"/api/history/{rid}")
+                check(status == 200 and one["result"] is not None
+                      and one["result"]["eta_minutes_ml"] is not None,
+                      f"persist: {rid} read back {status}")
+    finally:
+        if pg2 is not None:
+            pg2.shutdown()
+            pg2.server_close()
+            pg2_thread.join(10)
+    hist = get_registry().get("rtpu_store_op_seconds")
+    op_ms = {f"{op}/{backend}": {"n": child.count,
+                                 "median_ms": child.quantile(0.5) * 1e3}
+             for (op, backend), child in hist.items()
+             if backend == "postgrest"}
+    rec = {"acknowledged": len(acked), "read_back": len(acked),
+           "outage_writes": PERSIST_OUTAGE_REQUESTS,
+           "journal_depth": journal, "replay_s": replay_s,
+           "outage_s": t_up - t_down,
+           "optimize_median_ms": _median(ms), "store_op_ms": op_ms}
+    ops = ", ".join(f"{k} {v['median_ms']:.2f} ms (n {v['n']})"
+                    for k, v in sorted(op_ms.items()))
+    print(f"[serving-core] persistence: {len(acked)} acknowledged "
+          f"use_ml_eta optimize writes, {PERSIST_OUTAGE_REQUESTS} of them "
+          f"journaled in the outage (depth {journal}), replayed "
+          f"{replay_s:.2f} s after the restart, every one read back; store "
+          f"op medians (histogram): {ops}")
+    return rec
+
+
+def _auth_phase(artifact):
+    """(d): ``ROUTEST_AUTH=require`` boots and gates the DELETE; the
+    Sanctum cookie flow."""
+    from routest_tpu_torch.core.config import ServeConfig
+    from routest_tpu_torch.serve.ml_service import EtaService
+
+    svc = EtaService(ServeConfig(), model_path=artifact, device=CARD)
+    os.environ["ROUTEST_AUTH"] = "require"
+    try:
+        srv = _Server(svc)
+    finally:
+        os.environ.pop("ROUTEST_AUTH")
+    with srv:
+        port = srv.port
+        status, reg = _request(port, "POST", "/api/auth/register", {
+            "name": "Smoke", "email": "smoke@example.com",
+            "password": "s3cretpass"})
+        check(status == 201 and reg.get("token"), f"register: {status}")
+        status, login = _request(port, "POST", "/api/auth/login", {
+            "email": "smoke@example.com", "password": "s3cretpass"})
+        check(status == 200 and login.get("token"), f"login: {status}")
+        bearer = {"Authorization": f"Bearer {login['token']}"}
+        _, route = _request(port, "POST", "/api/optimize_route",
+                            _opt_body(3, 0))
+        rid = route["properties"]["request_id"]
+        status, _, _ = _http(port, "DELETE", f"/api/history/{rid}")
+        check(status == 401, f"DELETE without a bearer: {status}")
+        status, _, _ = _http(port, "DELETE", f"/api/history/{rid}",
+                             headers=bearer)
+        check(status == 204, f"DELETE with a bearer: {status}")
+        status, head, _ = _http(port, "GET", "/sanctum/csrf-cookie")
+        xsrf_line = head.get("Set-Cookie", [""])[0]
+        xsrf = xsrf_line.split(";", 1)[0].split("=", 1)[1]
+        check(status == 204 and xsrf_line.startswith("XSRF-TOKEN=")
+              and "SameSite=Lax" in xsrf_line, f"csrf cookie: {xsrf_line}")
+        status, head, _ = _http(
+            port, "POST", "/api/auth/login", json.dumps({
+                "email": "smoke@example.com", "password": "s3cretpass"}),
+            {"Content-Type": "application/json", "X-XSRF-TOKEN": xsrf,
+             "Cookie": f"XSRF-TOKEN={xsrf}"})
+        session = [c for c in head.get("Set-Cookie", [])
+                   if c.startswith("routest_session=")]
+        check(status == 200 and session and "HttpOnly" in session[0],
+              f"session cookie: {head.get('Set-Cookie')}")
+        token = session[0].split(";", 1)[0].split("=", 1)[1]
+        status, _, raw = _http(port, "GET", "/api/user", headers={
+            "Cookie": f"XSRF-TOKEN={xsrf}; routest_session={token}"})
+        check(status == 200 and json.loads(raw)["email"]
+              == "smoke@example.com", f"/api/user by cookie: {status}")
+    print("[serving-core] auth: ROUTEST_AUTH=require booted; register 201, "
+          "login 200, DELETE /api/history/<id> 401 without a bearer and "
+          "204 with one; the Sanctum flow set XSRF-TOKEN and an HttpOnly "
+          "routest_session that /api/user accepts")
+    return {"register": 201, "login": 200, "delete_without_bearer": 401,
+            "delete_with_bearer": 204, "cookies": ["XSRF-TOKEN",
+                                                   "routest_session"]}
+
+
+def _gnn_swap_phase(artifact_dir):
+    """(e): the road GNN hot-swapped on the card: a foreign and a
+    truncated artifact rejected, a Manila install and a default re-install
+    accepted."""
+    import shutil
+
+    import numpy as np
+
+    from routest_tpu_torch.data.osm import load_osm
+    from routest_tpu_torch.optimize.road_router import RoadRouter
+
+    default_gnn = os.path.join(ROOT, "artifacts", "road_gnn.msgpack")
+    manila_gnn = os.path.join(ROOT, MANILA_GNN)
+    path = os.path.join(artifact_dir, "road_gnn_served.msgpack")
+    shutil.copyfile(default_gnn, path)
+
+    def replace(src_bytes):
+        with open(path + ".tmp", "wb") as f:
+            f.write(src_bytes)
+        os.replace(path + ".tmp", path)
+
+    def route(router):
+        pts = router.coords[[0, len(router.coords) // 2, -1]]
+        return router.route_legs(pts, hour=8)
+
+    with open(default_gnn, "rb") as f:
+        default_bytes = f.read()
+    with open(manila_gnn, "rb") as f:
+        manila_bytes = f.read()
+    router = RoadRouter(gnn_path=path, device=CARD)
+    check(router.leg_cost_model == "gnn", "gnn swap: no GNN on the default")
+    gen0, live = router._model_gen, router._gnn
+    table = router.edge_time_s(8).copy()
+    replace(manila_bytes)  # another graph's artifact: the gate refuses it
+    check(route(router).cost_model == "gnn" and router._gnn is live
+          and router._model_gen == gen0, "gnn swap: foreign accepted")
+    replace(default_bytes[: len(default_bytes) // 2])
+    check(route(router).cost_model == "gnn" and router._gnn is live
+          and router._model_gen == gen0, "gnn swap: truncated accepted")
+    t0 = time.perf_counter()
+    replace(default_bytes)
+    legs = route(router)
+    swap_s = time.perf_counter() - t0
+    check(legs.cost_model == "gnn" and router._model_gen == gen0 + 1
+          and router._gnn is not live, "gnn swap: re-install refused")
+    check(np.allclose(router.edge_time_s(8), table, rtol=ROAD_DURATION_RTOL),
+          "gnn swap: the re-installed GNN prices differently")
+    # the Manila deployment: free-flow until its artifact arrives
+    graph = load_osm(os.path.join(ROOT, MANILA_OSM))
+    mpath = os.path.join(artifact_dir, "road_gnn_manila_served.msgpack")
+    manila = RoadRouter(graph=graph, gnn_path=mpath, use_transformer=False,
+                        device=CARD)
+    check(route(manila).cost_model == "freeflow", "manila: GNN too early")
+    mgen = manila._model_gen
+    with open(mpath + ".tmp", "wb") as f:
+        f.write(manila_bytes)
+    os.replace(mpath + ".tmp", mpath)
+    check(route(manila).cost_model == "gnn"
+          and manila._model_gen == mgen + 1, "manila: install refused")
+    want = RoadRouter(graph=graph, gnn_path=manila_gnn,
+                      use_transformer=False, device=CARD).edge_time_s(8)
+    check(np.allclose(manila.edge_time_s(8), want, rtol=ROAD_DURATION_RTOL),
+          "manila: swapped GNN prices differ from a fresh router's")
+    print(f"[serving-core] gnn swap: the default router refused Manila's "
+          f"artifact and a truncated file, re-installed its own in "
+          f"{swap_s * 1e3:.1f} ms (generation {gen0} → {gen0 + 1}, the "
+          f"same prices); the Manila router went free-flow → gnn (generation "
+          f"{mgen} → {mgen + 1}), prices within rtol {ROAD_DURATION_RTOL} of "
+          f"a fresh router's")
+    return {"default": {"generation": [gen0, gen0 + 1],
+                        "rejected": ["foreign", "truncated"],
+                        "reinstall_ms": swap_s * 1e3},
+            "manila": {"generation": [mgen, mgen + 1]}}
+
+
+def phase_serving_core():
+    """Phase 12: (a) the wire path, (b) the ETA hot swap, (c) PostgREST
+    persistence through an outage, (d) auth, (e) the GNN hot swap. →
+    (record, fused launches over (a)'s wire requests)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    rng = np.random.default_rng(12)
+    artifact = os.path.join(ROOT, "artifacts", "eta_mlp.msgpack")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    artifact_dir = tempfile.mkdtemp(prefix="serving-core-",
+                                    dir=os.path.join(ROOT, "build"))
+    try:
+        wire, launches = _wire_phase(rng, artifact)
+        record = {"wire": wire, "swap": _swap_phase(artifact_dir),
+                  "persist": _persist_phase(artifact),
+                  "auth": _auth_phase(artifact),
+                  "gnn_swap": _gnn_swap_phase(artifact_dir)}
+    finally:
+        shutil.rmtree(artifact_dir, ignore_errors=True)
+    print(json.dumps({"serving_core": record}))
+    return record, launches
+
+
 def phase_times(rng):
     """Per-bucket times of every variant on the served artifact
     (quantile): → {variant: [row per batch]}."""
@@ -2639,6 +3312,8 @@ def main() -> int:
         _, live_launches = phase_live()
         phase = "dispatch"
         phase_dispatch()
+        phase = "serving-core"
+        _, core_launches = phase_serving_core()
         phase = "times"
         table = phase_times(rng)
     except Exception as e:
@@ -2667,6 +3342,9 @@ def main() -> int:
     kernels[0]["launches_overlay"] = overlay_launches
     # ... and over the live phase's use_ml_eta routes (a server process)
     kernels[0]["launches_live"] = live_launches
+    # ... and over phase 12's wire frames (4096 and 131,072 rows, HTTP
+    # and channel)
+    kernels[0]["launches_serving_core"] = core_launches
     print(json.dumps({"kernels": kernels}))
     print(f"{smi_line}")
     print(json.dumps({"ok": True, "device": {

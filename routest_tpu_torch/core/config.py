@@ -3,7 +3,8 @@
 The fields the port reads, carried over from
 ``routest_tpu/core/config.py`` with the same environment variable names
 and defaults (``ETA_MODEL_PATH``, ``PORT``, ``RTPU_*``, ``RTPU_LIVE_*``,
-``RTPU_DISPATCH_*``, ``SUPABASE_*``, ``REDIS_URL``), plus the port's own
+``RTPU_DISPATCH_*``, ``RTPU_WIRE*``, ``ROUTEST_RELOAD_SEC``,
+``RTPU_SWAP_*``, ``SUPABASE_*``, ``REDIS_URL``), plus the port's own
 ``ROUTEST_DEVICE``.
 """
 
@@ -57,6 +58,15 @@ class ServeConfig:
     fastlane_max_rows: int = 1024
     adaptive_wait: bool = True
     min_wait_ms: float = 0.0
+    # Hot reload: poll the serving artifact's mtime every ``reload_sec``
+    # seconds (0 = off) and swap a changed file in without a restart.
+    reload_sec: float = 0.0
+    # Verified hot-swap: a replacement scores the golden batch before the
+    # serving generation flips; non-finite outputs, or a median absolute
+    # divergence from the live model beyond ``swap_max_divergence`` ETA
+    # minutes (0 = no bound; finiteness always holds), reject it.
+    swap_verify: bool = True
+    swap_max_divergence: float = 240.0
     # Health version stamp (RENDER_GIT_COMMIT / GIT_COMMIT_SHA).
     version: Optional[str] = None
     # History backend (SUPABASE_URL / SUPABASE_SERVICE_ROLE_KEY); unset
@@ -124,6 +134,28 @@ class DispatchConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class WireConfig:
+    """Binary wire serving path (``serve/wirecodec.py`` +
+    ``serve/wirechannel.py``): the length-prefixed columnar format
+    negotiated by content-type on ``/api/predict_eta_batch`` and
+    ``/api/matrix``, and the persistent multiplexed channel that carries
+    it without a per-request HTTP exchange. All knobs are ``RTPU_WIRE*``
+    env vars, with the JAX package's names and defaults; **off by
+    default** — when disabled the app answers the wire content-type with
+    415 and no channel socket exists.
+
+    The channel listens on ``port`` when set, else on ``PORT +
+    port_offset``. ``max_frame_mb`` bounds a single frame in both
+    directions, checked before any per-row work."""
+
+    enabled: bool = False
+    channel: bool = True           # persistent mux channel (vs HTTP only)
+    port: int = 0                  # explicit channel port (0 = derive)
+    port_offset: int = 1000        # derived channel port = PORT + offset
+    max_frame_mb: float = 64.0
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     model: ModelConfig = ModelConfig()
     serve: ServeConfig = ServeConfig()
@@ -161,6 +193,18 @@ def load_config(env: Optional[Mapping[str, str]] = None) -> Config:
         raw = env.get(name)
         return float(raw) if raw else default
 
+    def _float_tolerant(name: str, default: float) -> float:
+        # Ops knob: a malformed value must not abort server boot — fall
+        # back to the default (= feature off for reload_sec) instead.
+        raw = env.get(name)
+        if not raw:
+            return default
+        try:
+            return float(raw)
+        except ValueError:
+            warnings.warn(f"{name}={raw!r} is not a number; using {default}")
+            return default
+
     def _buckets(name: str, default: Tuple[int, ...]) -> Tuple[int, ...]:
         # Ops knob: malformed entries keep the default (boot must not
         # abort on a typo).
@@ -194,6 +238,9 @@ def load_config(env: Optional[Mapping[str, str]] = None) -> Config:
         fastlane_max_rows=_int("RTPU_FASTLANE_MAX_ROWS", 1024),
         adaptive_wait=env.get("RTPU_FASTLANE_ADAPTIVE", "1") != "0",
         min_wait_ms=_float("RTPU_FASTLANE_MIN_WAIT_MS", 0.0),
+        reload_sec=_float_tolerant("ROUTEST_RELOAD_SEC", 0.0),
+        swap_verify=env.get("RTPU_SWAP_VERIFY", "1") != "0",
+        swap_max_divergence=_float_tolerant("RTPU_SWAP_MAX_DIV", 240.0),
         version=_env(env, "RENDER_GIT_COMMIT", "GIT_COMMIT_SHA"),
         supabase_url=env.get("SUPABASE_URL"),
         supabase_service_key=env.get("SUPABASE_SERVICE_ROLE_KEY"),
@@ -228,6 +275,18 @@ def load_live_config(env: Optional[Mapping[str, str]] = None) -> LiveConfig:
         min_obs_edges=_env_num(env, "RTPU_LIVE_MIN_OBS_EDGES", 1, int),
         window=_env_num(env, "RTPU_LIVE_WINDOW", 65536, int),
         route_metric=env.get("RTPU_LIVE_ROUTE_METRIC", "1") != "0",
+    )
+
+
+def load_wire_config(env: Optional[Mapping[str, str]] = None) -> WireConfig:
+    """Just the binary-wire knobs (``RTPU_WIRE=1`` turns the path on)."""
+    env = dict(env if env is not None else os.environ)
+    return WireConfig(
+        enabled=env.get("RTPU_WIRE", "0") == "1",
+        channel=env.get("RTPU_WIRE_CHANNEL", "1") != "0",
+        port=_env_num(env, "RTPU_WIRE_PORT", 0, int),
+        port_offset=_env_num(env, "RTPU_WIRE_PORT_OFFSET", 1000, int),
+        max_frame_mb=_env_num(env, "RTPU_WIRE_MAX_FRAME_MB", 64.0, float),
     )
 
 

@@ -30,10 +30,14 @@ on this graph, re-priced in route context by the route transformer).
 
 Every tensor lives on the router's ``device`` (``cuda`` unless the
 caller asks for the CPU; asking for the card without one raises).
-Learned pricers load once, at construction. Not ported yet: the
-verified GNN hot-swap and mtime reload, the AOT solve buckets (for the
-distance and the live overlay alike), the overlay gauges, the trace
-spans and the efficiency ledger.
+Learned pricers hot-reload: each request batch stats their artifact
+files, and a changed road-GNN file goes live only after it prices every
+edge finitely and, when a GNN already serves, within
+``RTPU_ROAD_SWAP_MAX_DIV`` edge-seconds (median) of it; a deleted file
+stops GNN pricing. Each swap bumps the model generation that keys the
+route cache. Not ported yet: the AOT solve buckets (for the distance
+and the live overlay alike), the overlay gauges, the trace spans and
+the efficiency ledger.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ from routest_tpu_torch.data.road_graph import (_CLASS_SPEED_MPS,
                                                generate_road_graph,
                                                haversine_np)
 from routest_tpu_torch.live import set_metric_epoch
+from routest_tpu_torch.obs import get_registry
 from routest_tpu_torch.models.gnn import edge_feature_array
 from routest_tpu_torch.optimize.hierarchy import (_CACHE_VERSION, _INF,
                                                   HierarchicalIndex,
@@ -68,6 +73,24 @@ from routest_tpu_torch.train.checkpoint import (default_gnn_path,
 from routest_tpu_torch.utils.logging import get_logger
 
 _log = get_logger("routest.road")
+
+_m_road_swaps = get_registry().counter(
+    "rtpu_road_model_swaps_total",
+    "Road-GNN hot-swap attempts, by result "
+    "(accepted / rejected / removed).", ("result",))
+_m_road_gen = get_registry().gauge(
+    "rtpu_road_model_generation",
+    "Generation id of the live road-GNN leg pricer (bumped per swap).")
+
+
+def _road_swap_divergence() -> float:
+    """Verified road-GNN hot-swap bound (median absolute edge-seconds
+    divergence from the live pricer; 0 disables the compare — the
+    finiteness gate always holds)."""
+    try:
+        return float(os.environ.get("RTPU_ROAD_SWAP_MAX_DIV", "600"))
+    except ValueError:
+        return 600.0
 
 
 def _time_table(senders: torch.Tensor, pred: torch.Tensor,
@@ -392,16 +415,23 @@ class RoadRouter:
             RouteCache(rc_bytes, rc_ttl) if rc_on else None)
         self._hour_times: Dict[int, np.ndarray] = {}
         self._model_lock = threading.Lock()
-        gnn = (self._load_leg_model(
-            load_gnn, gnn_path or default_gnn_path(), "road_gnn")
-            if use_gnn else None)
-        self._gnn = None if gnn is None else gnn[0]
-        tf = (self._load_leg_model(
-            load_transformer, transformer_path or default_transformer_path(),
-            "route_transformer") if use_transformer else None)
-        # (module, trained seq_len)
-        self._transformer = (None if tf is None
-                             else (tf[0], int(tf[1].get("seq_len", 24))))
+        # Learned leg models hot-reload: each request batch stats the
+        # artifacts and re-runs the fingerprint-gated loader when a file
+        # changed. Mtimes are recorded even for rejected artifacts so a
+        # bad file is not re-parsed on every request.
+        self._gnn_path = (gnn_path or default_gnn_path()) if use_gnn else None
+        self._transformer_path = (
+            (transformer_path or default_transformer_path())
+            if use_transformer else None)
+        self._gnn_mtime_ns: Optional[int] = None
+        self._transformer_mtime_ns: Optional[int] = None
+        self._gnn = None
+        self._transformer = None  # (module, trained seq_len)
+        # Serializes reloads only: loading happens outside _model_lock,
+        # so a retrain never stalls concurrent requests.
+        self._reload_lock = threading.Lock()
+        self._model_gen = 0  # bumped per swap: stale cache writes discard
+        self._maybe_reload_models()
         # Live-traffic metric: installed by the customizer, snapshotted
         # once per request batch. None = frozen world (free-flow / GNN
         # pricing, distance-metric routing).
@@ -551,38 +581,154 @@ class RoadRouter:
             model.policy = backend_compute_policy(model.policy, self.device)
         return model.to(self.device), meta
 
+    @staticmethod
+    def _mtime_ns(path: Optional[str]) -> Optional[int]:
+        if not path:
+            return None
+        try:
+            return os.stat(path).st_mtime_ns
+        except OSError:
+            return None
+
+    def _maybe_reload_models(self) -> None:
+        """Reload the GNN / transformer when their artifact files changed
+        (two stats per call — cheap enough to run per request batch).
+        Same degradation contract as a fresh process: a rejected
+        replacement is not served; a DELETED artifact stops serving
+        (pricing falls down the stack). Loading runs outside
+        ``_model_lock`` — only the reference swap and the generation
+        bump hold it; a second thread arriving mid-reload serves the
+        current models."""
+        if not (self._gnn_path or self._transformer_path):
+            return
+        if not self._reload_lock.acquire(blocking=False):
+            return  # another request is already reloading
+        try:
+            m = self._mtime_ns(self._gnn_path)
+            if self._gnn_path and m != self._gnn_mtime_ns:
+                loaded = (self._load_leg_model(load_gnn, self._gnn_path,
+                                               "road_gnn")
+                          if m is not None else None)
+                new_gnn = None if loaded is None else loaded[0]
+                # Verified hot-swap: a replacement must price the graph
+                # finitely (and, over a live GNN, within the divergence
+                # bound) before the generation flips; a deleted artifact
+                # stops serving; the first install needs finiteness.
+                accept, verdict = self._verify_gnn_swap(new_gnn, m)
+                if accept:
+                    with self._model_lock:
+                        self._gnn = new_gnn
+                        self._gnn_mtime_ns = m
+                        self._model_gen += 1
+                        self._hour_times.clear()
+                        gen = self._model_gen
+                    _m_road_swaps.labels(
+                        result=verdict.pop("result", "accepted")).inc()
+                    _m_road_gen.set(gen)
+                    _log.info("road_model_swapped", generation=gen,
+                              path=self._gnn_path, **verdict)
+                else:
+                    with self._model_lock:
+                        # Remember the bad mtime so the artifact is not
+                        # re-verified on every request until it changes.
+                        self._gnn_mtime_ns = m
+                    _m_road_swaps.labels(result="rejected").inc()
+                    _log.warning("road_model_swap_rejected",
+                                 path=self._gnn_path, **verdict)
+            m = self._mtime_ns(self._transformer_path)
+            if self._transformer_path and m != self._transformer_mtime_ns:
+                loaded = (self._load_leg_model(
+                    load_transformer, self._transformer_path,
+                    "route_transformer") if m is not None else None)
+                new_tf = (None if loaded is None else
+                          (loaded[0], int(loaded[1].get("seq_len", 24))))
+                with self._model_lock:
+                    self._transformer = new_tf
+                    self._transformer_mtime_ns = m
+        finally:
+            self._reload_lock.release()
+
+    def _verify_gnn_swap(self, new_gnn, mtime_ns) -> Tuple[bool, Dict]:
+        """Golden-graph gate for a road-GNN replacement → ``(accept,
+        verdict)``. ``new_gnn`` None accepts as a removal (file deleted)
+        unless a model is live and the file still EXISTS (an unloadable
+        overwrite must not take down a working pricer). A loadable
+        replacement prices the whole edge set at the current hour: any
+        non-finite output rejects, and — over a live GNN — a median
+        absolute divergence beyond ``RTPU_ROAD_SWAP_MAX_DIV``
+        edge-seconds rejects too."""
+        with self._model_lock:
+            cur = self._gnn
+        if new_gnn is None:
+            if cur is not None and mtime_ns is not None:
+                return False, {"reason": "replacement failed to load"}
+            return True, {"result": "removed" if mtime_ns is None
+                          else "accepted"}
+        import datetime as _dt
+
+        hour = _dt.datetime.now().hour
+        try:
+            pred = self._gnn_forward(new_gnn, hour)
+        except Exception as exc:
+            return False, {"reason": "verification forward failed: "
+                                     f"{type(exc).__name__}: {exc}"}
+        if not np.isfinite(pred).all():
+            return False, {"reason": "non-finite edge predictions",
+                           "bad_edges": int((~np.isfinite(pred)).sum())}
+        bound = _road_swap_divergence()
+        if cur is not None and bound > 0:
+            pred_f = np.maximum(pred, self.length_m / 16.7)
+            cur_f = self.edge_time_s(hour)  # live pricer, same floor
+            div = float(np.median(np.abs(pred_f - cur_f)))
+            if div > bound:
+                return False, {"reason": "divergence beyond bound",
+                               "divergence_s": round(div, 2),
+                               "bound_s": bound}
+            return True, {"divergence_s": round(div, 3), "bound_s": bound}
+        return True, {}
+
+    def _gnn_forward(self, gnn, hour: int) -> np.ndarray:
+        """(E,) raw GNN edge seconds over the whole graph at ``hour``."""
+        feats = torch.from_numpy(edge_feature_array(
+            self.length_m, self.speed_limit, self.road_class, hour)).to(
+                self.device)
+        return gnn(self._d_coords, self._d_senders, self._d_receivers,
+                   feats, self._d_length, self._d_speed
+                   ).float().cpu().numpy()
+
     def edge_time_s(self, hour: int) -> np.ndarray:
         """(E,) per-edge car travel seconds at the given hour-of-day:
         GNN-predicted when its artifact matches this graph (cached per
         hour), free-flow physics otherwise. Floored at free-flow at an
         arterial ceiling (length / 16.7 m/s)."""
         h = int(hour) % 24
+        # ONE consistent snapshot of (model, cache, generation): a
+        # concurrent hot-reload's cache clear must invalidate THIS
+        # call's eventual write.
         with self._model_lock:
             gnn = self._gnn
+            gen = self._model_gen
             cached = self._hour_times.get(h)
         if gnn is None:
             return self.freeflow_time_s
         if cached is not None:
             return cached
-        feats = torch.from_numpy(edge_feature_array(
-            self.length_m, self.speed_limit, self.road_class, h)).to(
-                self.device)
         try:
-            pred = gnn(self._d_coords, self._d_senders, self._d_receivers,
-                       feats, self._d_length, self._d_speed
-                       ).float().cpu().numpy()
+            pred = self._gnn_forward(gnn, h)
         except Exception as e:
             # A loaded-but-unusable artifact degrades to physics, not a
             # failed request; drop it so the cost is paid once.
             _log.error("road_gnn_apply_failed",
                        error=f"{type(e).__name__}: {e}")
             with self._model_lock:
-                self._gnn = None
-                self._hour_times.clear()
+                if self._model_gen == gen:
+                    self._gnn = None
+                    self._model_gen += 1
+                    self._hour_times.clear()
             return self.freeflow_time_s
         pred = np.maximum(pred, self.length_m / 16.7)  # 60 km/h cap
         with self._model_lock:
-            if self._gnn is gnn:
+            if self._model_gen == gen:  # don't poison a reloaded cache
                 self._hour_times[h] = pred
         return pred
 
@@ -780,7 +926,9 @@ class RoadRouter:
         ONE live-metric snapshot serves the whole batch: every problem
         in it prices (and, with the route metric armed, routes) against
         the same generation, and a concurrent flip affects only later
-        batches."""
+        batches. A changed learned-pricer artifact is picked up first,
+        once for the whole batch."""
+        self._maybe_reload_models()
         pts_list = [np.asarray(p, np.float32) for p, _, _ in problems]
         counts = [len(p) for p in pts_list]
         live = self._live
@@ -793,14 +941,14 @@ class RoadRouter:
         if cache is not None:
             epoch = ((live.epoch, live.gen) if live is not None
                      else (0, 0))
+            gen = self._model_gen
             my_leads: Dict = {}
             solve_idx = []
             for i, pts in enumerate(pts_list):
                 _, time_scale, hour = problems[i]
                 eff_hour = 12 if hour is None else int(hour) % 24
-                # road-model generation: always 0 (no hot-swap yet)
                 key = (pts.tobytes(), len(pts), float(time_scale),
-                       eff_hour, epoch, 0)
+                       eff_hour, epoch, gen)
                 keys[i] = key
                 lead = my_leads.get(key)
                 if lead is not None:

@@ -8,7 +8,12 @@ on the card through the fused kernel from the artifact at
 ``ETA_MODEL_PATH`` (default ``artifacts/eta_mlp.msgpack``) and solving
 routes on the card. ``ROUTEST_DEVICE=cpu`` serves on the CPU (the
 kernel's plain version). ``RTPU_LIVE=1`` arms live traffic on the road
-router (``RTPU_LIVE_*`` knobs). A missing artifact is a hard error:
+router (``RTPU_LIVE_*`` knobs). ``RTPU_WIRE=1`` accepts RTW1 frames on
+``/api/predict_eta_batch`` and ``/api/matrix`` and also serves them on a
+multiplexed TCP channel (``serve/wirechannel.py``) at ``RTPU_WIRE_PORT``,
+or ``PORT + RTPU_WIRE_PORT_OFFSET`` (a port already taken leaves the
+HTTP path serving). ``ROUTEST_RELOAD_SEC`` > 0 hot-swaps a changed
+artifact after the golden-batch gate. A missing artifact is a hard error:
 training a bootstrap model waits for the training slice. SIGTERM/SIGINT
 drain in-flight requests (open SSE streams are not waited for) before
 exit. ``serve_listening`` and ``serve_stopped`` log the fused kernel's
@@ -40,11 +45,34 @@ def main() -> None:
     eta = EtaService(config.serve, model_path=path)
     _log.info("model_loaded", path=path, available=eta.available,
               scoring=eta.scoring_info(), error=eta.load_error)
+    if config.serve.reload_sec > 0:
+        # EtaService started the watcher itself (it owns the lifecycle).
+        _log.info("hot_reload_watcher", interval_s=config.serve.reload_sec)
     app = create_app(config, eta_service=eta)
+    wire_cfg = app.wire_config
+    wire_server = None
+    if wire_cfg.enabled and wire_cfg.channel and app.wire_handlers:
+        from routest_tpu_torch.serve.wirechannel import WireChannelServer
+
+        wire_port = wire_cfg.port or (config.serve.port
+                                      + wire_cfg.port_offset)
+        wire_server = WireChannelServer(
+            app.wire_handlers, config.serve.host, wire_port,
+            max_frame_bytes=int(wire_cfg.max_frame_mb * 1024 * 1024))
+        try:
+            wire_server.start()   # logs wire_channel_listening itself
+        except OSError as e:
+            # A port collision must not kill the server: the HTTP
+            # negotiation path still serves wire frames.
+            _log.warning("wire_channel_bind_failed", port=wire_port,
+                         error=str(e))
+            wire_server = None
     _log.info("serve_listening", host=config.serve.host,
               port=config.serve.port,
               fused_launches=fused_eta_forward.launches)
     run_with_graceful_shutdown(app, config.serve.host, config.serve.port)
+    if wire_server is not None:
+        wire_server.stop()
     _log.info("serve_stopped", fused_launches=fused_eta_forward.launches)
 
 

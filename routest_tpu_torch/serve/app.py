@@ -4,12 +4,24 @@ The routes of ``routest_tpu/serve/app.py::create_app`` that the port
 serves, with the same status codes, keys and error strings:
 
 - ETA: ``POST /api/predict_eta``, ``POST /api/predict_eta_batch``
-  (JSON), the ``POST /api/predict`` proxy alias;
+  (JSON, or RTW1 frames as ``application/x-rtpu-wire`` when
+  ``RTPU_WIRE=1``; 415 otherwise), the ``POST /api/predict`` proxy
+  alias;
 - route optimization (great-circle legs, or street-network legs with
   ``road_graph: true``): ``POST /api/request_route``,
   ``POST /api/optimize_route`` (with ``use_ml_eta``, then persisted),
-  ``POST /api/optimize_route_batch``, ``POST /api/matrix`` (JSON);
-- history: ``GET /api/history``, ``GET``/``DELETE /api/history/<id>``;
+  ``POST /api/optimize_route_batch``, ``POST /api/matrix`` (JSON or
+  wire frames); one 1-, 3- and 10-stop optimize warms the engine on
+  the serving device once per process (``ROUTEST_WARM_BUCKETS=0`` opts
+  out);
+- history: ``GET /api/history``, ``GET``/``DELETE /api/history/<id>``,
+  persisted through ``make_store`` (PostgREST with ``SUPABASE_URL`` and
+  a key, else memory; always behind the resilience layer); the DELETE
+  is bearer-gated under ``ROUTEST_AUTH=require``;
+- auth (Laravel Breeze parity, ``serve/auth.py``):
+  ``/sanctum/csrf-cookie``, ``/api/auth/{register,login,logout,
+  forgot-password,reset-password,email/verification-notification,
+  verify-email/<id>/<hash>}`` and ``/api/user``;
 - live tracking: ``POST /api/confirm_route`` (starts a driver
   simulation publishing to the bus), ``POST /api/update_tracker``,
   ``GET /api/realtime_feed`` (SSE, resumable by ``Last-Event-ID``);
@@ -32,10 +44,8 @@ reports the scoring path (``checks.model.scoring``), the device
 (``checks.engine.mesh``), the road router once one is built
 (``checks.engine.road_router``), live traffic when armed
 (``checks.engine.live``), the bus (``checks.bus``, the JAX app's
-``checks.redis``) and the store (``checks.store``). Auth and the binary
-wire path arrive with later slices; auth is required by
-``ROUTEST_AUTH=require``, so that setting refuses to boot rather than
-serve an ungated ``DELETE``.
+``checks.redis``) and the store (``checks.store``, with the resilience
+layer's breaker and journal; journaled writes read ``degraded``).
 """
 
 from __future__ import annotations
@@ -43,13 +53,15 @@ from __future__ import annotations
 import datetime as dt
 import math
 import os
+import threading
 import time
 from typing import Optional
 
 import numpy as np
 import torch
 
-from routest_tpu_torch.core.config import Config, load_config, resolve_device
+from routest_tpu_torch.core.config import (Config, load_config,
+                                           load_wire_config, resolve_device)
 from routest_tpu_torch.data import geo
 from routest_tpu_torch.data.locations import locations_table
 from routest_tpu_torch.obs import build_info, get_registry, register_build_info
@@ -60,12 +72,15 @@ from routest_tpu_torch.optimize.engine import (MAX_BATCH_PROBLEMS,
                                                optimize_route_batch,
                                                travel_matrix)
 from routest_tpu_torch.optimize.vrp import NO_WINDOW
-from routest_tpu_torch.serve import sim
+from routest_tpu_torch.serve import sim, wirecodec
+from routest_tpu_torch.serve.auth import (UNAUTHENTICATED, AuthService,
+                                          mount_auth)
 from routest_tpu_torch.serve.bus import make_bus, sse_stream
 from routest_tpu_torch.serve.deadline import DeadlineExceeded
 from routest_tpu_torch.serve.ml_service import EtaService
 from routest_tpu_torch.serve.store import StoreUnavailable, make_store
-from routest_tpu_torch.serve.wsgi import App, Response, get_json
+from routest_tpu_torch.serve.mail import make_mailer
+from routest_tpu_torch.serve.wsgi import App, Response, get_json, json_response
 from routest_tpu_torch.train.checkpoint import default_model_path
 from routest_tpu_torch.utils.logging import get_logger
 
@@ -94,16 +109,21 @@ def _obj(value) -> dict:
 def create_app(config: Optional[Config] = None,
                eta_service: Optional[EtaService] = None,
                store=None, bus=None,
-               sim_tick_range=(2.0, 5.0)) -> App:
+               sim_tick_range=(2.0, 5.0),
+               auth: Optional[AuthService] = None,
+               mailer=None) -> App:
     """The app. Route optimization runs on ``config.serve.device``;
     ``store`` and ``bus`` default to :func:`make_store` and
     :func:`make_bus` of the configured backends; ``sim_tick_range`` is
-    the driver simulation's tick interval in seconds."""
+    the driver simulation's tick interval in seconds; ``auth`` defaults
+    to an :class:`AuthService` required iff ``ROUTEST_AUTH=require``,
+    ``mailer`` to :func:`make_mailer` (``ROUTEST_MAIL_FILE``)."""
     config = config or load_config()
-    if os.environ.get("ROUTEST_AUTH") == "require":
-        raise RuntimeError(
-            "create_app: ROUTEST_AUTH=require, but auth is not ported yet; "
-            "refusing to serve DELETE /api/history ungated")
+    if mailer is None:
+        mailer = make_mailer()
+    if auth is None:
+        auth = AuthService(
+            required=os.environ.get("ROUTEST_AUTH") == "require")
     store = store if store is not None else make_store(
         config.serve.supabase_url, config.serve.supabase_service_key)
     bus = bus if bus is not None else make_bus(config.serve.redis_url)
@@ -115,6 +135,8 @@ def create_app(config: Optional[Config] = None,
     app.eta = eta  # for tests / introspection
     app.store = store
     app.bus = bus
+    app.auth = auth
+    mount_auth(app, auth, mailer=mailer)
 
     # Live traffic (RTPU_LIVE=1): probe-stream ingest → per-edge
     # congestion state → periodic metric refresh of the road router on
@@ -191,6 +213,11 @@ def create_app(config: Optional[Config] = None,
             if req_id:
                 result.setdefault("properties", {})["request_id"] = req_id
                 result["properties"]["saved"] = True
+                # Write-behind: the rows are journaled, not yet durable
+                # at the backend (the id stays valid; the journal replays
+                # on recovery).
+                if getattr(store, "degraded", False):
+                    result["properties"]["degraded"] = True
         except Exception as e:
             _log.error("persist_failed", error=str(e), store=store.kind)
         return result, 200
@@ -244,11 +271,84 @@ def create_app(config: Optional[Config] = None,
                             r["properties"]["eta_completion_time_ml"] = str(ts)
         return {"count": len(items), "items": results}, 200
 
+    # ── binary wire path ───────────────────────────────────────────────
+    # Content-type-negotiated alternative representation of the two hot
+    # endpoints: ``application/x-rtpu-wire`` frames in, frames out, the
+    # SAME answers as JSON bit for bit. One implementation per endpoint
+    # serves both transports: the HTTP negotiation below and the
+    # persistent channel (serve/wirechannel.py) call these handlers,
+    # which speak raw frame bytes → (status, frame bytes). Transport
+    # failures (413/504) stay JSON; request-level outcomes are error
+    # frames.
+    wire_cfg = load_wire_config()
+    app.wire_config = wire_cfg
+    wire_max = int(wire_cfg.max_frame_mb * 1024 * 1024)
+
+    def _wire_eta(payload):
+        try:
+            frame = wirecodec.decode_eta_request(
+                payload, max_bytes=wire_max, max_rows=MAX_BATCH_ROWS)
+        except wirecodec.WireError as e:
+            return 400, wirecodec.encode_error_frame(
+                400, f"malformed batch: {e}")
+        try:
+            result = eta.predict_eta_wire(
+                frame.columns["features"], frame.columns["pickup_ms"],
+                blob=frame.payload("features"))
+        except DeadlineExceeded:
+            raise  # → 504 via the transport layer, not a 503
+        except Exception as e:
+            _log.error("predict_wire_failed", error=str(e))
+            result = None
+        if result is None:
+            return 503, wirecodec.encode_error_frame(
+                503, "model unavailable")
+        minutes, completion_ms, bands = result
+        return 200, wirecodec.encode_eta_response(minutes, completion_ms,
+                                                  bands)
+
+    def _wire_matrix(payload):
+        try:
+            body = wirecodec.decode_matrix_request(payload,
+                                                   max_bytes=wire_max)
+        except wirecodec.WireError as e:
+            return 400, wirecodec.encode_error_frame(400, str(e))
+        result = travel_matrix(body, device=device)
+        if "error" in result:
+            return 400, wirecodec.encode_error_frame(400, result["error"])
+        return 200, wirecodec.encode_matrix_response(result)
+
+    # Path → wire handler; ``python -m routest_tpu_torch.serve`` hands
+    # this dict to the channel server. Empty while the path is off: the
+    # negotiation answers 415 and no channel listener starts.
+    app.wire_handlers = (
+        {"/api/predict_eta_batch": _wire_eta, "/api/matrix": _wire_matrix}
+        if wire_cfg.enabled else {})
+
+    def _wire_negotiated(request, path):
+        """None when the request is not wire content-type, else the
+        finished binary (or 415) Response."""
+        ct = (request.content_type or "").split(";", 1)[0].strip().lower()
+        if ct != wirecodec.WIRE_CONTENT_TYPE:
+            return None
+        fn = app.wire_handlers.get(path)
+        if fn is None:
+            return json_response(
+                {"error": "binary wire format disabled on this replica "
+                          "(RTPU_WIRE=1 enables it)"}, 415)
+        status, frame = fn(request.get_data())
+        return Response(frame, status=status,
+                        content_type=wirecodec.WIRE_CONTENT_TYPE)
+
     @app.route("/api/matrix", methods=("POST",))
     def matrix_endpoint(request):
         """Travel matrix: ``{"points": [{"lat","lon"}, …],
         "sources"/"destinations": [idx], ...}`` → ``{"distances_m": S×D,
-        "durations_s": S×D}``, great-circle legs (JSON only)."""
+        "durations_s": S×D}``; also speaks the binary wire format by
+        content-type."""
+        wired = _wire_negotiated(request, "/api/matrix")
+        if wired is not None:
+            return wired
         result = travel_matrix(get_json(request) or {}, device=device)
         if "error" in result:
             return result, 400
@@ -561,6 +661,10 @@ def create_app(config: Optional[Config] = None,
 
     @app.route("/api/history/<req_id>", methods=("DELETE",))
     def delete_history(request, req_id):
+        # The one destructive route: bearer-gated under
+        # ROUTEST_AUTH=require (the reference never gated it).
+        if auth.required and auth.user_from_request(request) is None:
+            return UNAUTHENTICATED
         try:
             deleted = store.delete_request(req_id)
         except StoreUnavailable:
@@ -620,7 +724,11 @@ def create_app(config: Optional[Config] = None,
         Response: ``{"count": N, "eta_minutes_ml": [..],
         "eta_completion_time_ml": [..]}`` (+ ``eta_minutes_ml_p10``/
         ``_p90`` columns for a quantile model) / 503 when no model serves.
+        Also speaks the binary wire format by content-type.
         """
+        wired = _wire_negotiated(request, "/api/predict_eta_batch")
+        if wired is not None:
+            return wired
         body = get_json(request) or {}
         try:
             if "items" in body:
@@ -807,6 +915,13 @@ def create_app(config: Optional[Config] = None,
         store_res = {"status": "ok" if store_ok else "error",
                      "latency_ms": int((time.time() - t0) * 1000),
                      "backend": store.kind}
+        # Breaker state + journal depth: a store with journaled writes
+        # is "degraded", not "ok" — history may lag.
+        resilience = getattr(store, "resilience", None)
+        if resilience is not None:
+            store_res["resilience"] = resilience()
+            if store_ok and getattr(store, "degraded", False):
+                store_res["status"] = "degraded"
         engine_res = {"status": "ok", "latency_ms": 0,
                       "engine": f"torch-{eta.device.type}",
                       "mesh": eta.mesh_info()}
@@ -861,7 +976,47 @@ def create_app(config: Optional[Config] = None,
             "version": config.serve.version,
         }, 200  # always 200: degraded-not-down
 
+    _warm_optimizer(device)
     return app
+
+
+_warmed_devices = set()
+_warm_lock = threading.Lock()
+
+
+def _warm_optimizer(device) -> None:
+    """Run one 1-, 3- and 10-stop optimize (the point-to-point, typical
+    and the UI's largest request) through the engine on ``device``, so
+    the first customer request at each count pays no CUDA context,
+    allocator or library warm-up. Process-wide: each device warms once
+    per process, however many apps are built. ``ROUTEST_WARM_BUCKETS=0``
+    opts out. A failure (no card for a ``cuda`` app) logs and leaves the
+    lazy path: optimize requests then raise as they would unwarmed."""
+    if os.environ.get("ROUTEST_WARM_BUCKETS", "1") == "0":
+        return
+    key = str(torch.device(device))
+    with _warm_lock:
+        if key in _warmed_devices:
+            return
+        t0 = time.time()
+        try:
+            for n in (1, 3, 10):
+                optimize_route({
+                    "source_point": {"lat": 14.5836, "lon": 121.0409},
+                    "destination_points": [
+                        {"lat": 14.55 + 0.002 * i, "lon": 121.05,
+                         "payload": 1} for i in range(n)],
+                    "driver_details": {"vehicle_type": "car",
+                                       "vehicle_capacity": 9e9,
+                                       "maximum_distance": 9e9},
+                }, device=device)
+        except Exception as e:
+            _log.warning("optimizer_warm_failed", device=key,
+                         error=f"{type(e).__name__}: {e}")
+            return
+        _warmed_devices.add(key)
+    _log.info("optimizer_warmed", device=key, shapes=[1, 3, 10],
+              seconds=round(time.time() - t0, 2))
 
 
 def _persist(store, payload: dict, feature: dict) -> Optional[str]:

@@ -14,6 +14,15 @@ version.
 Failure semantics mirror the reference: a missing/broken model artifact
 makes ``predict`` return ``(None, None)`` and the caller degrades
 gracefully (``/predict_eta`` surfaces 503).
+
+A changed artifact file hot-swaps in without a restart
+(``reload_if_changed``, polled by ``start_reload_watcher`` when
+``ROUTEST_RELOAD_SEC`` > 0): the replacement service is built, self-
+checked and warmed off to the side, scores the golden batch on its own
+batcher (the verified-swap gate), and only then does the single
+``_serving`` reference flip. ``predict_eta_wire`` is the binary wire
+path's entry: pre-encoded rows in, minutes and epoch-ms completion
+stamps out, bitwise the JSON path's.
 """
 
 from __future__ import annotations
@@ -69,6 +78,12 @@ _EMPTY_SERVING = _ServingState(None, None, ())
 # process draws a fresh id.
 _GENERATION = itertools.count()
 
+# Every verified-swap verdict counts here; the gauge below tracks the
+# LIVE generation.
+_m_swaps = get_registry().counter(
+    "rtpu_model_swaps_total",
+    "Model hot-swap attempts, by result (accepted / rejected).",
+    ("result",))
 _m_generation = get_registry().gauge(
     "rtpu_model_generation",
     "Generation id of the live serving model (monotonic per process).")
@@ -145,6 +160,15 @@ def _band_label(level: float) -> str:
     """Quantile level → response-field suffix: 0.1 → "p10", 0.975 →
     "p97.5"."""
     return f"p{level * 100:.10g}"
+
+
+class _InReload(threading.local):
+    """Set on the thread building a hot-reload replacement: that service
+    starts no watcher of its own and leaves the live gauges alone."""
+    flag = False
+
+
+_in_reload = _InReload()
 
 
 class _Pending:
@@ -568,6 +592,10 @@ class EtaService:
         self.kernel = ("cuda_fused" if self.device.type == "cuda"
                        else "torch_plain")
         self._path = model_path or default_model_path()
+        # Taken before the load: a file changed during it is picked up
+        # by the next poll.
+        self._loaded_mtime_ns = self._artifact_mtime_ns()
+        self._reload_lock = threading.Lock()
         self.fingerprint: Optional[str] = None
         self.loaded_unix: Optional[float] = None
         self._batcher: Optional[DynamicBatcher] = None
@@ -584,6 +612,11 @@ class EtaService:
                 cache=cfg.fastlane_cache,
                 singleflight=cfg.fastlane_singleflight,
                 max_rows=cfg.fastlane_max_rows)
+        # Hot-reload watcher (cfg.reload_sec > 0): the service owns it,
+        # so embedders constructing EtaService directly get it too.
+        # Suppressed inside a reload's own replacement construction.
+        if cfg.reload_sec > 0 and not _in_reload.flag:
+            self._watcher_stop = self.start_reload_watcher(cfg.reload_sec)
         self._load(self._path)
         if self._model is not None:
             self._finish_init()
@@ -603,18 +636,24 @@ class EtaService:
         self._model, self._params = model, params
         self.kernel_dtype = variant
 
-    def _score_rows(self, x: np.ndarray) -> np.ndarray:
-        """One bucket slab: host→device copy, one fused forward, result
-        back to the host."""
-        xt = torch.from_numpy(np.ascontiguousarray(x, np.float32))
-        out = fused_eta_forward(self._packed, xt.to(self.device),
-                                n_q=len(self.quantiles))
-        return out.cpu().numpy()
+    def _score_fn(self):
+        """The scorer of THIS packing: one bucket slab → host→device
+        copy, one fused forward, result back to the host. It closes over
+        the packing and head count, so a batcher keeps scoring its own
+        model after a hot swap replaces the service's fields."""
+        packed, n_q, device = self._packed, len(self.quantiles), self.device
+
+        def score(x: np.ndarray) -> np.ndarray:
+            xt = torch.from_numpy(np.ascontiguousarray(x, np.float32))
+            return fused_eta_forward(packed, xt.to(device),
+                                     n_q=n_q).cpu().numpy()
+
+        return score
 
     def _finish_init(self) -> None:
         """Batcher, one-row self-check, bucket warmup."""
         cfg = self._cfg
-        self._score = self._score_rows
+        self._score = self._score_fn()
         self._batcher = DynamicBatcher(
             self._score, cfg.batch_buckets, cfg.max_batch, cfg.max_wait_ms,
             adaptive=cfg.adaptive_wait, min_wait_ms=cfg.min_wait_ms)
@@ -640,9 +679,157 @@ class EtaService:
                                       self.quantiles,
                                       generation=next(_GENERATION))
         self.loaded_unix = time.time()
-        _m_generation.set(self._serving.generation)
+        # A replacement built for verification is NOT live yet; its
+        # parent flips the gauge if (and only if) the swap lands.
+        if not _in_reload.flag:
+            _m_generation.set(self._serving.generation)
         self._warm_buckets()
-        _m_cold_start.set(time.perf_counter() - self._t_construct)
+        if not _in_reload.flag:
+            _m_cold_start.set(time.perf_counter() - self._t_construct)
+
+    def _artifact_mtime_ns(self) -> Optional[int]:
+        try:
+            return os.stat(self._path).st_mtime_ns
+        except OSError:
+            return None
+
+    def reload_if_changed(self) -> bool:
+        """Hot-reload the serving artifact when its file changed.
+
+        The reference's only way to pick up a new model is a process
+        restart (the pickle loads once, ``Flaskr/ml.py:11-21``); here a
+        changed ``ETA_MODEL_PATH`` file swaps in WITHOUT dropping
+        requests: a complete replacement service (model, packing and
+        batcher, self-checked and bucket-warmed) is built off to the
+        side, then the references flip — in-flight requests finish on
+        the old batcher, new requests land on the new one. A broken
+        replacement (missing/corrupt/failed self-check or golden-batch
+        gate) keeps the old model serving and returns False. Returns
+        True only after a successful swap."""
+        with self._reload_lock:
+            mtime = self._artifact_mtime_ns()
+            if mtime is None or mtime == self._loaded_mtime_ns:
+                return False
+            log = get_logger("routest_tpu_torch.serve")
+            _in_reload.flag = True
+            try:
+                fresh = EtaService(self._cfg, model_path=self._path,
+                                   device=str(self.device))
+            finally:
+                _in_reload.flag = False
+            if not fresh.available:
+                _m_swaps.labels(result="rejected").inc()
+                log.warning("model_reload_rejected", path=self._path,
+                            fingerprint=fresh.fingerprint,
+                            error=fresh.load_error)
+                # remember the bad mtime: don't rebuild-and-reject on
+                # every poll until the file changes again
+                self._loaded_mtime_ns = mtime
+                return False
+            # Golden-batch gate: a deserializable, self-check-passing
+            # artifact can still be wrong. Score the fixed golden rows
+            # off-path and reject non-finite or wildly divergent outputs
+            # BEFORE the generation flips.
+            ok, verdict = self._verify_swap(fresh)
+            if not ok:
+                _m_swaps.labels(result="rejected").inc()
+                log.warning("model_swap_rejected", path=self._path,
+                            fingerprint=fresh.fingerprint, **verdict)
+                self._loaded_mtime_ns = mtime
+                return False
+            # ONE reference flip makes the swap atomic for readers (they
+            # snapshot _serving once per request); the individual fields
+            # follow for stats/health introspection.
+            self._serving = fresh._serving
+            self._model = fresh._model
+            self._params = fresh._params
+            self._packed = fresh._packed
+            self._batcher = fresh._batcher
+            self._score = fresh._score
+            self.kernel = fresh.kernel
+            self.kernel_dtype = fresh.kernel_dtype
+            self._error = None
+            self._loaded_mtime_ns = fresh._loaded_mtime_ns
+            self.fingerprint = fresh.fingerprint
+            self.loaded_unix = fresh.loaded_unix
+            _m_swaps.labels(result="accepted").inc()
+            _m_generation.set(self._serving.generation)
+            # Correctness already holds (the new generation keys new
+            # cache entries); this frees the dead generation's entries
+            # now instead of at LRU/TTL time.
+            if self._fastlane is not None:
+                self._fastlane.invalidate()
+            log.info("model_reloaded", path=self._path, kernel=self.kernel,
+                     generation=self._serving.generation,
+                     fingerprint=self.fingerprint, **verdict)
+            return True
+
+    def _verify_swap(self, fresh: "EtaService") -> Tuple[bool, dict]:
+        """Score the golden batch on the REPLACEMENT service →
+        ``(accept, verdict-detail)``. Two gates: every output finite,
+        and — when the live model is comparable (same output shape; a
+        point→quantile upgrade is a deliberate structural change and
+        skips it) — median absolute divergence within
+        ``swap_max_divergence`` minutes. Both run off-path, the first
+        on the replacement's own batcher."""
+        cfg = self._cfg
+        if not cfg.swap_verify:
+            return True, {"verified": False}
+        golden = golden_batch()
+        try:
+            new = fresh._predict_rows(fresh._serving, golden)
+        except Exception as e:
+            return False, {"reason": "golden batch scoring failed: "
+                                     f"{type(e).__name__}: {e}"}
+        if new is None:
+            return False, {"reason": "golden batch produced no output"}
+        new = np.asarray(new, np.float64)
+        finite = np.isfinite(new).reshape(len(new), -1).all(axis=1)
+        if not finite.all():
+            return False, {"reason": "non-finite golden outputs",
+                           "bad_rows": int((~finite).sum()),
+                           "rows": int(len(new))}
+        bound = float(cfg.swap_max_divergence or 0.0)
+        serving = self._serving
+        if bound > 0 and serving.batcher is not None:
+            try:
+                old = self._predict_rows(serving, golden)
+            except Exception as e:
+                # live model unscoreable: the finiteness gate decides
+                get_logger("routest_tpu_torch.serve").warning(
+                    "swap_live_scoring_failed",
+                    error=f"{type(e).__name__}: {e}")
+                old = None
+            if old is not None:
+                old = np.asarray(old, np.float64)
+                if old.shape == new.shape and bool(np.isfinite(old).all()):
+                    div = float(np.median(np.abs(new - old)))
+                    if div > bound:
+                        return False, {"reason": "divergence beyond bound",
+                                       "divergence": round(div, 3),
+                                       "bound": bound}
+                    return True, {"divergence": round(div, 4),
+                                  "bound": bound}
+        return True, {}
+
+    def start_reload_watcher(self, interval_s: float) -> threading.Event:
+        """Poll the artifact mtime every ``interval_s`` seconds on a
+        daemon thread (``ROUTEST_RELOAD_SEC`` wires this in). Returns
+        the stop event."""
+        stop = threading.Event()
+
+        def watch() -> None:
+            while not stop.wait(interval_s):
+                try:
+                    self.reload_if_changed()
+                except Exception as e:  # never kill the watcher
+                    get_logger("routest_tpu_torch.serve").error(
+                        "model_reload_failed",
+                        error=f"{type(e).__name__}: {e}")
+
+        threading.Thread(target=watch, name="eta-reload-watcher",
+                         daemon=True).start()
+        return stop
 
     def _warm_buckets(self) -> None:
         """Run every batch bucket once at startup (the kernel's first
@@ -708,12 +895,13 @@ class EtaService:
     def predict_batch(self, rows: np.ndarray) -> Optional[np.ndarray]:
         return self._predict_rows(self._serving, rows)
 
-    def _predict_rows(self, serving: _ServingState,
-                      rows: np.ndarray) -> Optional[np.ndarray]:
+    def _predict_rows(self, serving: _ServingState, rows: np.ndarray,
+                      blob=None) -> Optional[np.ndarray]:
         """Score rows against ONE serving snapshot. The fast lane is
         consulted first: cached rows never reach the batcher, novel rows
         coalesce with identical in-flight ones, and only the remainder
-        costs a device slot."""
+        costs a device slot. ``blob`` (the wire path) is the rows' raw
+        float32 bytes, which the fast lane slices its keys from."""
         batcher = serving.batcher
         if batcher is None:
             return None
@@ -725,13 +913,15 @@ class EtaService:
         bad = ~np.isfinite(rows).all(axis=1)
         if bad.any():
             rows = np.where(bad[:, None], np.float32(0.0), rows)
+            blob = None  # rewritten rows no longer match the wire bytes
         fl = self._fastlane
         if fl is not None and fl.accepts(len(rows)):
             # Cache key = (model generation, live-metric epoch): a metric
             # flip retires every cached prediction the same way a model
             # swap does. The epoch is 0 while live traffic is off.
             preds = fl.predict(rows, (serving.generation, metric_epoch()),
-                               lambda miss: self._submit_chunked(batcher, miss))
+                               lambda miss: self._submit_chunked(batcher, miss),
+                               blob=blob)
         else:
             preds = self._submit_chunked(batcher, rows)
         if bad.any() and preds is not None:
@@ -870,6 +1060,49 @@ class EtaService:
         completion = base + (minutes * 60_000.0).astype("timedelta64[ms]")
         iso = np.datetime_as_string(completion, unit="s")
         return (minutes, iso, bands) if return_quantiles else (minutes, iso)
+
+    def predict_eta_wire(self, features: np.ndarray,
+                         pickup_ms: np.ndarray, blob=None):
+        """Binary-wire batched scoring: pre-encoded (N, 12) float32
+        features + (N,) int64 pickup epoch-ms → ``(minutes (N,) f64,
+        completion_ms (N,) i64, bands {label: (N,) f64})``, or None
+        when no model is serving.
+
+        The client featurized with the same ``encode_requests`` the JSON
+        path uses, so scoring sees bit-identical rows, and the completion
+        math below is the SAME float64 expression as the JSON path's
+        datetime64 arithmetic (``ms + int64(minutes * 60_000.0)``): the
+        two content-types answer bitwise-identically. NaN-minute rows
+        stamp the datetime64 NaT sentinel (``wirecodec.COMPLETION_NAT``).
+        ``blob`` is the frame's raw feature bytes, threaded to the fast
+        lane's keys."""
+        serving = self._serving  # one snapshot: scoring + metadata
+        if serving.batcher is None:
+            return None
+        preds = self._predict_rows(serving, features, blob=blob)
+        if preds is None:
+            return None
+        preds = np.asarray(preds, np.float64)
+        q = serving.quantiles
+        bands: dict = {}
+        if q:
+            minutes = preds[:, q.index(0.5)]
+            bands = {_band_label(level): preds[:, i]
+                     for i, level in enumerate(q) if level != 0.5}
+        else:
+            minutes = preds
+        pickup_ms = np.asarray(pickup_ms, np.int64)
+        from routest_tpu_torch.serve.wirecodec import COMPLETION_NAT
+
+        finite = np.isfinite(minutes)
+        completion_ms = np.full(minutes.shape, COMPLETION_NAT, np.int64)
+        if finite.any():
+            # float→int truncation toward zero, exactly what the JSON
+            # path's float64→timedelta64[ms] astype performs.
+            completion_ms[finite] = (
+                pickup_ms[finite]
+                + (minutes[finite] * 60_000.0).astype(np.int64))
+        return minutes, completion_ms, bands
 
     @property
     def stats(self) -> dict:

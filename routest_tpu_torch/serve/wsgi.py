@@ -9,13 +9,17 @@ the machine with the card does not have: a small :class:`Request` /
 streamed responses for SSE, per-route request stats
 (``App.request_stats``, read by ``/api/metrics``; streamed responses are
 skipped, their lifetime is connection time), and a threaded ``wsgiref``
-server that drains in-flight handlers on SIGTERM. The flight recorder
-and trace spans arrive with the observability slice.
+server that drains in-flight handlers on SIGTERM. Cookies are read
+with ``http.cookies`` and written with werkzeug's attributes (one
+``Set-Cookie`` line each). The flight recorder and trace spans arrive
+with the observability slice.
 """
 
 from __future__ import annotations
 
+import email.utils
 import http
+import http.cookies
 import json
 import os
 import re
@@ -52,6 +56,13 @@ _CREDENTIALED_ORIGIN_RE = re.compile(
 )
 _PUBLIC_ORIGIN_RE = re.compile(r"^https://[a-z0-9-]+\.vercel\.app$")
 
+# Cookie values werkzeug sends unquoted (its ``_cookie_no_quote_re``);
+# any other value is quoted: ``"`` and ``\`` backslash-escaped, the other
+# bytes outside that set as three-digit octal escapes, as werkzeug and
+# http.cookies do.
+_COOKIE_PLAIN_RE = re.compile(r"[\w!#$%&'()*+\-./:<=>?@\[\]^`{|}~]*")
+_COOKIE_ESCAPE_RE = re.compile(rb"[\x00-\x19\",;\\\x7f-\xff]")
+
 # Compact separators: the default pads every delimiter with a space —
 # pure wire bloat on multi-thousand-row batch responses.
 _JSON_SEPARATORS = (",", ":")
@@ -75,6 +86,23 @@ class Request:
         for name, value in parse_qsl(environ.get("QUERY_STRING", ""),
                                      keep_blank_values=True):
             self.args.setdefault(name, value)
+        self.remote_addr: Optional[str] = environ.get("REMOTE_ADDR")
+        self.content_type: str = environ.get("CONTENT_TYPE", "")
+        self.scheme: str = environ.get("wsgi.url_scheme", "http")
+        self._cookies: Optional[Dict[str, str]] = None
+
+    @property
+    def cookies(self) -> Dict[str, str]:
+        """The ``Cookie`` header as name → value (parsed once). A header
+        ``http.cookies`` refuses reads as no cookies."""
+        if self._cookies is None:
+            jar = http.cookies.SimpleCookie()
+            try:
+                jar.load(self.environ.get("HTTP_COOKIE", ""))
+            except http.cookies.CookieError:
+                jar = http.cookies.SimpleCookie()
+            self._cookies = {name: m.value for name, m in jar.items()}
+        return self._cookies
 
     @property
     def content_length(self) -> Optional[int]:
@@ -118,20 +146,63 @@ class Response:
         self.headers = {"Content-Type": content_type}
         if headers:
             self.headers.update(headers)
+        # One ``Set-Cookie`` value per cookie: sent as repeated headers.
+        self.cookies: List[str] = []
+
+    def set_cookie(self, name: str, value: str = "", *,
+                   max_age: Optional[int] = None, path: str = "/",
+                   secure: bool = False, httponly: bool = False,
+                   samesite: Optional[str] = None,
+                   expires: Optional[float] = None) -> None:
+        """Add a ``Set-Cookie`` line with werkzeug's attributes, in its
+        order; ``max_age`` without ``expires`` also sets ``Expires``."""
+        if samesite is not None:
+            samesite = samesite.title()
+            if samesite not in ("Strict", "Lax", "None"):
+                raise ValueError("SameSite must be 'Strict', 'Lax', or 'None'.")
+        if not _COOKIE_PLAIN_RE.fullmatch(value):
+            value = '"' + _COOKIE_ESCAPE_RE.sub(
+                lambda m: (b"\\" + m.group() if m.group() in (b'"', b"\\")
+                           else b"\\%03o" % m.group()[0]),
+                value.encode()).decode("ascii") + '"'
+        if expires is None and max_age is not None:
+            expires = time.time() + max_age
+        parts = [f"{name}={value}"]
+        if expires is not None:
+            parts.append("Expires="
+                         + email.utils.formatdate(expires, usegmt=True))
+        if max_age is not None:
+            parts.append(f"Max-Age={int(max_age)}")
+        if secure:
+            parts.append("Secure")
+        if httponly:
+            parts.append("HttpOnly")
+        if path is not None:
+            parts.append(f"Path={path}")
+        if samesite is not None:
+            parts.append(f"SameSite={samesite}")
+        self.cookies.append("; ".join(parts))
+
+    def delete_cookie(self, name: str, path: str = "/", *,
+                      secure: bool = False, httponly: bool = False,
+                      samesite: Optional[str] = None) -> None:
+        """Expire a cookie: empty value, ``Expires`` at the epoch,
+        ``Max-Age=0`` (werkzeug's ``delete_cookie``)."""
+        self.set_cookie(name, "", max_age=0, expires=0, path=path,
+                        secure=secure, httponly=httponly, samesite=samesite)
 
     def __call__(self, environ, start_response):
         try:
             reason = http.HTTPStatus(self.status_code).phrase
         except ValueError:
             reason = "Unknown"
-        headers = dict(self.headers)
-        if self.is_streamed:
-            start_response(f"{self.status_code} {reason}",
-                           list(headers.items()))
-            return self.body
-        headers["Content-Length"] = str(len(self.body))
-        start_response(f"{self.status_code} {reason}", list(headers.items()))
-        return [self.body]
+        # one pair per header, one per cookie
+        headers = (list(self.headers.items())
+                   + [("Set-Cookie", c) for c in self.cookies])
+        if not self.is_streamed:
+            headers.append(("Content-Length", str(len(self.body))))
+        start_response(f"{self.status_code} {reason}", headers)
+        return self.body if self.is_streamed else [self.body]
 
 
 def json_response(payload: Any, status: int = 200,

@@ -432,15 +432,19 @@ def _keys(d):
     return type(d).__name__ if d is not None else None
 
 
-def test_version_keys_match(clients, monkeypatch):
+def test_version_keys_match(services, clients, monkeypatch):
     monkeypatch.setenv("RTPU_VERSION", "v-test")
     jr, tr = _both(clients, "get", "/api/version")
     jv, tv = jr.get_json(), tr.get_json()
     assert tv["version_label"] == jv["version_label"] == "v-test"
     assert set(tv["model"]) == set(jv["model"])
-    for key in ("available", "generation", "fingerprint", "path",
-                "quantiles"):
+    for key in ("available", "fingerprint", "path", "quantiles"):
         assert tv["model"][key] == jv["model"][key], key
+    # The generation is a process-wide serial: each package's counts the
+    # services that package built earlier in this process (other test
+    # files included), so each app must report its own live one.
+    for svc, v in zip(services, (jv, tv)):
+        assert v["model"]["generation"] == svc.generation >= 0
     jb, tb = jv["build"], tv["build"]
     assert set(jb) - {"jax"} == set(tb) - {"torch"} == {"version",
                                                         "git_sha"}

@@ -8,8 +8,8 @@ side). With ``use_ml_eta`` the clock is pinned in both app and service
 modules, and the ETA fields are held to the bf16 class (rtol 2e-2 /
 atol 0.5), completion times within one second plus that class. The
 history routes read back what was saved, on both sides; health, the
-store factory, the auth refusal and the query-string parser are checked
-on the port alone."""
+store factory, the ``ROUTEST_AUTH=require`` boot and the query-string
+parser are checked on the port alone."""
 
 import datetime as dt
 import types
@@ -338,23 +338,45 @@ def test_health_reports_the_store(clients):
     assert body["status"] == "ok"
 
 
-def test_auth_required_refuses_to_boot(monkeypatch):
+def test_auth_required_refuses_to_boot(monkeypatch, clients):
+    """Since auth is ported, ``ROUTEST_AUTH=require`` no longer refuses
+    to boot: the app serves, and it gates the one destructive route."""
     monkeypatch.setenv("ROUTEST_AUTH", "require")
-    with pytest.raises(RuntimeError, match="auth is not ported"):
-        create_app(Config(serve=ServeConfig(device="cpu")),
-                   eta_service=object(), store=InMemoryStore())
+    tsvc = clients[1].application.eta
+    app = create_app(Config(serve=ServeConfig(device="cpu")),
+                     eta_service=tsvc, store=InMemoryStore())
+    try:
+        c = Client(app)
+        assert app.auth.required
+        assert c.delete("/api/history/x").status_code == 401
+        token = c.post("/api/auth/register", json={
+            "name": "A", "email": "a@example.com",
+            "password": "s3cretpass"}).get_json()["token"]
+        r = c.delete("/api/history/x",
+                     headers={"Authorization": f"Bearer {token}"})
+        assert r.status_code == 404
+    finally:
+        app.dispatch.reopt.stop()
 
 
-def test_configured_supabase_is_refused(monkeypatch):
-    assert isinstance(make_store(None, None), InMemoryStore)
-    assert isinstance(make_store("https://x.supabase.co", None),
-                      InMemoryStore)
-    with pytest.raises(RuntimeError, match="not ported"):
-        make_store("https://x.supabase.co", "key")
+def test_configured_supabase_is_refused(monkeypatch, clients):
+    """Since the PostgREST store is ported, a configured Supabase
+    backend is served (behind the resilience and timing wrappers), no
+    longer refused; a URL without a key still means memory."""
+    for url, key in ((None, None), ("https://x.supabase.co", None)):
+        assert make_store(url, key).kind == "memory"
+    store = make_store("https://x.supabase.co", "key")
+    assert store.kind == "postgrest"
+    assert type(store).__name__ == "TracedStore"
+    assert type(store._inner).__name__ == "ResilientStore"
     monkeypatch.setenv("SUPABASE_URL", "https://x.supabase.co")
     monkeypatch.setenv("SUPABASE_SERVICE_ROLE_KEY", "key")
-    with pytest.raises(RuntimeError, match="not ported"):
-        create_app(load_config(), eta_service=object())
+    monkeypatch.setenv("ROUTEST_DEVICE", "cpu")
+    app = create_app(load_config(), eta_service=clients[1].application.eta)
+    try:
+        assert app.store.kind == "postgrest"
+    finally:
+        app.dispatch.reopt.stop()
 
 
 @pytest.mark.parametrize("query,want", [
