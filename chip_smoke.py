@@ -133,12 +133,37 @@ of which fails the run:
    acknowledged write read back, the store's op medians; (d)
    ``ROUTEST_AUTH=require``: register, login, the DELETE gate, the
    Sanctum cookies; (e) the road GNN swapped: a foreign and a truncated
-   artifact refused, a re-install and a Manila install accepted.
+   artifact refused, a re-install and a Manila install accepted;
+13. training, run between phases 12 and 9: (a) ``fit`` of the default
+   ``EtaMLP`` (bf16 compute) at ``scripts/train_eta.py``'s defaults
+   (500,000 rows, seed 0, 30 epochs) on the card, eval RMSE ≤ the
+   committed CPU baseline (``artifacts/baseline.json``, same 450k/50k
+   split) × 1.02, steps per second, and one step's kernels, copies and
+   syncs; (b) ``python -m routest_tpu_torch.train --quantiles
+   0.1,0.5,0.9`` at the same defaults, RMSE ≤ baseline × 1.10 and each
+   coverage within ±0.02 of its level, its artifact through the fused
+   kernel in bf16 and int8 against the plain version and served by an
+   ``EtaService`` on the card (fused launches counted); (c) 20 F32 steps
+   from one init on the same batches on the card and on the CPU path,
+   params within rtol 1e-4 / atol 1e-6 (TF32 off); (d) ``python -m
+   routest_tpu_torch.serve`` with ``ETA_MODEL_PATH`` at a missing file:
+   it trains the bootstrap (200,000 rows, 15 epochs) on the card, writes
+   it and answers ``/api/predict_eta`` and ``/api/predict_eta_batch``
+   through the fused kernel (launches from its log lines); (e) the GNN
+   and route-transformer trainers at their scripts' defaults on
+   ``generate_road_graph(2048, seed 0)``, each beating naive physics,
+   both artifacts live on a router through the fingerprint gate; (f) one
+   ``ContinuousTrainer.run_once`` on the default router (its GNN on a
+   temp path) with phase 10's seeded fleet, and the router's verified
+   swap changing its edge times; (g) a seeded 300-tree XGBoost JSON
+   (depth up to 8, NaN in 1% of rows) through ``EtaService`` on the card
+   and on the CPU path at 4096 rows: leaf cursors bitwise, predictions
+   within 1e-6 relative, ms per batch.
 
 The lines before the last are one ``{"optimize": {...}}``, one
 ``{"road": {...}}``, one ``{"overlay": {...}}``, one ``{"live": {...}}``,
-one ``{"dispatch": {...}}``, one ``{"serving_core": {...}}`` and one
-``{"kernels": [...]}`` JSON object and the
+one ``{"dispatch": {...}}``, one ``{"serving_core": {...}}``, one
+``{"train": {...}}`` and one ``{"kernels": [...]}`` JSON object and the
 card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
 there is no card or a phase fails.
@@ -467,8 +492,8 @@ class _Server:
         from routest_tpu_torch.serve.app import create_app
         from routest_tpu_torch.serve.wsgi import make_server
 
-        self.server = make_server(
-            create_app(config or Config(), eta_service=svc), "127.0.0.1", 0)
+        self.app = create_app(config or Config(), eta_service=svc)
+        self.server = make_server(self.app, "127.0.0.1", 0)
         self.thread = threading.Thread(target=self.server.serve_forever,
                                        daemon=True)
         self.port = self.server.server_port
@@ -481,6 +506,10 @@ class _Server:
         self.server.shutdown()
         self.server.server_close()
         self.thread.join(timeout=30)
+        # the app's re-optimization loop polls on its own thread
+        dispatch = getattr(self.app, "dispatch", None)
+        if dispatch is not None and dispatch.reopt is not None:
+            dispatch.reopt.stop()
 
 
 def _batch_rows(batch):
@@ -1678,13 +1707,11 @@ LIVE_TRACK_POINTS = 3
 LIVE_TRACK_FIRST = 1
 
 
-def _live_flip(router, corridor, seed=0, jam=True):
+def _live_fleet(router, corridor, seed=0, jam=True):
     """A seeded ``ProbeFleet`` with a jammed corridor (``jam=False``: the
     same fleet and observations with the corridor flowing), stepped on
     the fixed clock through a bus into the ingester and a fresh
-    ``CongestionState``, then one ``MetricCustomizer.run_once`` on
-    ``router``. → (customizer result, fleet events, cycle wall s)."""
-    from routest_tpu_torch.live.customize import MetricCustomizer
+    ``CongestionState``. → (state, fleet events)."""
     from routest_tpu_torch.live.ingest import ProbeIngester
     from routest_tpu_torch.live.probes import CongestionScenario, ProbeFleet
     from routest_tpu_torch.live.state import CongestionState
@@ -1707,6 +1734,16 @@ def _live_flip(router, corridor, seed=0, jam=True):
     sub.close()
     check(ingester.batches == fleet.published == len(events),
           "live: the ingester missed fleet events")
+    return state, events
+
+
+def _live_flip(router, corridor, seed=0, jam=True):
+    """``_live_fleet``'s probe stream, then one
+    ``MetricCustomizer.run_once`` on ``router``. → (customizer result,
+    fleet events, cycle wall s)."""
+    from routest_tpu_torch.live.customize import MetricCustomizer
+
+    state, events = _live_fleet(router, corridor, seed, jam)
     t0 = time.perf_counter()
     res = MetricCustomizer(router, state).run_once(now=LIVE_NOW0
                                                    + LIVE_TICKS)
@@ -2877,6 +2914,7 @@ def _swap_phase(artifact_dir):
             stop.set()
             for t in threads:
                 t.join(60)
+            svc._watcher_stop.set()
     check(not any(t.is_alive() for t in threads), "swap: traffic hung")
     check(not failures, f"swap: {len(failures)} failed: {failures[:3]}")
     bad = [(s, o) for _, s, o in results if s != 200]
@@ -3212,6 +3250,524 @@ def phase_serving_core():
     return record, launches
 
 
+# ── phase 13: training ──────────────────────────────────────────────────
+
+# scripts/train_eta.py's defaults: 500,000 rows (the committed baseline's
+# 450k/50k split), 30 epochs, seed 0; its acceptance margins.
+TRAIN_ROWS = 500_000
+TRAIN_EPOCHS = 30
+POINT_MARGIN = 1.02
+QUANTILE_MARGIN = 1.10
+COVERAGE_TOL = 0.02
+# Extra arguments of (b)'s CLI run (none: the defaults; a CPU rehearsal
+# passes a shorter run).
+TRAIN_CLI_ARGS = ()
+# (c): card against the CPU path, F32_POLICY, on the same batches.
+PARITY_STEPS = 20
+PARITY_RTOL, PARITY_ATOL = 1e-4, 1e-6
+# (g): a seeded XGBoost-schema ensemble.
+GBDT_TREES = 300
+GBDT_DEPTH = 8
+GBDT_ROWS = 4096
+GBDT_NAN_FRAC = 0.01
+GBDT_REPS = 20
+
+
+def _baseline_rmse():
+    from routest_tpu_torch.train.baseline import load_baseline
+
+    record = load_baseline()
+    check(record is not None
+          and record["n_train"] + record["n_eval"] == TRAIN_ROWS,
+          f"train: no committed baseline for {TRAIN_ROWS} rows: {record}")
+    return float(record["rmse_minutes"])
+
+
+def _train_fit(baseline):
+    """(a) ``fit`` at the script's defaults on the card, and the kernels
+    and syncs of one step. → record."""
+    import torch
+
+    from routest_tpu_torch.core import prng
+    from routest_tpu_torch.core.config import TrainConfig
+    from routest_tpu_torch.data.features import batch_from_mapping
+    from routest_tpu_torch.data.synthetic import (generate_dataset,
+                                                  train_eval_split)
+    from routest_tpu_torch.models.eta_mlp import EtaMLP, fit_normalizer
+    from routest_tpu_torch.train.loop import (fit, make_optimizer,
+                                              make_train_step)
+
+    train, ev = train_eval_split(generate_dataset(TRAIN_ROWS, seed=0))
+    t0 = time.perf_counter()
+    result = fit(EtaMLP(), train, ev, TrainConfig(epochs=TRAIN_EPOCHS),
+                 device=CARD)
+    if CARD == "cuda":
+        torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    steps = result.optimizer.count
+    check(result.eval_rmse <= baseline * POINT_MARGIN,
+          f"train (a): eval RMSE {result.eval_rmse:.4f} > baseline "
+          f"{baseline:.4f} × {POINT_MARGIN}")
+    # One step on a throwaway model: kernels, copies and syncs.
+    x = batch_from_mapping(train)
+    model = EtaMLP().init(prng.prng_key(0), *fit_normalizer(x)).to(CARD)
+    step = make_train_step(model, make_optimizer(model, TrainConfig()))
+    xb = torch.from_numpy(x[:8192]).to(CARD)
+    yb = torch.from_numpy(train["eta_minutes"][:8192]).to(CARD)
+    wb = torch.ones(8192, device=CARD)
+    work = _device_work(lambda: step(xb, yb, wb))
+    rec = {"rows": TRAIN_ROWS, "epochs": TRAIN_EPOCHS, "steps": steps,
+           "eval_rmse": result.eval_rmse, "baseline_rmse": baseline,
+           "rmse_ratio": result.eval_rmse / baseline, "fit_s": fit_s,
+           "steps_per_s": steps / fit_s, "ms_per_step": fit_s * 1e3 / steps,
+           "final_loss": result.train_losses[-1], "step": work}
+    print(f"[train] (a) fit {TRAIN_ROWS} rows × {TRAIN_EPOCHS} epochs on "
+          f"{CARD}: eval RMSE {result.eval_rmse:.4f} (baseline "
+          f"{baseline:.4f}, ratio {rec['rmse_ratio']:.4f}); {fit_s:.2f} s, "
+          f"{steps} steps, {rec['steps_per_s']:.1f} steps/s, "
+          f"{rec['ms_per_step']:.3f} ms/step; one step: {work}")
+    return rec
+
+
+def _train_cli(tmp, baseline):
+    """(b) ``python -m routest_tpu_torch.train --quantiles 0.1,0.5,0.9``
+    at the defaults, on the card. → (record, artifact path)."""
+    path = os.path.join(tmp, "eta_quantile.msgpack")
+    report_path = os.path.join(tmp, "training_report_cuda.json")
+    env = dict(os.environ, ROUTEST_DEVICE=CARD)
+    env.pop("ETA_MODEL_PATH", None)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "routest_tpu_torch.train", "--quantiles",
+         "0.1,0.5,0.9", "--save", path, "--report", report_path,
+         *TRAIN_CLI_ARGS],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(f"[train] CLI output tail:\n{proc.stdout[-3000:]}\n"
+              f"{proc.stderr[-3000:]}")
+    check(proc.returncode == 0, f"train (b): the CLI exited "
+                                f"{proc.returncode}")
+    with open(report_path) as f:
+        report = json.load(f)
+    check(report["mlp_rmse_minutes"] <= baseline * QUANTILE_MARGIN,
+          f"train (b): RMSE {report['mlp_rmse_minutes']:.4f} > "
+          f"{baseline:.4f} × {QUANTILE_MARGIN}")
+    for level, cov in report["coverage"].items():
+        check(abs(cov - float(level)) <= COVERAGE_TOL,
+              f"train (b): coverage {cov:.4f} of quantile {level}")
+    rec = dict(report, cli_wall_s=wall)
+    print(f"[train] (b) CLI quantile run: RMSE "
+          f"{report['mlp_rmse_minutes']:.4f} (≤ {baseline:.4f} × "
+          f"{QUANTILE_MARGIN}); coverage {report['coverage']}; fit "
+          f"{report['mlp_fit_seconds']:.2f} s, {report['ms_per_step']:.3f} "
+          f"ms/step; baseline {report['cpu_baseline_source']}; "
+          f"{wall:.1f} s of wall with the process start")
+    return rec, path
+
+
+def _train_score(path, rng):
+    """(b) the CLI's artifact through ``fused_eta.cu`` in bf16 and int8
+    against the plain version, then served by an ``EtaService`` on the
+    card. → (record, fused launches over the served requests)."""
+    import numpy as np
+    import torch
+
+    from routest_tpu_torch.core.config import ServeConfig
+    from routest_tpu_torch.ops.fused_mlp import (fused_eta_forward,
+                                                 fused_eta_forward_plain,
+                                                 pack_eta_params)
+    from routest_tpu_torch.serve.ml_service import EtaService, golden_batch
+    from routest_tpu_torch.train.checkpoint import load_model
+
+    model, params = load_model(path)
+    n_q = len(model.quantiles)
+    rows = np.concatenate([golden_batch(), random_rows(rng, 4096)])
+    x = torch.from_numpy(rows).to(CARD)
+    errs = {}
+    for variant in ("bfloat16", "int8"):
+        packed = pack_eta_params(model, params, dtype=variant, device=CARD)
+        errs[variant] = compare(fused_eta_forward(packed, x, n_q=n_q),
+                                fused_eta_forward_plain(packed, x, n_q=n_q),
+                                PLAIN_TOL[variant], n_q)[0]
+    svc = EtaService(ServeConfig(), model_path=path, device=CARD)
+    check(svc.available, f"train (b): the artifact does not serve: "
+                         f"{svc.load_error}")
+    fused_eta_forward.launches = 0
+    preds = svc.predict_batch(rows[-4096:])
+    eta, _ = svc.predict_eta_minutes(weather="Sunny", traffic="High",
+                                     distance_m=9000.0,
+                                     pickup_time="2026-07-29T08:00:00")
+    launches = fused_eta_forward.launches
+    check(np.isfinite(preds).all() and (np.diff(preds, axis=1) >= 0).all()
+          and eta is not None, "train (b): served quantiles")
+    if CARD == "cuda":
+        check(launches > 0, "train (b): no fused launch serving the "
+                            "trained artifact")
+    print(f"[train] (b) the trained artifact through the fused kernel: "
+          f"max abs vs plain bf16 {errs['bfloat16']:.3g}, int8 "
+          f"{errs['int8']:.3g}; served on {svc.scoring_info()}, {launches} "
+          f"fused launches over a 4096-row batch and one single-row ETA")
+    return {"max_abs_vs_plain": errs, "scoring": svc.scoring_info(),
+            "fused_launches": launches}, launches
+
+
+def _train_parity():
+    """(c) the same init and 20 steps on the same batches, F32_POLICY,
+    on the card and on the CPU path. → record."""
+    import numpy as np
+
+    from routest_tpu_torch.core.config import TrainConfig
+    from routest_tpu_torch.core.dtypes import F32_POLICY
+    from routest_tpu_torch.data.synthetic import generate_dataset
+    from routest_tpu_torch.models.eta_mlp import EtaMLP
+    from routest_tpu_torch.train.loop import fit
+
+    cfg = TrainConfig(epochs=1)
+    train = generate_dataset(PARITY_STEPS * cfg.batch_size, seed=3)
+    ev = generate_dataset(4096, seed=4)
+    runs = {dev: fit(EtaMLP(policy=F32_POLICY), train, ev, cfg, device=dev)
+            for dev in (CARD, "cpu")}
+    check(runs[CARD].optimizer.count == PARITY_STEPS,
+          f"train (c): {runs[CARD].optimizer.count} steps")
+    got, want = runs[CARD].params, runs["cpu"].params
+    max_abs = max_rel = 0.0
+    for g_layer, w_layer in zip(got["layers"], want["layers"]):
+        for key in ("w", "b"):
+            g, w = g_layer[key], w_layer[key]
+            err = np.abs(g - w)
+            bad = err > PARITY_ATOL + PARITY_RTOL * np.abs(w)
+            check(not bad.any(), f"train (c): {int(bad.sum())} params "
+                                 f"beyond rtol {PARITY_RTOL} / atol "
+                                 f"{PARITY_ATOL}")
+            max_abs = max(max_abs, float(err.max()))
+            big = np.abs(w) > 1e-3
+            if big.any():
+                max_rel = max(max_rel, float((err[big] / np.abs(w[big]))
+                                             .max()))
+    rec = {"steps": PARITY_STEPS, "max_abs_diff": max_abs,
+           "max_rel_diff_above_1e-3": max_rel,
+           "eval_rmse": {"card": runs[CARD].eval_rmse,
+                         "cpu": runs["cpu"].eval_rmse}}
+    print(f"[train] (c) {PARITY_STEPS} F32 steps, card vs CPU path: params "
+          f"max abs diff {max_abs:.3g}, max rel {max_rel:.3g} (|p| > 1e-3); "
+          f"within rtol {PARITY_RTOL} / atol {PARITY_ATOL}")
+    return rec
+
+
+def _train_bootstrap(tmp):
+    """(d) ``python -m routest_tpu_torch.serve`` with ``ETA_MODEL_PATH``
+    at a missing file: it trains, writes and serves. → (record, fused
+    launches over its requests)."""
+    import signal
+    import tempfile
+
+    from routest_tpu_torch.train.checkpoint import load_model
+
+    path = os.path.join(tmp, "boot", "eta_mlp.msgpack")
+    port = _free_port()
+    env = dict(os.environ, PORT=str(port), RTPU_HOST="127.0.0.1",
+               ETA_MODEL_PATH=path, ROUTEST_DEVICE=CARD)
+    log = tempfile.TemporaryFile(mode="w+")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "routest_tpu_torch.serve"],
+                            cwd=ROOT, env=env, stdout=log,
+                            stderr=subprocess.STDOUT)
+    try:
+        _, boot_s = _wait_for("ping", lambda: _request(
+            port, "GET", "/api/ping")[0] == 200, 600, proc)
+        status, single = _request(port, "POST", "/api/predict_eta", {
+            "summary": {"distance": 12_000}, "weather": "Sunny",
+            "traffic": "High", "pickup_time": "2026-07-29T08:00:00",
+            "driver_age": 35})
+        check(status == 200 and single["eta_minutes_ml"] > 0,
+              f"bootstrap /api/predict_eta: {status} {single}")
+        status, batch = _request(port, "POST", "/api/predict_eta_batch", {
+            "distance_m": [500.0 * (i + 1) for i in range(64)],
+            "weather": ["Sunny", "Stormy"] * 32,
+            "traffic": ["Low", "Jam"] * 32, "driver_age": [30] * 64,
+            "pickup_time": "2026-07-29T08:00:00"})
+        check(status == 200 and batch["count"] == 64,
+              f"bootstrap /api/predict_eta_batch: {status}")
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        log.seek(0)
+        text = log.read()
+        log.close()
+        if proc.returncode not in (0, -signal.SIGTERM):
+            print(f"[train] bootstrap server log tail:\n{text[-3000:]}")
+    check(proc.returncode in (0, -signal.SIGTERM),
+          f"bootstrap: the server exited {proc.returncode} at SIGTERM")
+    events = {}
+    for line in text.splitlines():
+        try:
+            event = json.loads(line)
+        except ValueError:
+            continue
+        if isinstance(event, dict) and "event" in event:
+            events.setdefault(event["event"], event)
+            if event["event"] == "serve_stopped":
+                events["serve_stopped"] = event
+    for name in ("model_bootstrap_started", "model_bootstrap_finished",
+                 "serve_listening", "serve_stopped"):
+        check(name in events, f"bootstrap: no {name} log line")
+    launches = (events["serve_stopped"]["fused_launches"]
+                - events["serve_listening"]["fused_launches"])
+    if CARD == "cuda":
+        check(launches > 0, "bootstrap: no fused launch over its requests")
+    model, _ = load_model(path)
+    rec = {"boot_s": boot_s, "wall_s": time.perf_counter() - t0,
+           "eval_rmse": events["model_bootstrap_finished"]["eval_rmse_min"],
+           "hidden": list(model.hidden), "fused_launches": launches,
+           "server_exit": proc.returncode}
+    print(f"[train] (d) bootstrap: served after {boot_s:.1f} s (trained "
+          f"eval RMSE {rec['eval_rmse']}, artifact {rec['hidden']}); "
+          f"/api/predict_eta and a 64-row batch 200; {launches} fused "
+          f"launches over them")
+    return rec, launches
+
+
+def _train_road(tmp):
+    """(e) the GNN and transformer trainers at their scripts' defaults on
+    ``generate_road_graph(2048, seed 0)``; both artifacts load into a
+    router through the fingerprint gate. → record."""
+    from routest_tpu_torch.optimize.road_router import RoadRouter
+    from routest_tpu_torch.train import gnn as train_gnn
+    from routest_tpu_torch.train import transformer as train_tf
+    from routest_tpu_torch.train.checkpoint import save_gnn, save_transformer
+
+    rec = {}
+    paths = {"gnn": os.path.join(tmp, "road_gnn.msgpack"),
+             "transformer": os.path.join(tmp, "route_transformer.msgpack")}
+    for name, mod in (("gnn", train_gnn), ("transformer", train_tf)):
+        report = mod.train(mod.parse_args(["--device", CARD]))
+        model, graph = report.pop("_model"), report.pop("_graph")
+        check(report["beats_naive"], f"train (e): the {name} does not beat "
+                                     f"naive physics: {report}")
+        if name == "gnn":
+            save_gnn(paths[name], model, graph)
+        else:
+            save_transformer(paths[name], model, graph,
+                             seq_len=report["seq_len"])
+        rec[name] = report
+    router = RoadRouter(gnn_path=paths["gnn"],
+                        transformer_path=paths["transformer"], device=CARD)
+    check(router.leg_cost_model == "gnn" and router.has_transformer,
+          "train (e): the trained artifacts fail the fingerprint gate")
+    g, t = rec["gnn"], rec["transformer"]
+    print(f"[train] (e) GNN: held-out RMSE {g['gnn_rmse_s']:.2f} s vs naive "
+          f"{g['naive_rmse_s']:.2f} (held-out hours "
+          f"{g['gnn_rmse_held_hours_s']:.2f} vs "
+          f"{g['naive_rmse_held_hours_s']:.2f}), {g['steps']} steps, "
+          f"{g['ms_per_step']:.3f} ms/step; transformer: "
+          f"{t['transformer_rmse_s']:.2f} s vs naive {t['naive_rmse_s']:.2f} "
+          f"(held-out hours {t['transformer_rmse_held_hours_s']:.2f} vs "
+          f"{t['naive_rmse_held_hours_s']:.2f}), {t['steps']} steps, "
+          f"{t['ms_per_step']:.3f} ms/step; both live on a {CARD} router "
+          f"through the fingerprint gate")
+    return rec
+
+
+def _train_live(tmp):
+    """(f) one ``ContinuousTrainer.run_once`` on the default router
+    (its GNN copied to a temp path) with phase 10's seeded probe fleet;
+    the router swaps to the new artifact. → record."""
+    import shutil
+
+    import numpy as np
+
+    from routest_tpu_torch.live.trainer import ContinuousTrainer
+    from routest_tpu_torch.optimize.road_router import RoadRouter
+
+    path = os.path.join(tmp, "live_gnn.msgpack")
+    shutil.copy(os.path.join(ROOT, "artifacts", "road_gnn.msgpack"), path)
+    router = RoadRouter(gnn_path=path, use_transformer=False, device=CARD)
+    check(router.leg_cost_model == "gnn", "train (f): the GNN is not live")
+    state, events = _live_fleet(router, _live_corridor(router), seed=1)
+    before = router.edge_time_s(8).copy()
+    trainer = ContinuousTrainer(router, state)
+    t0 = time.perf_counter()
+    res = trainer.run_once()
+    cycle_s = time.perf_counter() - t0
+    check(res.get("trained"), f"train (f): {res}")
+    router._maybe_reload_models()
+    after = router.edge_time_s(8)
+    changed = int((after != before).sum())
+    check(router.leg_cost_model == "gnn" and changed > 0,
+          "train (f): the router did not swap to the retrained GNN")
+    legs = router.route_legs(router.coords[[0, 600, 1200, 1800]], hour=8)
+    durations = legs.duration_matrix()
+    check(np.isfinite(durations).all() and (durations[~np.eye(4, dtype=bool)]
+                                            > 0).all(),
+          "train (f): the 3-stop route's legs")
+    rec = dict(res, fleet_events=len(events), cycle_s=cycle_s,
+               edges_changed=changed,
+               median_abs_change_s=float(np.median(np.abs(after - before))))
+    print(f"[train] (f) live retrain on {CARD}: {res['observations']} "
+          f"observations, {res['edges_labeled']} edges labeled, loss "
+          f"{res['loss']}, cycle {cycle_s:.3f} s; the router swapped: "
+          f"{changed} edge times changed (median "
+          f"{rec['median_abs_change_s']:.3f} s); a 3-stop route's legs "
+          f"priced")
+    return rec
+
+
+def _gbdt_json(path, seed=13):
+    """A seeded ensemble in XGBoost's JSON schema: ``GBDT_TREES`` trees up
+    to ``GBDT_DEPTH`` deep, splits on the ABI's features at thresholds in
+    their ranges, leaf values in minutes."""
+    import random
+
+    import numpy as np
+
+    rng = random.Random(seed)
+    ranges = [(0.0, 1.0)] * 8 + [(0.0, 7.0), (0.0, 24.0), (0.0, 60.0),
+                                 (18.0, 70.0)]
+
+    def tree():
+        lc, rc, cond, split, default = [], [], [], [], []
+
+        def grow(depth):
+            nid = len(lc)
+            for a in (lc, rc):
+                a.append(-1)
+            cond.append(0.0)
+            split.append(0)
+            default.append(0)
+            if depth >= GBDT_DEPTH or (depth > 2 and rng.random() < 0.1):
+                cond[nid] = rng.uniform(-0.5, 1.5)
+                return nid
+            f = rng.randrange(12)
+            lo, hi = ranges[f]
+            cond[nid] = float(np.float32(0.5 if f < 8
+                                         else rng.uniform(lo, hi)))
+            split[nid], default[nid] = f, rng.randrange(2)
+            lc[nid] = grow(depth + 1)
+            rc[nid] = grow(depth + 1)
+            return nid
+
+        grow(0)
+        return {"left_children": lc, "right_children": rc,
+                "split_conditions": cond, "split_indices": split,
+                "default_left": default}
+
+    with open(path, "w") as f:
+        json.dump({"learner": {
+            "objective": {"name": "reg:squarederror"},
+            "learner_model_param": {"base_score": "12.5"},
+            "gradient_booster": {"model": {"trees": [
+                tree() for _ in range(GBDT_TREES)]}}}}, f)
+
+
+def _train_gbdt(tmp, rng):
+    """(g) the XGBoost JSON through ``EtaService`` on the card and on the
+    CPU path at 4096 rows: leaf cursors bitwise, predictions within 1e-6
+    relative, ms per batch. → record."""
+    import numpy as np
+    import torch
+
+    from routest_tpu_torch.core.config import ServeConfig
+    from routest_tpu_torch.serve.ml_service import EtaService
+
+    path = os.path.join(tmp, "xgb_eta_model.json")
+    _gbdt_json(path)
+    card = EtaService(ServeConfig(), model_path=path, device=CARD)
+    cpu = EtaService(ServeConfig(), model_path=path, device="cpu")
+    for svc in (card, cpu):
+        check(svc.available and svc.scoring_info()["family"] == "xgboost",
+              f"train (g): {svc.load_error} {svc.scoring_info()}")
+    rows = random_rows(rng, GBDT_ROWS)
+    nan_rows = rng.choice(GBDT_ROWS, int(GBDT_ROWS * GBDT_NAN_FRAC),
+                          replace=False)
+    rows[nan_rows, rng.integers(0, 12, len(nan_rows))] = np.nan
+    x_card = torch.from_numpy(rows).to(CARD)
+    x_cpu = torch.from_numpy(rows)
+    gb_card, gb_cpu = card._model.gbdt, cpu._model.gbdt
+    cur_card = gb_card.leaf_cursors(card._params, x_card).cpu()
+    cur_cpu = gb_cpu.leaf_cursors(cpu._params, x_cpu)
+    check(torch.equal(cur_card, cur_cpu), "train (g): leaf cursors differ "
+          f"in {int((cur_card != cur_cpu).sum())} of {cur_cpu.numel()}")
+    got = card._model.apply(card._params, x_card).cpu().numpy()
+    want = cpu._model.apply(cpu._params, x_cpu).numpy()
+    err = np.abs(got.astype(np.float64) - want)
+    check(np.isfinite(got).all() and (err <= 1e-6 * np.abs(want)
+                                      + 1e-6).all(),
+          f"train (g): predictions beyond 1e-6 relative: max abs "
+          f"{err.max():.3g}")
+    served = card.predict_batch(rows)
+    check(np.array_equal(np.isnan(served), np.isnan(cpu.predict_batch(rows)))
+          and int(np.isnan(served).sum()) == len(nan_rows),
+          "train (g): served NaN rows")
+    ms = _event_ms(lambda: card._model.apply(card._params, x_card),
+                   GBDT_REPS)
+    serve_ms = _cpu_ms(lambda: card.predict_batch(rows), GBDT_REPS)
+    rec = {"trees": GBDT_TREES, "max_depth": gb_card.max_depth,
+           "max_nodes": gb_card.max_nodes, "rows": GBDT_ROWS,
+           "nan_rows": len(nan_rows), "max_abs_err": float(err.max()),
+           "ms_per_batch": ms, "served_ms_per_batch": serve_ms,
+           "cpu_ms_per_batch": _cpu_ms(
+               lambda: cpu._model.apply(cpu._params, x_cpu), 3)}
+    print(f"[train] (g) XGBoost JSON, {GBDT_TREES} trees (descent "
+          f"{gb_card.max_depth} rounds, {gb_card.max_nodes} nodes): leaf "
+          f"cursors bitwise the CPU path's over {GBDT_ROWS} rows "
+          f"({len(nan_rows)} with a NaN), predictions max abs diff "
+          f"{err.max():.3g}; {ms:.4f} ms per 4096-row batch on {CARD} "
+          f"(through EtaService {serve_ms:.3f} ms; CPU path "
+          f"{rec['cpu_ms_per_batch']:.3f} ms)")
+    return rec
+
+
+def _quiet_host(timeout_s=10.0):
+    """Phase 13 times the training path itself: no thread of an earlier
+    phase (a reload watcher, a server, a loop) may still share the host.
+    Waits up to ``timeout_s`` for stopping threads to end, then fails
+    naming any that are left."""
+    deadline = time.perf_counter() + timeout_s
+    while True:
+        left = [t for t in threading.enumerate()
+                if t is not threading.main_thread() and t.is_alive()]
+        if not left or time.perf_counter() > deadline:
+            break
+        left[0].join(0.1)
+    check(not left, "train: threads of earlier phases still run: "
+          f"{sorted(t.name for t in left)}")
+    print("[train] no thread of an earlier phase runs")
+
+
+def phase_train():
+    """Phase 13, training on the card: (a) the ETA fit at the script's
+    defaults, (b) the quantile CLI and its artifact through the fused
+    kernel, (c) card against the CPU path, (d) the serve bootstrap, (e)
+    the GNN and transformer trainers, (f) the live retrainer, (g) the
+    XGBoost family. → (record, fused launches of (b)'s and (d)'s
+    serving)."""
+    import tempfile
+
+    import numpy as np
+
+    rng = np.random.default_rng(13)
+    _quiet_host()
+    baseline = _baseline_rmse()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        record = {"fit": _train_fit(baseline)}
+        record["cli"], artifact = _train_cli(tmp, baseline)
+        record["cli_scoring"], score_launches = _train_score(artifact, rng)
+        record["parity"] = _train_parity()
+        record["bootstrap"], boot_launches = _train_bootstrap(tmp)
+        record["road"] = _train_road(tmp)
+        record["live_retrain"] = _train_live(tmp)
+        record["gbdt"] = _train_gbdt(tmp, rng)
+    record["wall_s"] = time.perf_counter() - t0
+    print(json.dumps({"train": record}))
+    return record, score_launches + boot_launches
+
+
 def phase_times(rng):
     """Per-bucket times of every variant on the served artifact
     (quantile): → {variant: [row per batch]}."""
@@ -3314,6 +3870,8 @@ def main() -> int:
         phase_dispatch()
         phase = "serving-core"
         _, core_launches = phase_serving_core()
+        phase = "train"
+        _, train_launches = phase_train()
         phase = "times"
         table = phase_times(rng)
     except Exception as e:
@@ -3345,6 +3903,9 @@ def main() -> int:
     # ... and over phase 12's wire frames (4096 and 131,072 rows, HTTP
     # and channel)
     kernels[0]["launches_serving_core"] = core_launches
+    # ... and over phase 13's serving of trained models: the bootstrap
+    # server's requests and the CLI artifact's EtaService
+    kernels[0]["launches_train"] = train_launches
     print(json.dumps({"kernels": kernels}))
     print(f"{smi_line}")
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,9 @@ The fields the port reads, carried over from
 ``routest_tpu/core/config.py`` with the same environment variable names
 and defaults (``ETA_MODEL_PATH``, ``PORT``, ``RTPU_*``, ``RTPU_LIVE_*``,
 ``RTPU_DISPATCH_*``, ``RTPU_WIRE*``, ``ROUTEST_RELOAD_SEC``,
-``RTPU_SWAP_*``, ``SUPABASE_*``, ``REDIS_URL``), plus the port's own
-``ROUTEST_DEVICE``.
+``RTPU_SWAP_*``, ``SUPABASE_*``, ``REDIS_URL``, and the training knobs
+``RTPU_TRAIN_BATCH``, ``RTPU_LR``, ``RTPU_EPOCHS``, ``RTPU_SEED``,
+``RTPU_CKPT_DIR``), plus the port's own ``ROUTEST_DEVICE``.
 """
 
 from __future__ import annotations
@@ -30,6 +31,24 @@ class ModelConfig:
     # Path to the serving artifact. Honors the reference's
     # ETA_MODEL_PATH override (``Flaskr/ml.py:7``).
     model_path: Optional[str] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    batch_size: int = 8192
+    learning_rate: float = 3e-3
+    weight_decay: float = 1e-4
+    epochs: int = 30
+    seed: int = 0
+    # Periodic training checkpoints: set a directory to enable. ``fit``
+    # resumes from the latest complete checkpoint found there.
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every_epochs: int = 5
+    # Preemptible runs: train at most this many epochs PER INVOCATION
+    # while ``epochs`` still defines the full schedule (the learning-rate
+    # decay spans ``epochs``, so a job trained in slices follows the
+    # uninterrupted trajectory). None = train to ``epochs``.
+    stop_after_epochs: Optional[int] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,8 +109,10 @@ class LiveConfig:
     one customize interval. ``half_life_s``/``stale_s``/``conf_obs``
     shape the estimator (EWMA decay, staleness window, observations to
     full confidence). ``route_metric=False`` prices legs live but keeps
-    route CHOICE on the distance metric. The continuous trainer's
-    ``RTPU_LIVE_RETRAIN_*`` knobs arrive with it."""
+    route CHOICE on the distance metric. ``retrain_s > 0`` runs the
+    continuous GNN trainer (``live/trainer.py``) inside the server
+    every ``retrain_s`` seconds: ``retrain_steps`` AdamW steps per cycle
+    once the observation window holds ``retrain_min_obs`` probes."""
 
     enabled: bool = False
     channel: str = "rtpu.probes"
@@ -102,6 +123,9 @@ class LiveConfig:
     min_obs_edges: int = 1
     window: int = 65536
     route_metric: bool = True
+    retrain_s: float = 0.0
+    retrain_steps: int = 40
+    retrain_min_obs: int = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,6 +182,7 @@ class WireConfig:
 @dataclasses.dataclass(frozen=True)
 class Config:
     model: ModelConfig = ModelConfig()
+    train: TrainConfig = TrainConfig()
     serve: ServeConfig = ServeConfig()
     live: LiveConfig = LiveConfig()
     dispatch: DispatchConfig = DispatchConfig()
@@ -182,7 +207,8 @@ def resolve_device(device=None, who: str = "routest_tpu_torch"):
 
 def load_config(env: Optional[Mapping[str, str]] = None) -> Config:
     """Build a Config from environment variables (same names and
-    defaults as the JAX package's ``load_config`` serve/model part)."""
+    defaults as the JAX package's ``load_config`` serve, model and train
+    parts)."""
     env = dict(env if env is not None else os.environ)
 
     def _int(name: str, default: int) -> int:
@@ -222,6 +248,13 @@ def load_config(env: Optional[Mapping[str, str]] = None) -> Config:
     model = ModelConfig(
         model_path=_env(env, "ETA_MODEL_PATH", "RTPU_MODEL_PATH"),
     )
+    train = TrainConfig(
+        batch_size=_int("RTPU_TRAIN_BATCH", 8192),
+        learning_rate=_float("RTPU_LR", 3e-3),
+        epochs=_int("RTPU_EPOCHS", 30),
+        seed=_int("RTPU_SEED", 0),
+        checkpoint_dir=env.get("RTPU_CKPT_DIR"),
+    )
     serve = ServeConfig(
         host=env.get("RTPU_HOST", "127.0.0.1"),
         port=_int("PORT", _int("RTPU_PORT", 5000)),
@@ -246,7 +279,8 @@ def load_config(env: Optional[Mapping[str, str]] = None) -> Config:
         supabase_service_key=env.get("SUPABASE_SERVICE_ROLE_KEY"),
         redis_url=env.get("REDIS_URL"),
     )
-    return Config(model=model, serve=serve, live=load_live_config(env),
+    return Config(model=model, train=train, serve=serve,
+                  live=load_live_config(env),
                   dispatch=load_dispatch_config(env))
 
 
@@ -275,6 +309,10 @@ def load_live_config(env: Optional[Mapping[str, str]] = None) -> LiveConfig:
         min_obs_edges=_env_num(env, "RTPU_LIVE_MIN_OBS_EDGES", 1, int),
         window=_env_num(env, "RTPU_LIVE_WINDOW", 65536, int),
         route_metric=env.get("RTPU_LIVE_ROUTE_METRIC", "1") != "0",
+        retrain_s=_env_num(env, "RTPU_LIVE_RETRAIN_S", 0.0, float),
+        retrain_steps=_env_num(env, "RTPU_LIVE_RETRAIN_STEPS", 40, int),
+        retrain_min_obs=_env_num(env, "RTPU_LIVE_RETRAIN_MIN_OBS",
+                                 256, int),
     )
 
 

@@ -11,9 +11,11 @@ The counterpart of ``routest_tpu/live``:
   the state;
 - ``customize`` — the metric customizer re-pricing the partition
   overlay against the live metric and flipping the router;
+- ``trainer``   — the continuous GNN re-fit on the observation window,
+  landed through the router's verified GNN swap;
 - ``service``   — the serving-side wiring (``RTPU_LIVE=1``).
 
-The continuous trainer and the cross-region bridge are not ported. This
+The cross-region bridge is not ported. This
 module stays import-light: the metric-epoch global lives here so the
 serving fast lane can key its prediction cache on ``(model generation,
 metric epoch)`` without importing the rest.

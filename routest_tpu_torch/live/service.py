@@ -7,7 +7,9 @@ road router on a metro extract takes seconds — the server answers at
 once and arms live traffic when ready). The router is the process-wide
 ``default_router`` on the serving device, the one ``road_graph: true``
 requests route through, so a metric flip moves their routes and ETAs.
-The continuous trainer (``RTPU_LIVE_RETRAIN_S``) is not ported.
+``RTPU_LIVE_RETRAIN_S`` > 0 also runs the continuous GNN trainer
+(``live/trainer.py``) on that router's device; it is off by default, as
+training competes with serving for the card.
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ from routest_tpu_torch.utils.logging import get_logger
 
 
 class LiveTrafficService:
-    """Owns state + ingester + customizer on ``device``'s router."""
+    """Owns state + ingester + customizer (+ optional trainer) on
+    ``device``'s router."""
 
     def __init__(self, bus, cfg: Optional[LiveConfig] = None,
                  device=None) -> None:
@@ -32,6 +35,7 @@ class LiveTrafficService:
         self.ingester = None
         self.customizer = None
         self.router = None
+        self.trainer = None
         self.ready = False
         self.error: Optional[str] = None
         self.started_unix: Optional[float] = None
@@ -68,6 +72,13 @@ class LiveTrafficService:
                 min_obs_edges=cfg.min_obs_edges,
                 route_metric=cfg.route_metric)
             self.customizer.start()
+            if cfg.retrain_s > 0:
+                from routest_tpu_torch.live.trainer import ContinuousTrainer
+
+                self.trainer = ContinuousTrainer(
+                    router, self.state, steps=cfg.retrain_steps,
+                    min_obs=cfg.retrain_min_obs)
+                self.trainer.start(cfg.retrain_s)
             self.ready = True
             log.info("live_traffic_armed", channel=cfg.channel,
                      customize_s=cfg.customize_s,
@@ -79,7 +90,7 @@ class LiveTrafficService:
             log.error("live_traffic_boot_failed", error=self.error)
 
     def stop(self) -> None:
-        for part in (self.ingester, self.customizer):
+        for part in (self.ingester, self.customizer, self.trainer):
             if part is not None:
                 part.stop()
 
@@ -98,4 +109,7 @@ class LiveTrafficService:
         if self.router is not None:
             out["metric"] = self.router.live_info
             out["epoch"] = self.router.live_epoch
+        if self.trainer is not None:
+            out["retrain"] = {"cycles": self.trainer.cycles,
+                              "last": dict(self.trainer.last_result)}
         return out

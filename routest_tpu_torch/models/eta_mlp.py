@@ -10,7 +10,11 @@ softplus-positive increments, so quantiles never cross.
 
 :meth:`EtaMLP.from_numpy` is the weight carry-over: the JAX params
 pytree as numpy arrays goes in, and the module computes what the JAX
-``EtaMLP.apply`` / ``apply_quantiles`` compute. As in the JAX ``_trunk``,
+``EtaMLP.apply`` / ``apply_quantiles`` compute; :meth:`EtaMLP.to_numpy`
+is its inverse, and :meth:`EtaMLP.init` draws the JAX ``init``'s weights
+from the port's threefry (``core/prng.py``). The feature normalizer is a
+pair of buffers: it gets no gradient and no weight decay, as the JAX
+package's ``stop_gradient`` and decay mask give it. As in the JAX ``_trunk``,
 the bias add and gelu run in the policy's compute dtype; the serving
 kernel (``ops/fused_mlp.py``) does both in f32 instead, as the Pallas
 kernel does. Serving goes through that kernel; this module is the
@@ -19,13 +23,14 @@ reference the tests and ``chip_smoke.py`` hold it against.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from routest_tpu_torch.core import prng
 from routest_tpu_torch.core.dtypes import DEFAULT_POLICY, Policy
 from routest_tpu_torch.data.features import N_FEATURES
 
@@ -65,6 +70,34 @@ def quantile_heads_unfused(out: torch.Tensor, dist_km: torch.Tensor,
     pace = torch.cumsum(softplus(out[..., :n_q]), dim=-1)
     overhead = torch.cumsum(softplus(out[..., n_q:2 * n_q]), dim=-1)
     return pace * dist_km[..., None] + overhead
+
+
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """A float32 host copy of a parameter or buffer."""
+    return t.detach().to("cpu", torch.float32).numpy().copy()
+
+
+def layers_to_numpy(linears) -> list:
+    """``nn.Linear`` layers → the JAX ``[{"b": (out,), "w": (in, out)}]``."""
+    return [{"b": host_array(linear.bias),
+             "w": np.ascontiguousarray(host_array(linear.weight).T)}
+            for linear in linears]
+
+
+@torch.no_grad()
+def init_layers(linears, key: torch.Tensor) -> torch.Tensor:
+    """The JAX packages' He init in place: per layer ``key, sub =
+    split(key)``, ``w = normal(sub, (d_in, d_out)) · sqrt(2 / d_in)``,
+    zero bias. Draws on the key's device; returns the advanced key."""
+    for linear in linears:
+        key, sub = prng.split(key, 2)
+        d_in = linear.in_features
+        scale = torch.tensor(np.sqrt(np.float32(2.0 / d_in)),
+                             device=key.device)
+        w = prng.normal(sub, (d_in, linear.out_features)) * scale
+        linear.weight.copy_(w.T)
+        linear.bias.zero_()
+    return key
 
 
 class EtaMLP(nn.Module):
@@ -128,6 +161,31 @@ class EtaMLP(nn.Module):
                 np.array(params["norm"]["std"], np.float32)))
         return model
 
+    @torch.no_grad()
+    def init(self, key: torch.Tensor,
+             norm_mean: Optional[np.ndarray] = None,
+             norm_std: Optional[np.ndarray] = None) -> "EtaMLP":
+        """The JAX ``EtaMLP.init`` in place: per layer ``key, sub =
+        split(key)``, ``w = normal(sub, (d_in, d_out)) · sqrt(2 / d_in)``,
+        zero biases; normalizer stats with stds below 1e-3 floored to 1.
+        Draws on the host, then copies to the module's device."""
+        init_layers(self.layers, key.cpu())
+        mean = (np.zeros(self.n_features, np.float32) if norm_mean is None
+                else np.asarray(norm_mean, np.float32))
+        std = (np.ones(self.n_features, np.float32) if norm_std is None
+               else np.asarray(norm_std, np.float32))
+        std = np.where(std < 1e-3, np.float32(1.0), std)
+        self.norm_mean.copy_(torch.from_numpy(mean))
+        self.norm_std.copy_(torch.from_numpy(std))
+        return self
+
+    def to_numpy(self) -> dict:
+        """The JAX params pytree (numpy leaves, ``w`` as ``(in, out)``):
+        the inverse of :meth:`from_numpy`."""
+        return {"layers": layers_to_numpy(self.layers),
+                "norm": {"mean": host_array(self.norm_mean),
+                         "std": host_array(self.norm_std)}}
+
     def _expand(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """ABI features (B,12) → internal bases (B,42) + distance_km (B,)."""
         cat = x[..., 0:8]
@@ -177,3 +235,10 @@ class EtaMLP(nn.Module):
                              "construct EtaMLP(quantiles=...)")
         out, dist_km = self._trunk(x)
         return quantile_heads(out, dist_km, len(self.quantiles))
+
+
+def fit_normalizer(features: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Mean/std over the training features. ``init`` replaces near-zero
+    stds (constant columns) with 1.0 so unseen categories can't explode."""
+    return (features.mean(axis=0).astype(np.float32),
+            features.std(axis=0).astype(np.float32))

@@ -1,8 +1,8 @@
 """Route-sequence transformer: per-leg travel seconds with route context.
 
-The counterpart of ``routest_tpu/models/route_transformer.py``'s
-single-device forward (``RouteTransformer.apply``), float32 throughout
-as there: per-edge features (``models/gnn.py::edge_feature_array``) plus
+The counterpart of ``routest_tpu/models/route_transformer.py`` on one
+device (``RouteTransformer.apply``, ``init``, ``loss`` and
+``sample_route_sequences``), float32 throughout as there: per-edge features (``models/gnn.py::edge_feature_array``) plus
 a sinusoidal position encoding, ``n_layers`` pre-LN encoder blocks
 (multi-head self-attention, tanh-gelu MLP), and a head that scales the
 free-flow time by ``softplus(w·h + b + 1)``.
@@ -12,21 +12,26 @@ Attention is a private copy of the JAX package's single-device
 masked scores filled with a finite ``-1e30``, softmax, re-masked,
 renormalized with a ``1e-30`` floor, and fully masked rows zeroed.
 ``scaled_dot_product_attention`` would treat a fully masked row
-differently. The sequence-parallel flavours (ring, Ulysses) wait for
-Queue A item 16.
+differently. Training differentiates the same forward with autograd;
+:func:`sample_route_sequences` is host numpy, bitwise the JAX package's.
+The sequence-parallel flavours (ring, Ulysses: ``make_sp_apply``,
+``make_sp_train_step``) wait for Queue A item 9.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from routest_tpu_torch.models.eta_mlp import softplus
-from routest_tpu_torch.models.gnn import N_EDGE_FEATURES, copy_layers
+from routest_tpu_torch.core import prng
+from routest_tpu_torch.models.eta_mlp import (host_array, layers_to_numpy,
+                                              softplus)
+from routest_tpu_torch.models.gnn import (N_EDGE_FEATURES, copy_layers,
+                                          edge_feature_array)
 
 _NEG = -1e30
 
@@ -123,10 +128,62 @@ class RouteTransformer(nn.Module):
                              [layer["mlp1"], layer["mlp2"]])
         return model
 
+    def _dense_layers(self):
+        """Every ``nn.Linear`` in the JAX init's draw order."""
+        out = [self.embed]
+        for block in self.blocks:
+            out += [block.proj[n] for n in ("q", "k", "v", "o")]
+            out += [block.mlp1, block.mlp2]
+        return out + [self.head]
+
+    @torch.no_grad()
+    def init(self, key: torch.Tensor) -> "RouteTransformer":
+        """The JAX ``RouteTransformer.init`` in place: per dense layer
+        ``k1, key = split(key)``, ``w = normal(k1, (d_in, d_out)) /
+        sqrt(d_in)``, zero bias; layer norms at gain 1, bias 0."""
+        key = key.cpu()
+        for linear in self._dense_layers():
+            k1, key = prng.split(key, 2)
+            d_in = linear.in_features
+            w = prng.normal(k1, (d_in, linear.out_features)) \
+                / torch.tensor(np.sqrt(np.float32(d_in)))
+            linear.weight.copy_(w.T)
+            linear.bias.zero_()
+        for block in self.blocks:
+            for norm in (block.ln1, block.ln2):
+                norm.weight.fill_(1.0)
+                norm.bias.zero_()
+        return self
+
+    def to_numpy(self) -> Dict:
+        """The JAX params pytree (numpy leaves): the inverse of
+        :meth:`from_numpy`."""
+        def dense(linear):
+            return layers_to_numpy([linear])[0]
+
+        def norm(ln):
+            return {"b": host_array(ln.bias), "g": host_array(ln.weight)}
+
+        return {
+            "embed": dense(self.embed),
+            "head": dense(self.head),
+            "layers": [dict({n: dense(block.proj[n])
+                             for n in ("q", "k", "v", "o")},
+                            ln1=norm(block.ln1), ln2=norm(block.ln2),
+                            mlp1=dense(block.mlp1), mlp2=dense(block.mlp2))
+                       for block in self.blocks],
+        }
+
     @torch.no_grad()
     def forward(self, feats: torch.Tensor, freeflow_s: torch.Tensor,
                 positions: torch.Tensor,
                 key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.predict(feats, freeflow_s, positions, key_mask)
+
+    def predict(self, feats: torch.Tensor, freeflow_s: torch.Tensor,
+                positions: torch.Tensor,
+                key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The differentiable forward: (B, S) predicted leg seconds."""
         b, s, _ = feats.shape
         dh = self.d_model // self.n_heads
         h = _dense(self.embed, feats)
@@ -144,4 +201,101 @@ class RouteTransformer(nn.Module):
                 @ block.mlp2.weight.T + block.mlp2.bias
         mult = softplus(_dense(self.head, h)[..., 0] + 1.0)
         return freeflow_s * mult
+
+    @staticmethod
+    def squared_residual(pred: torch.Tensor, targets: torch.Tensor,
+                         freeflow_s: torch.Tensor, mask: torch.Tensor,
+                         relative: bool = True
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(masked Σ residual², valid count), the training objective. With
+        ``relative`` (the training default) the residual is measured in
+        multiplier space, ``(pred − target) / freeflow``, so long legs do
+        not dominate; ``relative=False`` is seconds² (evaluation)."""
+        w = mask.to(pred.dtype)
+        resid = pred - targets
+        if relative:
+            resid = resid / torch.clamp_min(freeflow_s, 1.0)
+        return torch.sum(w * resid ** 2), w.sum()
+
+    def loss(self, feats: torch.Tensor, freeflow_s: torch.Tensor,
+             positions: torch.Tensor, targets: torch.Tensor,
+             mask: torch.Tensor, relative: bool = True) -> torch.Tensor:
+        """Masked mean of :meth:`squared_residual` over valid legs."""
+        pred = self.predict(feats, freeflow_s, positions, key_mask=mask)
+        sq, cnt = self.squared_residual(pred, targets, freeflow_s, mask,
+                                        relative)
+        return sq / torch.clamp_min(cnt, 1.0)
+
+
+# ── training data: routes sampled from the road graph ────────────────────
+
+
+def sample_route_sequences(graph: Dict[str, np.ndarray], n_routes: int,
+                           seq_len: int, seed: int = 0,
+                           noise_sigma: float = 0.06,
+                           return_hours: bool = False,
+                           return_true: bool = False) -> Tuple[np.ndarray, ...]:
+    """Random-walk routes over a road graph → padded training arrays,
+    host numpy, bitwise the JAX package's: (feats (R, L, F), freeflow_s
+    (R, L), targets (R, L), mask (R, L)), plus hours (R,) with
+    ``return_hours`` and noise-free times (R, L) with ``return_true``.
+    One observation hour per route; targets from the congestion overlay
+    the GNN trains on (``data/road_graph.py``)."""
+    from routest_tpu_torch.data.road_graph import true_edge_time_s
+
+    rng = np.random.default_rng(seed)
+    senders = np.asarray(graph["senders"])
+    receivers = np.asarray(graph["receivers"])
+    n_nodes = len(graph["node_coords"])
+    # adjacency: out-edge ids per node
+    order = np.argsort(senders, kind="stable")
+    sorted_senders = senders[order]
+    starts = np.searchsorted(sorted_senders, np.arange(n_nodes))
+    ends = np.searchsorted(sorted_senders, np.arange(n_nodes), "right")
+
+    feats = np.zeros((n_routes, seq_len, N_EDGE_FEATURES), np.float32)
+    freeflow = np.zeros((n_routes, seq_len), np.float32)
+    targets = np.zeros((n_routes, seq_len), np.float32)
+    targets_true = np.zeros((n_routes, seq_len), np.float32)
+    mask = np.zeros((n_routes, seq_len), np.float32)
+
+    length = np.asarray(graph["length_m"], np.float32)
+    speed = np.asarray(graph["speed_limit"], np.float32)
+    rclass = np.asarray(graph["road_class"], np.int32)
+
+    hours = np.zeros((n_routes,), np.int32)
+    for r in range(n_routes):
+        hour = int(rng.integers(0, 24))
+        hours[r] = hour
+        node = int(rng.integers(0, n_nodes))
+        n_legs = int(rng.integers(seq_len // 2, seq_len + 1))
+        edge_ids = []
+        for _ in range(n_legs):
+            lo, hi = starts[node], ends[node]
+            if hi <= lo:  # dead end: restart elsewhere
+                node = int(rng.integers(0, n_nodes))
+                lo, hi = starts[node], ends[node]
+                if hi <= lo:
+                    break
+            e = int(order[rng.integers(lo, hi)])
+            edge_ids.append(e)
+            node = int(receivers[e])
+        if not edge_ids:
+            continue
+        e_ids = np.asarray(edge_ids)
+        k = len(e_ids)
+        feats[r, :k] = edge_feature_array(
+            length[e_ids], speed[e_ids], rclass[e_ids], hour)
+        freeflow[r, :k] = length[e_ids] / np.maximum(speed[e_ids], 0.1) + 4.0
+        t_true = true_edge_time_s(length[e_ids], rclass[e_ids],
+                                  np.full(k, hour))
+        targets[r, :k] = t_true * rng.lognormal(0.0, noise_sigma, k)
+        targets_true[r, :k] = t_true
+        mask[r, :k] = 1.0
+    out = [feats, freeflow, targets, mask]
+    if return_hours:
+        out.append(hours)
+    if return_true:
+        out.append(targets_true)
+    return tuple(out)
 

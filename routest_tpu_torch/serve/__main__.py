@@ -13,8 +13,11 @@ router (``RTPU_LIVE_*`` knobs). ``RTPU_WIRE=1`` accepts RTW1 frames on
 multiplexed TCP channel (``serve/wirechannel.py``) at ``RTPU_WIRE_PORT``,
 or ``PORT + RTPU_WIRE_PORT_OFFSET`` (a port already taken leaves the
 HTTP path serving). ``ROUTEST_RELOAD_SEC`` > 0 hot-swaps a changed
-artifact after the golden-batch gate. A missing artifact is a hard error:
-training a bootstrap model waits for the training slice. SIGTERM/SIGINT
+artifact after the golden-batch gate. A missing artifact is trained
+first, on the serving device, as the JAX entry point does: 200,000
+synthetic rows, seed 0, 15 epochs, the default ``EtaMLP``
+(``model_bootstrap_started`` / ``model_bootstrap_finished`` with the
+eval RMSE), saved to that path and then served. SIGTERM/SIGINT
 drain in-flight requests (open SSE streams are not waited for) before
 exit. ``serve_listening`` and ``serve_stopped`` log the fused kernel's
 launch count in this process (``fused_launches``): their difference is
@@ -36,12 +39,31 @@ from routest_tpu_torch.utils.logging import get_logger
 _log = get_logger("routest_tpu_torch.serve.boot")
 
 
+def ensure_model(path: str, device=None) -> None:
+    """Train and save the bootstrap model when ``path`` holds nothing."""
+    if os.path.exists(path):
+        return
+    _log.info("model_bootstrap_started", path=path,
+              reason="no artifact; training a quick synthetic model")
+    from routest_tpu_torch.core.config import TrainConfig
+    from routest_tpu_torch.data import synthetic
+    from routest_tpu_torch.models.eta_mlp import EtaMLP
+    from routest_tpu_torch.train.checkpoint import save_model
+    from routest_tpu_torch.train.loop import fit
+
+    train, ev = synthetic.train_eval_split(
+        synthetic.generate_dataset(200_000, seed=0))
+    model = EtaMLP()
+    result = fit(model, train, ev, TrainConfig(epochs=15), device=device)
+    save_model(path, model)
+    _log.info("model_bootstrap_finished", path=path,
+              eval_rmse_min=round(result.eval_rmse, 2))
+
+
 def main() -> None:
     config = load_config()
     path = default_model_path(config.model)
-    if not os.path.exists(path):
-        raise SystemExit(f"no ETA model artifact at {path} "
-                         f"(set ETA_MODEL_PATH to an RTPU1 artifact)")
+    ensure_model(path, device=config.serve.device)
     eta = EtaService(config.serve, model_path=path)
     _log.info("model_loaded", path=path, available=eta.available,
               scoring=eta.scoring_info(), error=eta.load_error)

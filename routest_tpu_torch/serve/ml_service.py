@@ -622,7 +622,11 @@ class EtaService:
             self._finish_init()
 
     def _load(self, path: str) -> None:
-        """Load + pack once: the packed weights stay on the device."""
+        """Load + pack once: the packed weights stay on the device. An
+        ``RTPU1`` artifact is tried first, then the reference's own model
+        family, an XGBoost JSON file, served as tensorized gather chains
+        (``models/gbdt.py``) on the same device. When both fail, the
+        first loader's error is the one reported."""
         self.fingerprint = _artifact_fingerprint(path)
         try:
             model, params = load_model(path)
@@ -631,17 +635,38 @@ class EtaService:
             self._packed = pack_eta_params(model, params, dtype=variant,
                                            device=self.device)
         except Exception as e:
-            self._error = f"{type(e).__name__}: {e}"
+            first_error = f"{type(e).__name__}: {e}"
+        else:
+            self._model, self._params = model, params
+            self.kernel_dtype = variant
             return
-        self._model, self._params = model, params
-        self.kernel_dtype = variant
+        from routest_tpu_torch.models.gbdt import load_xgboost_eta
+
+        try:
+            self._model, self._params = load_xgboost_eta(
+                path, device=self.device)
+        except Exception:  # the RTPU1 loader's error is what health shows
+            self._error = first_error
+            return
+        self.kernel = "gbdt_gather"
+        self.kernel_dtype = "float32"
 
     def _score_fn(self):
-        """The scorer of THIS packing: one bucket slab → host→device
-        copy, one fused forward, result back to the host. It closes over
-        the packing and head count, so a batcher keeps scoring its own
-        model after a hot swap replaces the service's fields."""
-        packed, n_q, device = self._packed, len(self.quantiles), self.device
+        """The scorer of THIS model: one bucket slab → host→device copy,
+        one forward (the fused kernel over this packing, or the tree
+        ensemble's gathers), result back to the host. It closes over
+        the model, so a batcher keeps scoring its own model after a hot
+        swap replaces the service's fields."""
+        device = self.device
+        if self._packed is None:
+            ensemble, params = self._model, self._params
+
+            def score(x: np.ndarray) -> np.ndarray:
+                xt = torch.from_numpy(np.ascontiguousarray(x, np.float32))
+                return ensemble.apply(params, xt.to(device)).cpu().numpy()
+
+            return score
+        packed, n_q = self._packed, len(self.quantiles)
 
         def score(x: np.ndarray) -> np.ndarray:
             xt = torch.from_numpy(np.ascontiguousarray(x, np.float32))
@@ -877,10 +902,14 @@ class EtaService:
         return self._error
 
     def scoring_info(self) -> dict:
-        """Which compute path serves (``cuda_fused`` on the card,
-        ``torch_plain`` on an explicit CPU run), at what dtype, where."""
-        return {"kernel": self.kernel, "dtype": self.kernel_dtype,
-                "device": str(self.device)}
+        """Which model family serves (``eta_mlp``, or ``xgboost`` for a
+        tree ensemble), through which compute path (``cuda_fused`` on
+        the card, ``torch_plain`` on an explicit CPU run, ``gbdt_gather``
+        for trees), at what dtype, where."""
+        family = (None if self._model is None else
+                  "eta_mlp" if self._packed is not None else "xgboost")
+        return {"family": family, "kernel": self.kernel,
+                "dtype": self.kernel_dtype, "device": str(self.device)}
 
     def mesh_info(self) -> dict:
         """The replica's device topology (health's ``checks.engine.mesh``)."""

@@ -355,6 +355,13 @@ class WireChannelClient:
                 _m_conns.labels(event="dead").inc()
             pending, self._pending = dict(self._pending), {}
         try:
+            # shutdown() wakes the reader blocked in recv(), and its FIN
+            # ends the server's connection thread; close() alone leaves
+            # both blocked on a socket the kernel keeps open for them.
+            sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        try:
             sock.close()
         except OSError:
             pass

@@ -1,1 +1,2 @@
-"""Serving-artifact IO."""
+"""Artifact IO, the ETA training loop and the GNN / route-transformer
+trainers."""

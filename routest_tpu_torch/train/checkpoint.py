@@ -1,13 +1,23 @@
-"""Serving-artifact IO: the ``RTPU1`` ETA artifact, read without flax.
+"""Artifact IO: the ``RTPU1`` serving artifacts, read and written
+without flax, and the port's training checkpoints.
 
 The artifact the JAX package writes (``routest_tpu/train/checkpoint.py``
 ``save_model``) is ``MAGIC`` + one JSON header line + the params pytree
 serialized by flax's msgpack. flax writes each array as msgpack ext
 type 1 whose payload is itself msgpack ``(shape, dtype_name, C-order
-bytes)``. The machine with the card has neither flax nor the ``msgpack``
-package, so this module carries a small msgpack decoder of its own
-(:func:`_unpackb`) covering what msgpack can encode, and rebuilds the
-arrays from those ext payloads bit for bit.
+bytes)``, lists as msgpack arrays, and dict keys in sorted order (its
+pytree copy rebuilds dicts that way). The machine with the card has
+neither flax nor the ``msgpack`` package, so this module carries a small
+msgpack decoder (:func:`_unpackb`) and encoder (:func:`_packb`) of its
+own: the reader rebuilds the arrays bit for bit, and the writers
+(:func:`save_model`, :func:`save_gnn`, :func:`save_transformer`) produce
+the JAX writers' bytes for the same params and header.
+
+Training checkpoints (:func:`save_checkpoint`) are the port's own
+format, since Orbax is not on the card's machine: one ``step_%08d.pt``
+file per checkpoint, written by ``torch.save`` to a temp file and
+renamed, read back with ``torch.load(weights_only=True)``. A JAX Orbax
+checkpoint directory is not read.
 
 Error texts for bad magic, format and version are the JAX package's,
 word for word.
@@ -18,7 +28,8 @@ from __future__ import annotations
 import json
 import os
 import struct
-from typing import Any, Dict, Tuple
+import threading
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -143,6 +154,129 @@ def _unpackb(data: bytes, raw: bool = False) -> Any:
     return out
 
 
+# (type byte, struct format, bound) of each integer form, smallest first.
+_UINT_FORMS = ((0xCC, ">B", 1 << 8), (0xCD, ">H", 1 << 16),
+               (0xCE, ">I", 1 << 32), (0xCF, ">Q", 1 << 64))
+_INT_FORMS = ((0xD0, ">b", 1 << 7), (0xD1, ">h", 1 << 15),
+              (0xD2, ">i", 1 << 31), (0xD3, ">q", 1 << 63))
+
+
+def _pack_into(obj: Any, out: bytearray) -> None:
+    """msgpack-python's encoding (``use_bin_type=True``, smallest integer
+    form, floats as float64) of the types an artifact holds."""
+    if obj is None:
+        out.append(0xC0)
+    elif obj is True or obj is False:
+        out.append(0xC3 if obj else 0xC2)
+    elif isinstance(obj, int):
+        if 0 <= obj < 0x80:
+            out.append(obj)
+        elif obj >= -32 and obj < 0:
+            out.append(obj & 0xFF)
+        else:
+            forms = _UINT_FORMS if obj >= 0 else _INT_FORMS
+            for tag, fmt, limit in forms:
+                if -limit <= obj < limit:
+                    out += bytes([tag]) + struct.pack(fmt, obj)
+                    break
+            else:
+                raise ValueError(f"integer {obj} does not fit msgpack")
+    elif isinstance(obj, float):
+        out += b"\xcb" + struct.pack(">d", obj)
+    elif isinstance(obj, str):
+        data = obj.encode("utf-8")
+        _pack_len(out, len(data), 0xA0, 32, (0xD9, 0xDA, 0xDB))
+        out += data
+    elif isinstance(obj, (bytes, bytearray, memoryview)):
+        data = bytes(obj)
+        _pack_len(out, len(data), None, 0, (0xC4, 0xC5, 0xC6))
+        out += data
+    elif isinstance(obj, (list, tuple)):
+        _pack_len(out, len(obj), 0x90, 16, (None, 0xDC, 0xDD))
+        for item in obj:
+            _pack_into(item, out)
+    elif isinstance(obj, dict):
+        # flax's pytree copy rebuilds every dict in sorted key order
+        _pack_len(out, len(obj), 0x80, 16, (None, 0xDE, 0xDF))
+        for key in sorted(obj):
+            _pack_into(key, out)
+            _pack_into(obj[key], out)
+    elif isinstance(obj, np.ndarray):
+        _pack_ext(out, _EXT_NDARRAY, _ndarray_to_ext(obj))
+    elif isinstance(obj, np.generic):
+        _pack_ext(out, _EXT_NPSCALAR, _ndarray_to_ext(np.asarray(obj)))
+    else:
+        raise TypeError(f"cannot serialize {type(obj).__name__}")
+
+
+def _pack_len(out: bytearray, n: int, fix: Optional[int], fix_limit: int,
+              tags) -> None:
+    """A length header: the fix form below ``fix_limit``, else the 8-,
+    16- or 32-bit form (``None`` where the type has no such form)."""
+    if fix is not None and n < fix_limit:
+        out.append(fix | n)
+        return
+    for tag, fmt, limit in zip(tags, (">B", ">H", ">I"),
+                               (1 << 8, 1 << 16, 1 << 32)):
+        if tag is not None and n < limit:
+            out += bytes([tag]) + struct.pack(fmt, n)
+            return
+    raise ValueError(f"msgpack length {n} too large")
+
+
+def _pack_ext(out: bytearray, code: int, data: bytes) -> None:
+    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if len(data) in fixed:
+        out.append(fixed[len(data)])
+    else:
+        _pack_len(out, len(data), None, 0, (0xC7, 0xC8, 0xC9))
+    out += struct.pack(">b", code)
+    out += data
+
+
+def _ndarray_to_ext(arr: np.ndarray) -> bytes:
+    """flax's ndarray ext payload: msgpack ``(shape, dtype name, C-order
+    bytes)``."""
+    return _packb((list(arr.shape), arr.dtype.name, arr.tobytes("C")))
+
+
+def _packb(obj: Any) -> bytes:
+    """Encode one object as flax's ``msgpack_serialize`` does."""
+    out = bytearray()
+    _pack_into(obj, out)
+    return bytes(out)
+
+
+def _write_artifact(path: str, magic: bytes, header: dict,
+                    blob: bytes) -> None:
+    """Magic prefix + one-line JSON header + binary blob, written to a
+    temp file and renamed: hot-reload watchers (the ETA service's and
+    the road router's) stat these paths on live traffic, so a reader
+    never sees a half-written file. The temp name carries the pid and
+    the thread id, so two writers in one process never share it."""
+    path = os.path.abspath(path)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.tmp{os.getpid()}.{threading.get_ident()}"
+    try:
+        with open(tmp, "wb") as f:
+            f.write(magic)
+            f.write(json.dumps(header).encode() + b"\n")
+            f.write(blob)
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+
+
+def _dtype_name(dtype) -> str:
+    """``torch.bfloat16`` → ``"bfloat16"`` (numpy's name, as the JAX
+    headers record it)."""
+    return str(dtype).rsplit(".", 1)[-1]
+
+
 def _read_artifact(path: str, magic: bytes, fmt: str, versions,
                    kind: str, retrain_hint: str):
     """Magic prefix + one-line JSON header + binary blob, with
@@ -200,6 +334,23 @@ def load_model(path: str):
     return model, params
 
 
+def save_model(path: str, model) -> None:
+    """Serving artifact of an ``EtaMLP`` module: the JAX ``save_model``'s
+    bytes for the same params (header v2 for point models, v3 with
+    ``quantiles``; ``compute_dtype`` recorded)."""
+    header = {
+        "format": "routest_tpu.eta_mlp",
+        "version": ARTIFACT_VERSION,
+        "hidden": list(model.hidden),
+        "n_features": model.n_features,
+        "compute_dtype": _dtype_name(model.policy.compute_dtype),
+    }
+    if model.quantiles:
+        header["version"] = QUANTILE_ARTIFACT_VERSION
+        header["quantiles"] = list(model.quantiles)
+    _write_artifact(path, MAGIC, header, _packb(model.to_numpy()))
+
+
 def default_model_path(cfg=None) -> str:
     """Resolution order: explicit ModelConfig.model_path (set from
     ETA_MODEL_PATH by ``load_config``), then the env var directly, then
@@ -241,6 +392,40 @@ def graph_fingerprint(node_coords: np.ndarray, senders: np.ndarray,
         "edges_crc32": crc(senders, np.int32) ^ crc(receivers, np.int32)
         ^ crc(length_m, np.float32),
     }
+
+
+def save_gnn(path: str, model, graph: dict) -> None:
+    """Road-GNN artifact of a ``RoadGNN`` module, fingerprinted by the
+    graph it trained over: the JAX ``save_gnn``'s bytes."""
+    _write_artifact(path, MAGIC, {
+        "format": "routest_tpu.road_gnn",
+        "version": GNN_ARTIFACT_VERSION,
+        "hidden": int(model.hidden),
+        "n_rounds": int(model.n_rounds),
+        "n_nodes": int(model.n_nodes),
+        "compute_dtype": _dtype_name(model.policy.compute_dtype),
+        "graph": graph_fingerprint(
+            graph["node_coords"], graph["senders"], graph["receivers"],
+            graph["length_m"]),
+    }, _packb(model.to_numpy()))
+
+
+def save_transformer(path: str, model, graph: dict, seq_len: int) -> None:
+    """Route-transformer artifact: the graph fingerprint, as for the
+    GNN, and the trained ``seq_len`` (serving chunks longer tours into
+    windows of it). The JAX ``save_transformer``'s bytes."""
+    _write_artifact(path, MAGIC, {
+        "format": "routest_tpu.route_transformer",
+        "version": TRANSFORMER_ARTIFACT_VERSION,
+        "d_model": int(model.d_model),
+        "n_heads": int(model.n_heads),
+        "n_layers": int(model.n_layers),
+        "d_mlp": int(model.d_mlp),
+        "seq_len": int(seq_len),
+        "graph": graph_fingerprint(
+            graph["node_coords"], graph["senders"], graph["receivers"],
+            graph["length_m"]),
+    }, _packb(model.to_numpy()))
 
 
 def load_gnn(path: str):
@@ -317,3 +502,61 @@ def default_transformer_path() -> str:
     artifact."""
     return (os.getenv("ROUTE_TRANSFORMER_PATH")
             or _artifact("route_transformer.msgpack"))
+
+
+# ── training checkpoints ──────────────────────────────────────────────────
+
+_CKPT_SUFFIX = ".pt"
+
+
+def save_checkpoint(ckpt_dir: str, step: int, state: dict) -> str:
+    """Write ``state`` (params, optimizer state, step, epoch: tensors,
+    ints and containers of them) as ``step_%08d.pt``, temp-then-rename,
+    so a crash mid-save leaves no file under a complete name."""
+    import torch
+
+    path = os.path.join(os.path.abspath(ckpt_dir),
+                        f"step_{step:08d}{_CKPT_SUFFIX}")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.tmp{os.getpid()}.{threading.get_ident()}"
+    try:
+        torch.save(state, tmp)
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+    return path
+
+
+def latest_checkpoint_step(ckpt_dir: str) -> Optional[Tuple[int, str]]:
+    """Newest complete checkpoint as ``(step, path)``: only files named
+    ``step_<digits>.pt`` count, so temp files and Orbax directories
+    (``step_N``, ``step_N.orbax-checkpoint-tmp-*``) are skipped."""
+    if not os.path.isdir(ckpt_dir):
+        return None
+    best: Optional[Tuple[int, str]] = None
+    for name in os.listdir(ckpt_dir):
+        if not (name.startswith("step_") and name.endswith(_CKPT_SUFFIX)):
+            continue
+        digits = name[len("step_"):-len(_CKPT_SUFFIX)]
+        full = os.path.join(ckpt_dir, name)
+        if not digits.isdigit() or not os.path.isfile(full):
+            continue
+        if best is None or int(digits) > best[0]:
+            best = (int(digits), full)
+    return best
+
+
+def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
+    found = latest_checkpoint_step(ckpt_dir)
+    return found[1] if found else None
+
+
+def restore_checkpoint(path: str) -> dict:
+    """A checkpoint's state dict, tensors on the CPU."""
+    import torch
+
+    return torch.load(path, map_location="cpu", weights_only=True)

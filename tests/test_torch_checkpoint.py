@@ -119,13 +119,15 @@ def test_default_model_path(monkeypatch):
 
 
 def test_import_isolation_subprocess():
-    """The port, its app, its route-optimization and road-routing
-    modules and its artifact readers load (the default road router with
-    its GNN and transformer included) with jax, flax, msgpack, werkzeug
-    and the JAX package all unimportable."""
+    """The port, its app, its route-optimization, road-routing and
+    training modules and its artifact readers and writers load (the
+    default road router with its GNN and transformer included, and an
+    artifact written and read back) with jax, flax, optax, orbax,
+    msgpack, werkzeug and the JAX package all unimportable."""
     code = f"""
 import sys
-for m in ("jax", "flax", "msgpack", "werkzeug", "routest_tpu"):
+for m in ("jax", "flax", "optax", "orbax", "msgpack", "werkzeug",
+          "routest_tpu"):
     sys.modules[m] = None
 sys.path.insert(0, {REPO!r})
 import routest_tpu_torch
@@ -141,14 +143,32 @@ import routest_tpu_torch.optimize.hierarchy
 import routest_tpu_torch.optimize.route_cache
 import routest_tpu_torch.models.gnn
 import routest_tpu_torch.models.route_transformer
+import routest_tpu_torch.models.gbdt
+import routest_tpu_torch.data.synthetic
+import routest_tpu_torch.data.csv_io
+import routest_tpu_torch.train.loop
+import routest_tpu_torch.train.baseline
+import routest_tpu_torch.train.report
+import routest_tpu_torch.train.__main__
+import routest_tpu_torch.train.gnn
+import routest_tpu_torch.train.transformer
+import routest_tpu_torch.live.trainer
+import routest_tpu_torch.live.service
 from routest_tpu_torch.optimize.road_router import RoadRouter
 from routest_tpu_torch.train.checkpoint import load_model
 model, params = load_model({os.path.join(REPO, "artifacts", "eta_mlp.msgpack")!r})
 assert model.quantiles == (0.1, 0.5, 0.9), model.quantiles
 router = RoadRouter(device="cpu")
 assert router.leg_cost_model == "gnn" and router.has_transformer
+import tempfile
+from routest_tpu_torch.train.checkpoint import save_model
+with tempfile.TemporaryDirectory() as d:
+    save_model(d + "/m.msgpack", model)
+    again, _ = load_model(d + "/m.msgpack")
+    assert again.quantiles == model.quantiles
 bad = [m for m in sys.modules if m.split(".")[0] in
-       ("jax", "flax", "msgpack", "werkzeug", "routest_tpu")
+       ("jax", "flax", "optax", "orbax", "msgpack", "werkzeug",
+        "routest_tpu")
        and sys.modules[m] is not None]
 assert not bad, bad
 print("ok")

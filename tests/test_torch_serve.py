@@ -233,8 +233,8 @@ def test_health_reports_scoring_and_device(clients):
     model = body["checks"]["model"]
     assert model["status"] == "ok" and model["generation"] >= 0
     assert len(model["fingerprint"]) == 16
-    assert model["scoring"] == {"kernel": "torch_plain", "dtype": "float32",
-                                "device": "cpu"}
+    assert model["scoring"] == {"family": "eta_mlp", "kernel": "torch_plain",
+                                "dtype": "float32", "device": "cpu"}
     assert body["checks"]["engine"]["mesh"]["platform"] == "cpu"
     assert body["checks"]["device"]["batcher"]["flushes"] >= 1
 
@@ -344,7 +344,8 @@ def test_int8_variant_serves_and_names_itself(int8_client):
     body = tclient.get("/api/health").get_json()
     assert body["status"] == "ok"
     assert body["checks"]["model"]["scoring"] == {
-        "kernel": "torch_plain", "dtype": "int8", "device": "cpu"}
+        "family": "eta_mlp", "kernel": "torch_plain", "dtype": "int8",
+        "device": "cpu"}
 
 
 INT8_BODIES = [b for b in BODIES if b[0] in (
@@ -420,11 +421,20 @@ def test_real_socket_server_round_trip(quantile_services):
 
 
 def test_main_refuses_missing_artifact(monkeypatch, tmp_path):
+    """A missing artifact is trained on the serving device before
+    serving; with the default device (the card) and no card, the
+    bootstrap refuses instead of training on the CPU, and writes
+    nothing."""
     from routest_tpu_torch.serve import __main__ as entry
 
-    monkeypatch.setenv("ETA_MODEL_PATH", str(tmp_path / "missing.msgpack"))
-    with pytest.raises(SystemExit, match="no ETA model artifact"):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the refusal cannot be shown")
+    missing = tmp_path / "missing.msgpack"
+    monkeypatch.setenv("ETA_MODEL_PATH", str(missing))
+    monkeypatch.delenv("ROUTEST_DEVICE", raising=False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         entry.main()
+    assert not missing.exists()
 
 
 # ── the batcher and fast lane on their own ──────────────────────────────

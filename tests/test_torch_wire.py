@@ -527,6 +527,26 @@ def test_channel_rejects_oversized_messages(server, client):
         srv.stop()
 
 
+def test_channel_close_ends_its_threads():
+    """Closing the port's client wakes its reader and ends the server's
+    connection thread: no thread of a closed channel is left behind."""
+    before = set(threading.enumerate())
+    srv = tchan.WireChannelServer({"/e": lambda f: (200, f)}, "127.0.0.1", 0)
+    srv.start()
+    try:
+        cli = tchan.WireChannelClient("127.0.0.1", srv.port)
+        assert cli.request("/e", b"a") == (200, b"a")
+        names = ("wirechannel-conn-", f"wirechannel-read-{srv.port}")
+        ours = [t for t in set(threading.enumerate()) - before
+                if t.name.startswith(names)]
+        assert sorted(t.name[:17] for t in ours) == [
+            "wirechannel-conn-", "wirechannel-read-"]
+        cli.close()
+        _join(*ours)
+    finally:
+        srv.stop()
+
+
 def test_port_app_over_its_channel_to_the_jax_client(apps):
     tapp, _, _ = apps
     body, frame = _body_and_frame(64, seed=11)
