@@ -158,12 +158,40 @@ of which fails the run:
    swap changing its edge times; (g) a seeded 300-tree XGBoost JSON
    (depth up to 8, NaN in 1% of rows) through ``EtaService`` on the card
    and on the CPU path at 4096 rows: leaf cursors bitwise, predictions
-   within 1e-6 relative, ms per batch.
+   within 1e-6 relative, ms per batch;
+14. observability, run between phases 13 and 9: (a) ``python -m
+   routest_tpu_torch.serve`` on the card with tracing sampled at 1.0, a
+   device-trace directory, a 2 s / 10 s SLO, a recorder directory,
+   ``RTPU_PROFILE_DEVICE=1`` and ``store.http`` failing: a 4096-row
+   ``/api/predict_eta_batch`` sent with a ``traceparent`` carries one
+   trace id from ``replica.request`` down to ``batcher.device_compute``,
+   whose ``torch.profiler`` trace names the fused kernel (its device ms
+   and the host↔device copies printed beside the span's ms), a 64-row
+   request runs through ``fastlane.predict``, and untraced 4096-row
+   requests give the span split; (d) a hot swap records ``model.swap``,
+   a burst of journaled writes pages the store SLO, and the one
+   ``slo_page`` bundle and ``/api/incidents`` rank the swap among the
+   suspects; (b) ``/api/efficiency``'s ``eta_score`` rows and padding
+   per bucket are what was sent, a road route and a dispatch reach
+   ``route_solve`` / ``dispatch_solve``, the watchdog reads
+   ``no_artifact`` (health too); (e) ``POST /api/debug/profile`` writes
+   ``profile.folded`` and a device trace naming the kernel; then in this
+   process (c) ``device.compute:error=1@2``: two 503s as the JAX app
+   answers, no launch, the third answer bitwise the fault-free one, and
+   ``store.http`` errors against ``tests/fake_postgrest.py`` journaled
+   and read back; (f) ``python -m routest_tpu_torch.train.export`` on
+   ``eta_mlp.msgpack``, served from ``ETA_MODEL_PATH`` as
+   ``torch_export`` without a fused launch, within the bf16
+   kernel-vs-plain tolerance of the kernel-served artifact and bitwise
+   the program before saving; (g) single-row ``/api/predict_eta`` p95
+   with tracing off, at the default sample rate and at 1.0, in a fresh
+   process (a record).
 
 The lines before the last are one ``{"optimize": {...}}``, one
 ``{"road": {...}}``, one ``{"overlay": {...}}``, one ``{"live": {...}}``,
 one ``{"dispatch": {...}}``, one ``{"serving_core": {...}}``, one
-``{"train": {...}}`` and one ``{"kernels": [...]}`` JSON object and the
+``{"train": {...}}``, one ``{"observability": {...}}`` and one
+``{"kernels": [...]}`` JSON object and the
 card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
 there is no card or a phase fails.
@@ -506,10 +534,9 @@ class _Server:
         self.server.shutdown()
         self.server.server_close()
         self.thread.join(timeout=30)
-        # the app's re-optimization loop polls on its own thread
-        dispatch = getattr(self.app, "dispatch", None)
-        if dispatch is not None and dispatch.reopt is not None:
-            dispatch.reopt.stop()
+        # the app's background threads: the dispatch re-optimization
+        # loop, the SLO and timeline tickers, the change-ledger tap
+        self.app.close()
 
 
 def _batch_rows(batch):
@@ -1436,9 +1463,14 @@ def _device_work(fn):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from routest_tpu_torch.utils.profiling import profiler_slot
+
     torch.cuda.synchronize()
     try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # torch.profiler is process-wide: hold its one slot, as the
+        # serving path's device traces do
+        with profiler_slot("chip_smoke kernel count"), \
+                profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -1962,10 +1994,10 @@ def _sse(port, path, headers=None):
     return frames
 
 
-def _wait_for(what, fn, timeout_s, proc):
+def _wait_for(what, fn, timeout_s, proc, who="live serving"):
     t0 = time.perf_counter()
     while True:
-        check(proc.poll() is None, f"live serving: the server exited "
+        check(proc.poll() is None, f"{who}: the server exited "
                                    f"({proc.returncode}) waiting for {what}")
         try:
             out = fn()
@@ -1974,7 +2006,7 @@ def _wait_for(what, fn, timeout_s, proc):
         if out:
             return out, time.perf_counter() - t0
         check(time.perf_counter() - t0 < timeout_s,
-              f"live serving: no {what} in {timeout_s} s")
+              f"{who}: no {what} in {timeout_s} s")
         time.sleep(0.1)
 
 
@@ -3831,6 +3863,647 @@ def phase_times(rng):
     return table
 
 
+# ── phase 14: observability ──────────────────────────────────────────
+
+OBS_BATCH = 4096
+OBS_SPLIT_REPS = 5           # untraced 4096-row requests for the split
+OBS_BURST = 8                # optimize requests in the store-error burst
+OBS_OVERHEAD_REPS = 200      # single-row requests per tracing setting
+OBS_SPANS = ("replica.request", "replica.handler", "batcher.queue_wait",
+             "batcher.flush", "batcher.pad", "batcher.device_compute")
+
+
+def _obs_batch(rng, n):
+    """A seeded columnar ``/api/predict_eta_batch`` body of ``n`` rows."""
+    return {"distance_m": rng.uniform(200.0, 40_000.0, n).round(1).tolist(),
+            "weather": rng.choice(["Sunny", "Stormy", "Cloudy"], n).tolist(),
+            "traffic": rng.choice(["Low", "High", "Jam"], n).tolist(),
+            "driver_age": rng.uniform(18.0, 70.0, n).round(1).tolist(),
+            "pickup_time": ["2026-10-17T08:30:00"] * n}
+
+
+def _obs_post(port, path, body, traceparent=None):
+    """→ (status, headers, JSON) of one JSON POST, with a W3C
+    ``traceparent`` when given."""
+    headers = {"Content-Type": "application/json"}
+    if traceparent:
+        headers["traceparent"] = traceparent
+    status, head, raw = _http(port, "POST", path, json.dumps(body).encode(),
+                              headers)
+    return status, head, json.loads(raw or b"null")
+
+
+def _obs_trace_events(path):
+    """The fused kernel's launches and the host↔device copies in one
+    ``torch.profiler`` Chrome trace → ([(name, µs)], {"HtoD": µs,
+    "DtoH": µs}). A launch is named by phase 2's mangled-name fragment
+    or, demangled, by its stem (``fused_eta_tc_kernel<false, 16>``)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    stems = {k.split("I", 1)[0] for k in KERNEL_SYMBOLS}
+    kernels, copies = [], {"HtoD": 0.0, "DtoH": 0.0}
+    for e in events:
+        name = str(e.get("name", ""))
+        cat = str(e.get("cat", "")).lower()
+        if cat == "kernel" and any(s in name for s in stems):
+            kernels.append((name, float(e.get("dur") or 0.0)))
+        elif cat == "gpu_memcpy":
+            for direction in copies:
+                if direction in name:
+                    copies[direction] += float(e.get("dur") or 0.0)
+    return kernels, copies
+
+
+def _obs_spans(port, trace_id):
+    status, out = _request(port, "GET", f"/api/trace?trace_id={trace_id}")
+    check(status == 200, f"/api/trace: {status}")
+    return {s["name"]: s for s in out["spans"]}
+
+
+def _obs_tracing(port, rng):
+    """(a): one 4096-row request sent with a ``traceparent``: one trace
+    id from ``replica.request`` down to ``batcher.device_compute``, whose
+    device trace names the fused kernel; a 64-row request through the
+    fast lane; then the span split of untraced 4096-row requests."""
+    import uuid
+
+    trace_id = uuid.UUID(int=int(rng.integers(1, 2**62))).hex
+    tp = f"00-{trace_id}-00f067aa0ba902b7-01"
+    t0 = time.perf_counter()
+    status, head, out = _obs_post(port, "/api/predict_eta_batch",
+                                  _obs_batch(rng, OBS_BATCH), tp)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    check(status == 200 and len(out["eta_minutes_ml"]) == OBS_BATCH,
+          f"traced batch: {status}")
+    check(head.get("X-Trace-Id") == trace_id, f"X-Trace-Id {head}")
+    spans = _obs_spans(port, trace_id)
+    check(set(OBS_SPANS) <= set(spans), f"trace spans {sorted(spans)}")
+    check({s["trace_id"] for s in spans.values()} == {trace_id},
+          "one trace id across the request")
+    for child, parent in (("replica.handler", "replica.request"),
+                          ("batcher.queue_wait", "replica.handler"),
+                          ("batcher.flush", "batcher.queue_wait"),
+                          ("batcher.pad", "batcher.flush"),
+                          ("batcher.device_compute", "batcher.flush")):
+        check(spans[child]["parent_id"] == spans[parent]["span_id"],
+              f"{child} not under {parent}")
+    compute = spans["batcher.device_compute"]
+    trace_dir = compute["attrs"].get("device_trace_dir")
+    check(trace_dir and not compute["attrs"].get("device_trace_error"),
+          f"device_compute carries no device trace: {compute['attrs']}")
+    kernels, copies = _obs_trace_events(os.path.join(trace_dir, "trace.json"))
+    check(kernels, "the span's device trace names no fused_eta kernel")
+    traced = {"wall_ms": wall_ms,
+              "spans_ms": {n: spans[n]["duration_ms"] for n in OBS_SPANS},
+              "kernel": kernels[0][0], "kernel_launches": len(kernels),
+              "kernel_ms": sum(d for _, d in kernels) / 1e3,
+              "h2d_ms": copies["HtoD"] / 1e3, "d2h_ms": copies["DtoH"] / 1e3}
+    # a fast-lane-sized request: fastlane.predict between handler and
+    # queue_wait
+    small_id = uuid.UUID(int=int(rng.integers(1, 2**62))).hex
+    status, _, _ = _obs_post(port, "/api/predict_eta_batch",
+                             _obs_batch(rng, 64),
+                             f"00-{small_id}-00f067aa0ba902b8-01")
+    small = _obs_spans(port, small_id)
+    check(status == 200 and "fastlane.predict" in small
+          and small["batcher.queue_wait"]["parent_id"]
+          == small["fastlane.predict"]["span_id"]
+          and small["fastlane.predict"]["parent_id"]
+          == small["replica.handler"]["span_id"],
+          f"fast-lane trace {sorted(small)}")
+    # the split without the profiler: untraced (budget spent) requests
+    runs = []
+    for _ in range(OBS_SPLIT_REPS):
+        rid = uuid.UUID(int=int(rng.integers(1, 2**62))).hex
+        t0 = time.perf_counter()
+        status, _, _ = _obs_post(port, "/api/predict_eta_batch",
+                                 _obs_batch(rng, OBS_BATCH),
+                                 f"00-{rid}-00f067aa0ba902b9-01")
+        wall = (time.perf_counter() - t0) * 1e3
+        check(status == 200, f"split batch: {status}")
+        spans = _obs_spans(port, rid)
+        if "device_trace_dir" in spans["batcher.device_compute"]["attrs"]:
+            continue          # a capture left in the budget: not a split
+        runs.append({"wall_ms": wall, **{n: spans[n]["duration_ms"]
+                                         for n in OBS_SPANS}})
+    split = {k: _median([r[k] for r in runs]) for k in runs[0]}
+    print(f"[obs] tracing: trace {trace_id} through "
+          f"{' > '.join(OBS_SPANS)}; traced request {wall_ms:.2f} ms, "
+          f"device_compute span {traced['spans_ms']['batcher.device_compute']:.3f}"
+          f" ms, {len(kernels)} launch(es) of {kernels[0][0]} "
+          f"{traced['kernel_ms']:.4f} ms, H2D {traced['h2d_ms']:.4f} ms, "
+          f"D2H {traced['d2h_ms']:.4f} ms; untraced median: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    return {"traced": traced, "split_median_ms": split}
+
+
+def _obs_efficiency(port):
+    status, out = _request(port, "GET", "/api/efficiency")
+    check(status == 200, f"/api/efficiency: {status}")
+    return out
+
+
+def _obs_rows(eff, program):
+    prog = eff["ledger"]["programs"][program]
+    buckets = {int(b): (w["rows"], w["padded"])
+               for b, w in prog["buckets"].items()}
+    return prog["rows"], prog["padded_rows"], prog["cached_rows"], \
+        prog["calls"], buckets
+
+
+def _obs_goodput(port, rng):
+    """(b): ``eta_score`` real and padded rows per bucket equal what was
+    sent; a road route and a dispatch reach ``route_solve`` and
+    ``dispatch_solve``; the watchdog reads ``no_artifact``."""
+    r0, p0, c0, _, b0 = _obs_rows(_obs_efficiency(port), "eta_score")
+    small = _obs_batch(rng, 100)
+    for body in (_obs_batch(rng, OBS_BATCH), small, small):
+        status, _, _ = _obs_post(port, "/api/predict_eta_batch", body)
+        check(status == 200, f"goodput batch: {status}")
+    r1, p1, c1, _, b1 = _obs_rows(_obs_efficiency(port), "eta_score")
+    per_bucket = {b: (b1[b][0] - b0.get(b, (0, 0))[0],
+                      b1[b][1] - b0.get(b, (0, 0))[1]) for b in b1}
+    per_bucket = {b: v for b, v in per_bucket.items() if v != (0, 0)}
+    check((r1 - r0, p1 - p0, c1 - c0) == (OBS_BATCH + 100,
+                                          OBS_BATCH + 512, 100),
+          f"eta_score ledger: rows {r1 - r0}, padded {p1 - p0}, "
+          f"cached {c1 - c0}")
+    check(per_bucket == {OBS_BATCH: (OBS_BATCH, OBS_BATCH),
+                         512: (100, 512)},
+          f"eta_score per bucket {per_bucket}")
+    status, out = _request(port, "POST", "/api/optimize_route",
+                           _road_body(3, 0))
+    check(status == 200, f"road route: {status} {out}")
+    status, out = _request(port, "POST", "/api/dispatch",
+                           _geo_dispatch_body(0, n=8))
+    check(status == 200, f"/api/dispatch: {status} {out}")
+    eff = _obs_efficiency(port)
+    calls = {p: eff["ledger"]["programs"][p]["calls"]
+             for p in ("route_solve", "dispatch_solve")}
+    check(all(v > 0 for v in calls.values()), f"ledger calls {calls}")
+    check(eff["watchdog"]["status"] == "no_artifact"
+          and eff["ledger"]["identity"]["backend"] == CARD,
+          f"watchdog {eff['watchdog'].get('status')}, identity "
+          f"{eff['ledger']['identity']}")
+    status, health = _request(port, "GET", "/api/health")
+    check(health["checks"]["engine"]["efficiency"]["status"] == "no_artifact",
+          f"health efficiency {health['checks']['engine'].get('efficiency')}")
+    rec = {"eta_score_per_bucket": {str(b): {"rows": v[0], "padded": v[1]}
+                                    for b, v in per_bucket.items()},
+           "cached_rows": c1 - c0, "calls": calls,
+           "watchdog": eff["watchdog"]["status"],
+           "identity": eff["ledger"]["identity"]}
+    print(f"[obs] goodput: eta_score per bucket {rec['eta_score_per_bucket']}"
+          f", cached {c1 - c0}; route_solve / dispatch_solve calls "
+          f"{calls}; watchdog {rec['watchdog']} on "
+          f"{rec['identity']['device']}")
+    return rec
+
+
+def _obs_swap_and_page(port, model_path, recorder_dir):
+    """(d): a hot swap records ``model.swap``; a burst of optimize
+    requests whose writes fail at ``store.http`` takes the store SLO to
+    ``page``; one ``slo_page`` bundle ranks the swap among its suspects
+    and ``/api/incidents`` lists it."""
+    import shutil
+
+    tmp = model_path + ".tmp"
+    shutil.copy(os.path.join(ROOT, "artifacts", "eta_mlp.msgpack"), tmp)
+    os.replace(tmp, model_path)
+    t0 = time.perf_counter()
+    while True:
+        status, out = _request(port, "GET", "/api/changes?kind=model.swap")
+        if out.get("count"):
+            break
+        check(time.perf_counter() - t0 < 60, "no model.swap recorded")
+        time.sleep(0.1)
+    swap_s = time.perf_counter() - t0
+    for rep in range(OBS_BURST):
+        status, out = _request(port, "POST", "/api/optimize_route",
+                               _opt_body(3, rep))
+        props = (out or {}).get("properties") or {}
+        check(status == 200 and props.get("degraded") is True,
+              f"burst optimize: {status} {props.get('degraded')}")
+    t0 = time.perf_counter()
+    while True:
+        status, slo = _request(port, "GET", "/api/slo")
+        state = slo["objectives"]["availability:store"]["state"]
+        if state == "page":
+            break
+        check(time.perf_counter() - t0 < 30, f"store SLO stays {state}")
+        time.sleep(0.1)
+    t0 = time.perf_counter()
+    while True:
+        status, inc = _request(port, "GET", "/api/incidents")
+        pages = [i for i in inc["incidents"] if i["reason"] == "slo_page"]
+        if pages:
+            break
+        check(time.perf_counter() - t0 < 30, "no slo_page incident")
+        time.sleep(0.1)
+    kinds = [s["event"]["kind"] for s in pages[0]["suspects"]]
+    check("model.swap" in kinds, f"suspects {kinds}")
+    bundles = [d for d in os.listdir(recorder_dir) if "_slo_page_" in d]
+    check(len(bundles) == 1, f"slo_page bundles {bundles}")
+    with open(os.path.join(recorder_dir, bundles[0], "suspects.json")) as f:
+        check("model.swap" in [s["event"]["kind"]
+                               for s in json.load(f)["suspects"]],
+              "suspects.json lacks the swap")
+    burn = slo["objectives"]["availability:store"]
+    print(f"[obs] SLO: model.swap recorded {swap_s:.2f} s after the copy;"
+          f" {OBS_BURST} journaled writes paged availability:store (burn "
+          f"fast {burn['burn_fast']}, slow {burn['burn_slow']}); bundle "
+          f"{bundles[0]} suspects {kinds}")
+    return {"swap_s": swap_s, "burn_fast": burn["burn_fast"],
+            "burn_slow": burn["burn_slow"], "suspects": kinds,
+            "bundle": bundles[0]}
+
+
+def _obs_profile(port, rng, recorder_dir):
+    """(e): ``POST /api/debug/profile`` under ``RTPU_PROFILE_DEVICE=1``
+    writes ``profile.folded`` and a device trace naming the kernel."""
+    t0 = time.perf_counter()
+    while True:   # an SLO edge may have armed a capture of its own
+        status, _, out = _obs_post(port, "/api/debug/profile",
+                                   {"duration_s": 1.0})
+        if status == 202:
+            break
+        check(status == 409 and time.perf_counter() - t0 < 30,
+              f"/api/debug/profile: {status} {out}")
+        time.sleep(0.2)
+    check(out["armed"] and out["profiler"]["device_trace_error"] is None,
+          f"profiler: {out['profiler']}")
+    for _ in range(3):
+        status, _, _ = _obs_post(port, "/api/predict_eta_batch",
+                                 _obs_batch(rng, OBS_BATCH))
+        check(status == 200, f"profiled batch: {status}")
+    t0 = time.perf_counter()
+    while True:
+        found = [d for d in os.listdir(recorder_dir)
+                 if "_profile_manual_api_" in d and os.path.exists(
+                     os.path.join(recorder_dir, d, "profile.json"))]
+        if found:
+            break
+        check(time.perf_counter() - t0 < 30, "no profile bundle")
+        time.sleep(0.1)
+    bundle = os.path.join(recorder_dir, found[0])
+    files = sorted(os.listdir(bundle))
+    check({"profile.folded", "profile.json", "device_trace.json"}
+          <= set(files), f"profile bundle files {files}")
+    with open(os.path.join(bundle, "profile.json")) as f:
+        meta = json.load(f)
+    check(meta["device_trace_error"] is None and meta["samples"] > 0,
+          f"profile meta {meta.get('device_trace_error')}")
+    kernels, copies = _obs_trace_events(
+        os.path.join(bundle, "device_trace.json"))
+    check(kernels, "the profile's device trace names no fused_eta kernel")
+    print(f"[obs] profile: {meta['samples']} stack samples, "
+          f"{len(kernels)} fused launches in the device trace "
+          f"({sum(d for _, d in kernels) / 1e3:.4f} ms), bundle {found[0]}")
+    return {"samples": meta["samples"], "kernel_launches": len(kernels),
+            "kernel_ms": sum(d for _, d in kernels) / 1e3}
+
+
+def _obs_server(rng, tmp):
+    """(a), (b), (d), (e) through ``python -m routest_tpu_torch.serve``
+    on the card. → record."""
+    import shutil
+    import signal
+
+    port = _free_port()
+    model_path = os.path.join(tmp, "eta.msgpack")
+    shutil.copy(os.path.join(ROOT, "artifacts", "eta_mlp_point.msgpack"),
+                model_path)
+    recorder_dir = os.path.join(tmp, "postmortems")
+    env = dict(os.environ, PORT=str(port), RTPU_HOST="127.0.0.1",
+               ROUTEST_DEVICE=CARD, ETA_MODEL_PATH=model_path,
+               ROUTEST_RELOAD_SEC="0.2", ROUTEST_HIER_CACHE="0",
+               RTPU_OBS_SAMPLE="1.0",
+               RTPU_OBS_DEVICE_TRACE_DIR=os.path.join(tmp, "traces"),
+               # the boot self-check's flush takes the first capture
+               RTPU_OBS_DEVICE_TRACE_MAX="2",
+               RTPU_SLO_FAST_S="2", RTPU_SLO_SLOW_S="10",
+               RTPU_SLO_TICK_S="0.25",
+               RTPU_RECORDER_DIR=recorder_dir,
+               RTPU_RECORDER_MIN_INTERVAL_S="0",
+               RTPU_RECORDER_FOLLOWUP_S="0",
+               RTPU_PROFILE_DEVICE="1", RTPU_PROFILE_DURATION_S="1",
+               RTPU_PROFILE_MIN_INTERVAL_S="0",
+               RTPU_CHAOS_SPEC="store.http:error=1.0",
+               RTPU_STORE_BACKOFF_MS="0")
+    for var in ("ROAD_GRAPH_OSM", "ROAD_GNN_PATH", "ROUTE_TRANSFORMER_PATH",
+                "ROUTEST_HIER_MIN_NODES", "REDIS_URL", "SUPABASE_URL",
+                "RTPU_EFF_KERNEL_ARTIFACT", "RTPU_KERNEL_DTYPE", "RTPU_LIVE"):
+        env.pop(var, None)
+    log = open(os.path.join(tmp, "server.log"), "w+")
+    t_start = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "routest_tpu_torch.serve"],
+                            cwd=ROOT, env=env, stdout=log,
+                            stderr=subprocess.STDOUT)
+    try:
+        _, boot_s = _wait_for("ping", lambda: _request(
+            port, "GET", "/api/ping")[0] == 200, 300, proc, "obs serving")
+        rec = {"boot_s": boot_s, "tracing": _obs_tracing(port, rng)}
+        rec["slo"] = _obs_swap_and_page(port, model_path, recorder_dir)
+        rec["goodput"] = _obs_goodput(port, rng)
+        rec["profile"] = _obs_profile(port, rng, recorder_dir)
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        log.seek(0)
+        text = log.read()
+        log.close()
+        if proc.returncode not in (0, -signal.SIGTERM):
+            print(f"[obs] server log tail:\n{text[-3000:]}")
+    check(proc.returncode in (0, -signal.SIGTERM),
+          f"obs serving: the server exited {proc.returncode} at SIGTERM")
+    counts = {}
+    for line in text.splitlines():
+        try:
+            event = json.loads(line)
+        except ValueError:
+            continue
+        if isinstance(event, dict) and event.get("event") in (
+                "serve_listening", "serve_stopped"):
+            counts[event["event"]] = event["fused_launches"]
+    check(len(counts) == 2, f"obs serving: launch counts logged {counts}")
+    rec["server_fused_launches"] = (counts["serve_stopped"]
+                                    - counts["serve_listening"])
+    if CARD == "cuda":
+        check(rec["server_fused_launches"] > 0,
+              "obs serving: no fused launch over the served requests")
+    rec["server_wall_s"] = time.perf_counter() - t_start
+    return rec
+
+
+def _obs_chaos(rng, tmp):
+    """(c), in this process (a spec armed at boot would fail the
+    server's own self-check, as it does the JAX server's): the first
+    two scoring requests under ``device.compute:error=1@2`` answer as
+    the JAX app does and launch nothing, the third is bitwise the
+    fault-free answer; ``store.http`` errors against the fake PostgREST
+    journal the writes, which are read back after recovery."""
+    import importlib.util
+
+    from routest_tpu_torch import chaos
+    from routest_tpu_torch.core.config import (Config, ServeConfig,
+                                               load_config)
+    from routest_tpu_torch.ops.fused_mlp import fused_eta_forward
+    from routest_tpu_torch.serve.ml_service import EtaService
+
+    artifact = os.path.join(ROOT, "artifacts", "eta_mlp.msgpack")
+    config = load_config()
+    svc = EtaService(config.serve, model_path=artifact, device=CARD)
+    body = _obs_batch(rng, OBS_BATCH)
+    answers, launches = [], []
+    card = Config(serve=ServeConfig(device=CARD))
+    with _Server(svc, card) as srv:
+        chaos.configure(chaos.ChaosEngine(spec="device.compute:error=1@2",
+                                          seed=0))
+        try:
+            for _ in range(3):
+                before = fused_eta_forward.launches
+                answers.append(_request(srv.port, "POST",
+                                        "/api/predict_eta_batch", body))
+                launches.append(fused_eta_forward.launches - before)
+        finally:
+            chaos.configure(None)
+        again = _request(srv.port, "POST", "/api/predict_eta_batch", body)
+    for status, out in answers[:2]:
+        check(status == 503 and out == {"error": "model unavailable"},
+              f"device.compute fault answered {status} {out}")
+    check(answers[2][0] == 200 and again[0] == 200, "recovery answers")
+    check(answers[2][1] == again[1], "the third answer is not the "
+                                     "fault-free one")
+    if CARD == "cuda":
+        check(launches[:2] == [0, 0] and launches[2] >= 1,
+              f"fused launches per request under faults {launches}")
+    # store.http through the fake PostgREST
+    spec = importlib.util.spec_from_file_location(
+        "fake_postgrest", os.path.join(ROOT, "tests", "fake_postgrest.py"))
+    fake = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fake)
+    pg, pg_thread, url = fake.start_fake_postgrest()
+    env = {"SUPABASE_URL": url, "SUPABASE_SERVICE_ROLE_KEY": "smoke-key",
+           "RTPU_STORE_COOLDOWN_S": "0.2", "RTPU_STORE_BACKOFF_MS": "0"}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        cfg = load_config()
+        srv = _Server(EtaService(cfg.serve, model_path=artifact,
+                                 device=CARD), cfg)
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    try:
+        with srv:
+            chaos.configure(chaos.ChaosEngine(spec="store.http:error=1.0@3",
+                                              seed=0))
+            try:
+                status, out = _request(srv.port, "POST",
+                                       "/api/optimize_route", _opt_body(3, 1))
+            finally:
+                chaos.configure(None)
+            props = out["properties"]
+            check(status == 200 and props.get("saved") is True
+                  and props.get("degraded") is True,
+                  f"store.http fault: {status} {props}")
+            time.sleep(0.25)          # the breaker's cooldown
+            status, health = _request(srv.port, "GET", "/api/health")
+            store = health["checks"]["store"]
+            check(store["status"] == "ok"
+                  and store["resilience"]["journal_depth"] == 0,
+                  f"store after recovery {store}")
+            status, hist = _request(srv.port, "GET", "/api/history")
+            check(props["request_id"] in [i["request_id"]
+                                          for i in hist["items"]],
+                  "the journaled write was not read back")
+    finally:
+        pg.shutdown()
+        pg.server_close()
+        pg_thread.join(timeout=10)
+    print(f"[obs] chaos: device.compute answered "
+          f"{[a[0] for a in answers]} with fused launches {launches}, the "
+          f"third bitwise the fault-free answer; store.http journaled the "
+          f"write and read it back after recovery")
+    return {"device_compute_status": [a[0] for a in answers],
+            "device_compute_launches": launches,
+            "store_journaled_and_read_back": True}
+
+
+def _obs_export(rng, tmp):
+    """(f): ``python -m routest_tpu_torch.train.export`` on the shipped
+    artifact; ``ETA_MODEL_PATH`` serves the file (``torch_export``, no
+    fused launch) within phase 9's kernel-vs-plain tolerance of the
+    kernel-served artifact, and bitwise the program before saving (the
+    CLI's own check) and the loaded file's program (here)."""
+    import numpy as np
+    import torch
+
+    from routest_tpu_torch.core.config import load_config
+    from routest_tpu_torch.ops.fused_mlp import fused_eta_forward
+    from routest_tpu_torch.serve.ml_service import EtaService
+    from routest_tpu_torch.train.checkpoint import (default_model_path,
+                                                    load_exported_serving_fn)
+
+    artifact = os.path.join(ROOT, "artifacts", "eta_mlp.msgpack")
+    out = os.path.join(tmp, "eta_mlp.pt2")
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "routest_tpu_torch.train.export",
+                          "--model", artifact, "--out", out, "--device", CARD],
+                         cwd=ROOT, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    check(run.returncode == 0 and os.path.exists(out),
+          f"export CLI rc {run.returncode}: {run.stderr[-2000:]}")
+    old = os.environ.get("ETA_MODEL_PATH")
+    os.environ["ETA_MODEL_PATH"] = out
+    try:
+        config = load_config()
+        svc = EtaService(config.serve, model_path=default_model_path(
+            config.model), device=CARD)
+    finally:
+        if old is None:
+            os.environ.pop("ETA_MODEL_PATH")
+        else:
+            os.environ["ETA_MODEL_PATH"] = old
+    check(svc.available and svc.kernel == "torch_export",
+          f"export not served: {svc.kernel} {svc.load_error}")
+    ref = EtaService(config.serve, model_path=artifact, device=CARD)
+    rows = random_rows(rng, OBS_BATCH)
+    body = _obs_batch(rng, OBS_BATCH)
+    with _Server(svc, config) as srv:
+        status, health = _request(srv.port, "GET", "/api/health")
+        scoring = health["checks"]["model"]["scoring"]
+        check(scoring["kernel"] == "torch_export"
+              and scoring["family"] == "eta_mlp", f"health {scoring}")
+        before = fused_eta_forward.launches
+        status, answer = _request(srv.port, "POST",
+                                  "/api/predict_eta_batch", body)
+        export_launches = fused_eta_forward.launches - before
+        got = svc.predict_batch(rows)
+    check(status == 200 and export_launches == 0,
+          f"export served {status} with {export_launches} fused launches")
+    before = fused_eta_forward.launches
+    want = ref.predict_batch(rows)
+    check(fused_eta_forward.launches > before or CARD != "cuda",
+          "the msgpack artifact did not launch fused_eta")
+    n_q = len(ref.quantiles)
+    err = compare(torch.from_numpy(np.asarray(got, np.float32)),
+                  torch.from_numpy(np.asarray(want, np.float32)),
+                  TOL["bfloat16"], n_q)
+    # The CLI held the loaded file bitwise to the program before saving
+    # (its exit code); the served answers are that file's program's.
+    with torch.no_grad():
+        direct = load_exported_serving_fn(out, CARD)(
+            torch.from_numpy(rows).to(CARD)).cpu().numpy()
+    check(np.array_equal(np.asarray(got), direct),
+          "the served export is not bitwise its program")
+    print(f"[obs] export: CLI {cli_s:.1f} s (its file bitwise the program "
+          f"before saving), served as torch_export with 0 fused launches, "
+          f"bitwise the file's program; vs the kernel-served artifact max "
+          f"abs {err[0]:.4g}, rel {err[1]:.4g} (tol {TOL['bfloat16']})")
+    return {"cli_s": cli_s, "max_abs_err_vs_kernel": err[0],
+            "max_rel_err_vs_kernel": err[1], "bitwise_vs_program": True}
+
+
+def _obs_overhead_run():
+    """The body of (g), run in a fresh process by :func:`_obs_overhead`:
+    single-row ``/api/predict_eta`` wall ms with tracing off, at the
+    default sample rate and at 1.0, in turns on one app (each request a
+    new distance: no cache hit). → {setting: {p50_ms, p95_ms, n}}."""
+    from routest_tpu_torch.core.config import load_config, load_obs_config
+    from routest_tpu_torch.obs import trace
+    from routest_tpu_torch.serve.ml_service import EtaService
+
+    artifact = os.path.join(ROOT, "artifacts", "eta_mlp.msgpack")
+    config = load_config()
+    svc = EtaService(config.serve, model_path=artifact, device=CARD)
+    settings = {"off": dict(enabled=False),
+                "default": dict(sample_rate=load_obs_config({}).sample_rate),
+                "1.0": dict(sample_rate=1.0)}
+    samples = {k: [] for k in settings}
+    km = 1000
+    with _Server(svc, config) as srv:
+        for _ in range(2):        # off, default, 1.0, twice in turn
+            for name, kw in settings.items():
+                trace.configure_tracer(trace.Tracer(**kw))
+                for _ in range(OBS_OVERHEAD_REPS // 2):
+                    km += 1
+                    t0 = time.perf_counter()
+                    status, _ = _request(srv.port, "POST",
+                                         "/api/predict_eta",
+                                         {"summary": {"distance": km}})
+                    samples[name].append((time.perf_counter() - t0) * 1e3)
+                    check(status == 200, f"overhead request {status}")
+    out = {}
+    for name, ms in samples.items():
+        ms = sorted(ms)
+        out[name] = {"p50_ms": ms[len(ms) // 2],
+                     "p95_ms": ms[int(0.95 * (len(ms) - 1))], "n": len(ms)}
+    return out
+
+
+def _obs_overhead(smi_line):
+    """(g), a record and not a gate: :func:`_obs_overhead_run` in a
+    fresh process, so that this script's heap (every earlier phase's
+    graphs and routers) does not time the garbage collector in with
+    the spans."""
+    from routest_tpu_torch.core.config import load_obs_config
+
+    run = subprocess.run(
+        [sys.executable, "-c", "import json, os, chip_smoke; "
+         "chip_smoke.CARD = os.environ['ROUTEST_DEVICE']; "
+         "print(json.dumps(chip_smoke._obs_overhead_run()))"],
+        cwd=ROOT, env=dict(os.environ, ROUTEST_DEVICE=CARD),
+        capture_output=True, text=True, timeout=600)
+    check(run.returncode == 0, f"overhead run rc {run.returncode}: "
+                               f"{run.stderr[-2000:]}")
+    rec = json.loads(run.stdout.strip().splitlines()[-1])
+    rec["default_sample_rate"] = load_obs_config({}).sample_rate
+    rec["card"] = smi_line
+    print(f"[obs] overhead ({smi_line}, a fresh process): single-row p95 "
+          f"off {rec['off']['p95_ms']:.3f} ms, default "
+          f"{rec['default']['p95_ms']:.3f} ms, 1.0 {rec['1.0']['p95_ms']:.3f}"
+          f" ms (p50 {rec['off']['p50_ms']:.3f} / "
+          f"{rec['default']['p50_ms']:.3f} / {rec['1.0']['p50_ms']:.3f})")
+    return rec
+
+
+def phase_obs(smi_line):
+    """Phase 14, the replica's observability spine on the card. →
+    record."""
+    import tempfile
+
+    import numpy as np
+
+    from routest_tpu_torch.ops.fused_mlp import fused_eta_forward
+
+    rng = np.random.default_rng(14)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        record = _obs_server(rng, tmp)
+        before = fused_eta_forward.launches
+        record["chaos"] = _obs_chaos(rng, tmp)
+        record["export"] = _obs_export(rng, tmp)
+        record["overhead"] = _obs_overhead(smi_line)
+        record["fused_launches_in_process"] = (fused_eta_forward.launches
+                                               - before)
+    record["wall_s"] = time.perf_counter() - t0
+    print(json.dumps({"observability": record}))
+    launches = (record["server_fused_launches"]
+                + record["fused_launches_in_process"])
+    if CARD == "cuda":
+        check(record["fused_launches_in_process"] > 0,
+              "observability: no fused launch in this process")
+    return record, launches
+
+
 def main() -> int:
     import torch
 
@@ -3872,6 +4545,8 @@ def main() -> int:
         _, core_launches = phase_serving_core()
         phase = "train"
         _, train_launches = phase_train()
+        phase = "observability"
+        _, obs_launches = phase_obs(smi_line)
         phase = "times"
         table = phase_times(rng)
     except Exception as e:
@@ -3906,6 +4581,9 @@ def main() -> int:
     # ... and over phase 13's serving of trained models: the bootstrap
     # server's requests and the CLI artifact's EtaService
     kernels[0]["launches_train"] = train_launches
+    # ... and over phase 14's: the traced server's requests and this
+    # process's chaos, export-comparison and overhead requests
+    kernels[0]["launches_observability"] = obs_launches
     print(json.dumps({"kernels": kernels}))
     print(f"{smi_line}")
     print(json.dumps({"ok": True, "device": {

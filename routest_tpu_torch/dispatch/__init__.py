@@ -13,9 +13,10 @@ The counterpart of ``routest_tpu/dispatch``:
   pass and the update streams out as a ``plan_update`` SSE event.
 
 Serving wiring lives in ``serve/app.py`` (``/api/dispatch``); knobs are
-``RTPU_DISPATCH_*`` (``core/config.py``). The JAX package's chaos points
-(``dispatch.solve``, ``dispatch.resolve``), trace spans and efficiency
-ledger records arrive with the observability slice.
+``RTPU_DISPATCH_*`` (``core/config.py``). The chaos points
+``dispatch.solve`` and ``dispatch.resolve``, the ``dispatch.batch_solve``
+span and the ``dispatch_solve`` / ``dispatch_reopt`` goodput records are
+the JAX package's.
 """
 
 from routest_tpu_torch.dispatch.batcher import (DispatchBatcher,

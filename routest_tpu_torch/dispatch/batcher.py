@@ -16,6 +16,12 @@ a fixed pre-drain wait for forced batch shapes.
 Problems priced under different live-metric epochs never share a drain
 (their cost matrices disagree about the world); the leader drains one
 epoch group per round, in arrival order.
+
+Chaos point ``dispatch.solve``: the silently-wrong-plan fault. A
+``skew`` injection perturbs every merged cost matrix before the solve,
+so the replica keeps answering well-formed 200 plans — confidently, and
+wrong. Each drain is one ``dispatch_solve`` record in the goodput
+ledger, and each caller's solve one ``dispatch.batch_solve`` span.
 """
 
 from __future__ import annotations
@@ -26,7 +32,10 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from routest_tpu_torch import chaos
 from routest_tpu_torch.obs import get_registry
+from routest_tpu_torch.obs.efficiency import get_ledger
+from routest_tpu_torch.obs.trace import trace_span
 from routest_tpu_torch.optimize.vrp import solve_host_dispatch_batch
 
 _m_dispatches = get_registry().counter(
@@ -66,7 +75,8 @@ class DispatchProblem:
 
 
 class _Entry:
-    __slots__ = ("problems", "key", "event", "results", "error")
+    __slots__ = ("problems", "key", "event", "results", "error",
+                 "dispatch_rows", "dispatch_requests", "t_q")
 
     def __init__(self, problems: Sequence[DispatchProblem], key) -> None:
         self.problems = list(problems)
@@ -74,6 +84,10 @@ class _Entry:
         self.event = threading.Event()
         self.results: Optional[List[dict]] = None
         self.error: Optional[BaseException] = None
+        self.dispatch_rows = 0
+        self.dispatch_requests = 0
+        # Enqueue stamp for the goodput ledger's queue/compute split.
+        self.t_q = time.monotonic()
 
 
 class DispatchBatcher:
@@ -119,7 +133,16 @@ class DispatchBatcher:
 
     def solve(self, problems: Sequence[DispatchProblem]) -> List[dict]:
         """One caller's problems through the merge queue → one plan per
-        problem, in order."""
+        problem, in order, traced with how many rows and requests rode
+        the drain that carried it."""
+        with trace_span("dispatch.batch_solve",
+                        rows=len(problems)) as span:
+            entry = self._solve_entry(problems)
+            span.set_attr("dispatch_rows", entry.dispatch_rows)
+            span.set_attr("merged_requests", entry.dispatch_requests)
+            return entry.results
+
+    def _solve_entry(self, problems: Sequence[DispatchProblem]) -> _Entry:
         key = self._epoch_fn() if self._epoch_fn is not None else 0
         entry = _Entry(problems, key)
         with self._lock:
@@ -133,7 +156,7 @@ class DispatchBatcher:
                 raise TimeoutError("dispatch batcher wedged")
             if entry.error is not None:
                 raise entry.error
-            return entry.results
+            return entry
         drain_error: Optional[BaseException] = None
         try:
             if self.window_s > 0:
@@ -192,19 +215,36 @@ class DispatchBatcher:
                     it.event.set()
         if entry.error is not None:
             raise entry.error
-        return entry.results
+        return entry
 
     def _dispatch(self, batch: List[_Entry]) -> None:
         merged: List[DispatchProblem] = []
         for it in batch:
             merged.extend(it.problems)
-        if len(merged) > self.max_rows:
+        oversized = len(merged) > self.max_rows
+        if oversized:
             with self._lock:
                 self._oversized += 1
+        queue_s = max(0.0, time.monotonic() - min(it.t_q for it in batch))
         t0 = time.perf_counter()
         try:
+            dists = [p.dist for p in merged]
+            # Chaos 'dispatch.solve' skew: perturb the cost matrices the
+            # device solves over — the plan comes back well-formed and
+            # wrong. The magnitude is a PERCENT relative perturbation
+            # (``dispatch.solve:skew=1.0/40`` ≙ up to 40% per-leg cost
+            # error) with a deterministic per-magnitude pattern.
+            skew = chaos.inject("dispatch.solve")
+            if skew:
+                rel = abs(skew) / 100.0
+                rng = np.random.default_rng(
+                    int(abs(skew) * 1e3) & 0x7FFFFFFF)
+                dists = [
+                    d * (1.0 + rel
+                         * rng.random(d.shape).astype(np.float32))
+                    for d in dists]
             results = solve_host_dispatch_batch(
-                [p.dist for p in merged],
+                dists,
                 [p.demands for p in merged],
                 [p.capacity for p in merged],
                 [p.max_cost for p in merged],
@@ -216,10 +256,21 @@ class DispatchBatcher:
                 it.error = e
                 it.event.set()
             return
-        _m_solve.observe(time.perf_counter() - t0)
+        compute_s = time.perf_counter() - t0
+        _m_solve.observe(compute_s)
+        # Goodput ledger: the solver pads the problem axis to the next
+        # power of two — that is the launched batch this drain counts.
+        n = len(merged)
+        b_pad = 1 << max(0, n - 1).bit_length()
+        get_ledger().record(
+            "dispatch_solve", real_rows=n, padded_rows=b_pad,
+            bucket=b_pad, queue_s=queue_s, compute_s=compute_s,
+            oversized=oversized)
         pos = 0
         for it in batch:
             m = len(it.problems)
             it.results = results[pos:pos + m]
+            it.dispatch_rows = len(merged)
+            it.dispatch_requests = len(batch)
             pos += m
             it.event.set()

@@ -20,19 +20,27 @@ Coherency rules:
   same metric generation (the flip is atomic on the router; a tick that
   straddles a flip reprices next tick — epochs only move forward);
 - exactly the degraded re-solve: plans whose corridor cost stayed
-  within the ratio keep serving untouched (no churn on healthy plans).
+  within the ratio keep serving untouched (no churn on healthy plans);
+- chaos point ``dispatch.resolve`` guards the re-solve pass: a dropped
+  pass leaves every previous plan serving and the epoch unconsumed —
+  healthy records included — and the next tick retries, as the live
+  customizer's flip does. Each pass is one ``dispatch_reopt`` record in
+  the goodput ledger.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Callable, List, Optional
 
+from routest_tpu_torch import chaos
 from routest_tpu_torch.dispatch.batcher import (DispatchBatcher,
                                                 DispatchProblem)
 from routest_tpu_torch.dispatch.registry import (ActiveDispatch,
                                                  DispatchRegistry)
 from routest_tpu_torch.obs import get_registry
+from routest_tpu_torch.obs.efficiency import get_ledger
 from routest_tpu_torch.optimize.vrp import trips_cost
 from routest_tpu_torch.utils.logging import get_logger
 
@@ -40,8 +48,8 @@ _log = get_logger("routest_tpu_torch.dispatch.reopt")
 
 _m_reopt = get_registry().counter(
     "rtpu_dispatch_reopt_total",
-    "Re-optimization passes, by result (clean / resolved / error).",
-    ("result",))
+    "Re-optimization passes, by result (clean / resolved / chaos / "
+    "error).", ("result",))
 _m_updates = get_registry().counter(
     "rtpu_dispatch_plan_updates_total",
     "plan_update events pushed to dispatch SSE channels.")
@@ -163,17 +171,35 @@ class ReoptLoop:
             _m_reopt.labels(result="clean").inc()
             return dict(out, result="clean")
 
-        # Chunked to the batcher's drain size: a mass degradation
-        # (max_active can exceed max_rows) must not submit one
-        # oversized entry.
-        results: List[dict] = []
-        step = max(1, self.batcher.max_rows)
-        for i in range(0, len(degraded), step):
-            results.extend(self.batcher.solve([
-                DispatchProblem(matrices[r.id], r.demands,
-                                r.capacity, r.max_cost,
-                                r.tw_open, r.tw_close)
-                for r in degraded[i:i + step]]))
+        try:
+            # The whole re-solve pass is one fault point: a dropped pass
+            # leaves every previous plan serving (the epoch stays
+            # unconsumed → retried next tick). Chunked to the batcher's
+            # drain size: a mass degradation (max_active can exceed
+            # max_rows) must not submit one oversized entry.
+            chaos.inject("dispatch.resolve")
+            results: List[dict] = []
+            t_pass = time.perf_counter()
+            step = max(1, self.batcher.max_rows)
+            for i in range(0, len(degraded), step):
+                results.extend(self.batcher.solve([
+                    DispatchProblem(matrices[r.id], r.demands,
+                                    r.capacity, r.max_cost,
+                                    r.tw_open, r.tw_close)
+                    for r in degraded[i:i + step]]))
+            # The ledger sees the pass as its own program: every row is
+            # real (the batcher's dispatch_solve records account the
+            # padding underneath).
+            get_ledger().record(
+                "dispatch_reopt", real_rows=len(degraded),
+                padded_rows=len(degraded),
+                compute_s=time.perf_counter() - t_pass)
+        except chaos.ChaosError:
+            _m_reopt.labels(result="chaos").inc()
+            with self._lock:
+                self._ticks += 1
+                self._last_result = dict(out, result="chaos")
+            return dict(out, result="chaos")
 
         for rec in healthy:
             rec.epoch = epoch       # healthy under the new metric

@@ -9,12 +9,13 @@ GNN regime), and hand the blended metric to
 re-pricing on the router's device) happens here, on this thread, before
 the flip — the serving path only ever sees a completed generation.
 
-Failure containment: any exception anywhere in the cycle — snapshot,
-blend, customization, install — counts a failed flip and leaves the
-previous metric generation serving untouched. A cycle with too little
-evidence (``min_obs_edges``) skips rather than flipping to a noise
-metric. The JAX package's chaos point ``live.customize`` and its change
-ledger wait for the observability slice.
+Failure containment: the chaos point ``live.customize`` fires at cycle
+start, and any exception anywhere in the cycle — injection, snapshot,
+blend, customization, install — counts a failed flip (recorded in the
+change ledger) and leaves the previous metric generation serving
+untouched. A cycle with too little evidence (``min_obs_edges``) skips
+rather than flipping to a noise metric. A flip is a ``live.flip``
+change.
 
 Metrics: ``rtpu_live_metric_epoch``, ``rtpu_live_flips_total
 {result}``, ``rtpu_live_customize_seconds``,
@@ -29,8 +30,11 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from routest_tpu_torch.chaos import ChaosError
+from routest_tpu_torch.chaos import inject as chaos_inject
 from routest_tpu_torch.live.state import CongestionState
 from routest_tpu_torch.obs import get_registry
+from routest_tpu_torch.obs.ledger import record_change
 from routest_tpu_torch.utils.logging import get_logger
 
 _metrics = None
@@ -47,7 +51,7 @@ def _cust_metrics():
             "flips": reg.counter(
                 "rtpu_live_flips_total",
                 "Metric-refresh cycles, by result "
-                "(ok / skipped / failed).", ("result",)),
+                "(ok / skipped / chaos / failed).", ("result",)),
             "dur": reg.histogram(
                 "rtpu_live_customize_seconds",
                 "One metric refresh: snapshot + blend + overlay "
@@ -83,6 +87,14 @@ class MetricCustomizer:
         m = _cust_metrics()
         t0 = time.perf_counter()
         try:
+            chaos_inject("live.customize")
+        except ChaosError as e:
+            m["flips"].labels(result="chaos").inc()
+            record_change("live.customize_failed",
+                          detail={"reason": f"chaos: {e}"})
+            self.last_result = {"flipped": False, "reason": f"chaos: {e}"}
+            return self.last_result
+        try:
             snap = self._state.snapshot(now)
             if snap.n_obs_edges < self.min_obs_edges:
                 m["flips"].labels(result="skipped").inc()
@@ -100,6 +112,8 @@ class MetricCustomizer:
                 blended, snap.epoch, route=self.route_metric)
         except Exception as e:
             m["flips"].labels(result="failed").inc()
+            record_change("live.customize_failed",
+                          detail={"reason": f"{type(e).__name__}: {e}"})
             get_logger("routest_tpu_torch.live").error(
                 "metric_refresh_failed",
                 error=f"{type(e).__name__}: {e}")
@@ -110,6 +124,9 @@ class MetricCustomizer:
         self.flips += 1
         self.last_flip_unix = time.time()
         m["flips"].labels(result="ok").inc()
+        record_change("live.flip",
+                      detail={"epoch": snap.epoch,
+                              "obs_edges": snap.n_obs_edges})
         m["epoch"].set(snap.epoch)
         m["staleness"].set(0.0)
         m["dur"].observe(dur)

@@ -7,8 +7,9 @@ into :class:`CongestionState` in one vectorized call. Failures stay
 local: a malformed event (fuzz, schema drift) is dropped with a reason
 label, a fold that raises drops that batch (reason ``error``), and a
 subscription that closes is re-subscribed with capped backoff (the
-estimator goes stale, never wedged). The JAX package's chaos point
-``live.ingest`` waits for the chaos module.
+estimator goes stale, never wedged). The chaos point ``live.ingest``
+fires per batch: an injected fault drops THAT batch (reason ``chaos``),
+never the subscription.
 
 Metrics: ``rtpu_live_obs_total``, ``rtpu_live_obs_dropped_total
 {reason}``, ``rtpu_live_ingest_lag_seconds``, ``rtpu_live_resubscribes
@@ -23,6 +24,8 @@ from typing import Optional
 
 import numpy as np
 
+from routest_tpu_torch.chaos import ChaosError
+from routest_tpu_torch.chaos import inject as chaos_inject
 from routest_tpu_torch.live.probes import DEFAULT_CHANNEL
 from routest_tpu_torch.live.state import CongestionState
 from routest_tpu_torch.obs import get_registry
@@ -42,7 +45,7 @@ def _ingest_metrics():
             "dropped": reg.counter(
                 "rtpu_live_obs_dropped_total",
                 "Probe batches dropped, by reason "
-                "(malformed / error).", ("reason",)),
+                "(chaos / malformed / error).", ("reason",)),
             "lag": reg.histogram(
                 "rtpu_live_ingest_lag_seconds",
                 "Publish-stamp to fold latency per probe batch."),
@@ -72,6 +75,11 @@ class ProbeIngester:
         (0 = dropped). Public so tests and the HTTP probe endpoint can
         drive ingestion without a bus round trip."""
         m = _ingest_metrics()
+        try:
+            chaos_inject("live.ingest")
+        except ChaosError:
+            m["dropped"].labels(reason="chaos").inc()
+            return 0
         try:
             obs = event["obs"]
             edges = np.asarray([o[0] for o in obs], np.int64)

@@ -6,8 +6,8 @@ snapshot and Prometheus exposition text (``text/plain; version=0.0.4``).
 The batcher, the fast lane, dispatch and the WSGI layer register their
 metrics here, and ``register_build_info`` the build-identity gauges
 (labelled with ``torch`` and its version where the JAX package names
-``jax``). Trace exemplars arrive with the observability slice, which
-brings the tracer they read.
+``jax``). Each histogram bucket keeps its most recent exemplar: the
+trace id of an observation made inside a sampled trace.
 
 Histograms use FIXED log-scale buckets (1–2.5–5 per decade) rather than
 reservoirs: observation is O(log buckets) with no RNG, series from
@@ -25,7 +25,22 @@ import threading
 import time
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
-# Latency seconds, 500 µs … 60 s: the serving stack's observed range.
+# Exemplar capture reads the ambient trace context lazily (obs.trace
+# imports nothing from this module, so the deferred import cannot
+# cycle; deferring keeps registry importable standalone).
+_current_context = None
+
+
+def _ambient_trace_context():
+    global _current_context
+    if _current_context is None:
+        from routest_tpu_torch.obs.trace import current_context
+
+        _current_context = current_context
+    return _current_context()
+
+# Latency seconds, 500 µs … 60 s: the serving stack's observed range
+# (sub-ms batcher waits up to multi-second cold road solves).
 DEFAULT_TIME_BUCKETS: Tuple[float, ...] = (
     0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
     1.0, 2.5, 5.0, 10.0, 30.0, 60.0,
@@ -86,7 +101,7 @@ class Gauge(_Child):
 
 
 class Histogram(_Child):
-    __slots__ = ("buckets", "counts", "sum", "count")
+    __slots__ = ("buckets", "counts", "sum", "count", "exemplars")
 
     def __init__(self, buckets: Sequence[float]) -> None:
         super().__init__()
@@ -94,15 +109,36 @@ class Histogram(_Child):
         self.counts = [0] * (len(self.buckets) + 1)  # + the +Inf bucket
         self.sum = 0.0
         self.count = 0
+        # Per-bucket exemplars: the most recent (trace_id, value,
+        # unix_ms) observation made inside a SAMPLED trace — the link
+        # from "p99 spiked" to a dumpable trace (/api/trace?trace_id=).
+        self.exemplars: List[Optional[Tuple[str, float, int]]] = \
+            [None] * (len(self.buckets) + 1)
 
     def observe(self, v: float) -> None:
         if not math.isfinite(v):
             return  # a NaN observation would poison sum forever
         i = bisect.bisect_left(self.buckets, v)
+        ctx = _ambient_trace_context()
+        exemplar = (ctx.trace_id, v, int(time.time() * 1000)) \
+            if ctx is not None and ctx.sampled else None
         with self._lock:
             self.counts[i] += 1
             self.sum += v
             self.count += 1
+            if exemplar is not None:
+                self.exemplars[i] = exemplar
+
+    def exemplar_list(self) -> List[dict]:
+        """Non-empty bucket exemplars, one dict per bucket:
+        ``{le, trace_id, value, unix_ms}`` (``le`` = the bucket's upper
+        bound; the overflow bucket reports ``inf``)."""
+        with self._lock:
+            pairs = list(zip(list(self.buckets) + [math.inf],
+                             self.exemplars))
+        return [{"le": le, "trace_id": ex[0], "value": round(ex[1], 6),
+                 "unix_ms": ex[2]}
+                for le, ex in pairs if ex is not None]
 
     def cumulative(self) -> List[Tuple[float, int]]:
         """[(upper_bound, cumulative_count), …, (inf, total)]."""
@@ -118,8 +154,8 @@ class Histogram(_Child):
     def quantile(self, q: float) -> Optional[float]:
         """Prometheus-style histogram_quantile: linear interpolation
         inside the covering bucket (uniformity assumption). None when
-        empty; the top bucket clamps to its lower bound rather than
-        inventing an upper edge for +Inf."""
+        empty; the top bucket clamps to its lower bound + sum/count cap
+        rather than inventing an upper edge for +Inf."""
         with self._lock:
             counts = list(self.counts)
             total = self.count
@@ -228,17 +264,42 @@ class MetricsRegistry:
                                    buckets)
 
     def get(self, name: str) -> Optional[_Metric]:
-        """Registered family by name, or None (read-side consumers must
-        not create families as a side effect of looking)."""
+        """Registered family by name, or None (read-side consumers —
+        the SLO engine's rollup sources — must not create families as a
+        side effect of looking)."""
         with self._lock:
             return self._metrics.get(name)
 
     # ── export ────────────────────────────────────────────────────────
 
+    def cumulative_sample(self) -> dict:
+        """Raw cumulative state for delta-based consumers (the timeline
+        store): ``name → {kind, labelnames, buckets, series}`` where
+        ``series`` maps the label-value tuple to the counter/gauge
+        value or, for histograms, ``(bucket counts tuple, sum, count)``.
+        Rawer and cheaper than :meth:`snapshot` — no quantile math, no
+        exemplar copies — because it runs on every timeline tick."""
+        out = {}
+        with self._lock:
+            metrics = list(self._metrics.items())
+        for name, m in metrics:
+            series = {}
+            for key, child in m.items():
+                if m.kind == "histogram":
+                    assert isinstance(child, Histogram)
+                    with child._lock:
+                        series[key] = (tuple(child.counts), child.sum,
+                                       child.count)
+                else:
+                    series[key] = child.value
+            out[name] = {"kind": m.kind, "labelnames": m.labelnames,
+                         "buckets": m.buckets, "series": series}
+        return out
+
     def snapshot(self) -> dict:
         """JSON-shaped dump: name → {type, help, series:[{labels, …}]}.
         Histogram series carry count/sum plus interpolated p50/p95/p99
-        (same unit as observed)."""
+        (ms-free: same unit as observed)."""
         out = {}
         with self._lock:
             metrics = sorted(self._metrics.items())
@@ -254,6 +315,9 @@ class MetricsRegistry:
                         for q, label in ((0.5, "p50"), (0.95, "p95"),
                                          (0.99, "p99")):
                             entry[label] = round(child.quantile(q), 6)
+                        exemplars = child.exemplar_list()
+                        if exemplars:
+                            entry["exemplars"] = exemplars
                     series.append(entry)
                 else:
                     series.append({"labels": labels, "value": child.value})
@@ -261,8 +325,15 @@ class MetricsRegistry:
         return out
 
     def prometheus_text(self) -> str:
-        """Exposition format 0.0.4: HELP/TYPE per family; histograms as
-        cumulative ``_bucket{le=…}`` + ``_sum`` + ``_count``."""
+        """Exposition format 0.0.4 + OpenMetrics exemplar annotations:
+        HELP/TYPE per family; histograms as cumulative
+        ``_bucket{le=…}`` + ``_sum`` + ``_count``, each bucket carrying
+        its most recent sampled exemplar as the OpenMetrics
+        ``# {trace_id="…"} value timestamp`` suffix — the link from a
+        p99 bucket to a dumpable trace survives the text exposition,
+        not only the JSON snapshot (exemplar-aware scrapers parse it;
+        classic parsers that reject exemplars should scrape the JSON
+        surface instead — docs/OBSERVABILITY.md "Exemplars")."""
         lines: List[str] = []
         with self._lock:
             metrics = sorted(self._metrics.items())
@@ -274,14 +345,23 @@ class MetricsRegistry:
                 base = _fmt_labels(m.labelnames, key)
                 if m.kind == "histogram":
                     assert isinstance(child, Histogram)
-                    for bound, running in child.cumulative():
+                    bounds = list(child.buckets) + [math.inf]
+                    with child._lock:
+                        counts = list(child.counts)
+                        exemplars = list(child.exemplars)
+                        hsum, hcount = child.sum, child.count
+                    running = 0
+                    for bound, c, ex in zip(bounds, counts, exemplars):
+                        running += c
                         le = "+Inf" if math.isinf(bound) else repr(bound)
-                        lines.append(
+                        line = (
                             f"{name}_bucket"
                             f"{_fmt_labels(m.labelnames, key, (('le', le),))}"
                             f" {running}")
-                    with child._lock:
-                        hsum, hcount = child.sum, child.count
+                        if ex is not None:
+                            line += (f' # {{trace_id="{ex[0]}"}} '
+                                     f"{ex[1]:g} {ex[2] / 1000.0:.3f}")
+                        lines.append(line)
                     lines.append(f"{name}_sum{base} {hsum}")
                     lines.append(f"{name}_count{base} {hcount}")
                 else:
@@ -302,7 +382,7 @@ _PROCESS_START = time.time()
 
 def _git_sha() -> str:
     """Best-effort build identity: the deploy platforms' env stamps
-    first (``RENDER_GIT_COMMIT`` / ``GIT_COMMIT_SHA``, as the health
+    first (the names ``core/config.py`` already honors for the health
     version field), then the working tree's ``.git/HEAD`` (a file read,
     no subprocess at serve boot)."""
     import os

@@ -1,0 +1,328 @@
+"""Sampling tracer with W3C ``traceparent`` propagation.
+
+The span model is Dapper's: a trace is a tree of timed spans sharing one
+128-bit trace id; each span records its parent span id, so the tree
+reconstructs from a flat dump. The ambient current span rides a
+contextvar (per-thread-context, like the request id in
+``utils/logging.py``), and crosses processes as the W3C Trace Context
+``traceparent`` header: ``00-<trace_id:32hex>-<span_id:16hex>-<flags>``.
+
+Sampling is head-based and propagated: the first hop (normally the
+gateway) decides once per trace, and every downstream hop honors the
+``sampled`` flag bit — a trace is recorded everywhere or nowhere, never
+in fragments. Unsampled spans still carry ids through the context so
+the header keeps flowing.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import os
+import random
+import re
+import threading
+import time
+import uuid
+from typing import Dict, Iterator, Optional
+
+from routest_tpu_torch.obs.export import SpanBuffer
+
+# Correlation-id shape shared by the WSGI layer and the gateway: a
+# caller-supplied X-Request-ID is echoed only when it is bounded and
+# log-safe; anything else gets a fresh id (never inject arbitrary bytes
+# into every structured log line).
+REQUEST_ID_RE = re.compile(r"^[A-Za-z0-9._-]{1,64}$")
+
+_TRACEPARENT_RE = re.compile(
+    r"^([0-9a-f]{2})-([0-9a-f]{32})-([0-9a-f]{16})-([0-9a-f]{2})$")
+
+# Sentinel for "parent = whatever span is ambient in this context" —
+# distinct from parent=None, which explicitly starts a new root (the
+# server edge after a failed header extract must not adopt a stale
+# context left by a previous request on the same thread).
+CURRENT = object()
+
+
+def mint_request_id() -> str:
+    return uuid.uuid4().hex[:16]
+
+
+def _new_trace_id() -> str:
+    return uuid.uuid4().hex  # 32 hex chars, nonzero w.p. 1
+
+
+def _new_span_id() -> str:
+    return os.urandom(8).hex()
+
+
+class SpanContext:
+    """The propagatable identity of a span: enough to parent children
+    and to serialize as ``traceparent``, nothing more. ``remote`` marks
+    a context that arrived over the wire (``parse_traceparent``) — the
+    span parented under it is this PROCESS's root, which is where
+    tail-based retention makes its per-process verdict."""
+
+    __slots__ = ("trace_id", "span_id", "sampled", "remote")
+
+    def __init__(self, trace_id: str, span_id: str, sampled: bool,
+                 remote: bool = False) -> None:
+        self.trace_id = trace_id
+        self.span_id = span_id
+        self.sampled = sampled
+        self.remote = remote
+
+
+class Span:
+    """One timed operation. Context-manager protocol via Tracer.span();
+    mutating helpers are no-ops after finish."""
+
+    __slots__ = ("name", "ctx", "parent_id", "attrs", "status",
+                 "start_unix", "_t0", "duration_ms", "thread",
+                 "remote_parent")
+
+    def __init__(self, name: str, ctx: SpanContext,
+                 parent_id: Optional[str], attrs: Dict,
+                 remote_parent: bool = False) -> None:
+        self.name = name
+        self.ctx = ctx
+        self.parent_id = parent_id
+        self.attrs = attrs
+        # Parent lives in another process (adopted traceparent): this
+        # span is the process-LOCAL root of its trace.
+        self.remote_parent = remote_parent
+        self.status = "ok"
+        self.start_unix = time.time()
+        self._t0 = time.perf_counter()
+        self.duration_ms: Optional[float] = None
+        self.thread = threading.get_ident()
+
+    @property
+    def trace_id(self) -> str:
+        return self.ctx.trace_id
+
+    @property
+    def span_id(self) -> str:
+        return self.ctx.span_id
+
+    @property
+    def sampled(self) -> bool:
+        return self.ctx.sampled
+
+    def set_attr(self, key: str, value) -> None:
+        if self.ctx.sampled:
+            self.attrs[key] = value
+
+    def _finish(self, error: Optional[BaseException]) -> dict:
+        self.duration_ms = (time.perf_counter() - self._t0) * 1000.0
+        if error is not None:
+            self.status = "error"
+            self.attrs.setdefault("error", f"{type(error).__name__}: {error}")
+        rec = {
+            "name": self.name,
+            "trace_id": self.ctx.trace_id,
+            "span_id": self.ctx.span_id,
+            "parent_id": self.parent_id,
+            "start_unix": self.start_unix,
+            "duration_ms": round(self.duration_ms, 4),
+            "status": self.status,
+            "thread": self.thread,
+            "attrs": self.attrs,
+        }
+        if self.remote_parent:
+            rec["remote_parent"] = True
+        return rec
+
+
+class _NoopSpan:
+    """Shared do-nothing span for a disabled tracer: no ids, no context
+    mutation, zero allocation per call."""
+
+    __slots__ = ()
+    ctx = None
+    trace_id = span_id = parent_id = None
+    sampled = False
+
+    def set_attr(self, key: str, value) -> None:
+        pass
+
+
+NOOP_SPAN = _NoopSpan()
+
+_current: contextvars.ContextVar[Optional[SpanContext]] = \
+    contextvars.ContextVar("rtpu_current_span", default=None)
+
+
+def current_context() -> Optional[SpanContext]:
+    """The ambient span context (a Span exposes .ctx; both work as
+    parents). None outside any span."""
+    return _current.get()
+
+
+def parse_traceparent(value: Optional[str]) -> Optional[SpanContext]:
+    """``traceparent`` header → SpanContext, or None for anything
+    malformed (wrong shape, all-zero ids, the reserved version ff) — the
+    W3C-prescribed fallback is "start a new trace", never an error."""
+    if not value:
+        return None
+    m = _TRACEPARENT_RE.match(value.strip().lower())
+    if not m:
+        return None
+    version, trace_id, span_id, flags = m.groups()
+    if version == "ff" or set(trace_id) == {"0"} or set(span_id) == {"0"}:
+        return None
+    return SpanContext(trace_id, span_id, bool(int(flags, 16) & 0x01),
+                       remote=True)
+
+
+def format_traceparent(ctx: SpanContext) -> str:
+    return (f"00-{ctx.trace_id}-{ctx.span_id}-"
+            f"{'01' if ctx.sampled else '00'}")
+
+
+class Tracer:
+    """Creates spans, owns the sampling decision and the span buffer.
+
+    - ``enabled=False``: ``span()`` yields the shared no-op; nothing is
+      recorded or propagated (the measured-off mode of
+      ``scripts/bench_obs_overhead.py``).
+    - Root spans sample with probability ``sample_rate``; child spans
+      inherit the root's decision (whole traces, never fragments).
+    - ``export_path``: every finished sampled span is also appended as
+      one JSON line (crash-durable; the buffer is bounded and volatile).
+    - ``tail``: a :class:`~routest_tpu_torch.obs.export.TailSampler` replaces
+      the head decision — every root samples (so attrs and exemplars
+      are captured), spans buffer per trace, and retention is decided
+      at root completion (slow / errored / reservoir). The buffer then
+      reliably holds the slowest requests instead of a probabilistic
+      cross-section.
+    """
+
+    def __init__(self, enabled: bool = True, sample_rate: float = 1.0,
+                 buffer_size: int = 2048,
+                 export_path: Optional[str] = None,
+                 tail=None) -> None:
+        self.enabled = enabled
+        self.sample_rate = max(0.0, min(1.0, sample_rate))
+        self.buffer = SpanBuffer(buffer_size)
+        self.export_path = export_path
+        self.tail = tail
+        self._export_lock = threading.Lock()
+        self._rng = random.Random()
+
+    @contextlib.contextmanager
+    def span(self, name: str, parent=CURRENT, **attrs) -> Iterator:
+        """Open a span. ``parent``: the sentinel ``CURRENT`` (default)
+        parents under the ambient context; an explicit SpanContext/Span
+        parents under it (e.g. handing a context into a worker thread,
+        where contextvars don't follow); ``None`` forces a new root."""
+        if not self.enabled:
+            yield NOOP_SPAN
+            return
+        parent_ctx = current_context() if parent is CURRENT else \
+            getattr(parent, "ctx", parent)
+        remote_parent = parent_ctx is not None and \
+            getattr(parent_ctx, "remote", False)
+        if parent_ctx is None:
+            trace_id = _new_trace_id()
+            # Tail mode records EVERY root (the decision moves to the
+            # trace's completion); head mode decides here, once.
+            sampled = True if self.tail is not None \
+                else self._rng.random() < self.sample_rate
+            parent_id = None
+        else:
+            trace_id = parent_ctx.trace_id
+            # A remote parent makes this span the process-LOCAL root:
+            # in tail mode it records regardless of the upstream flags
+            # (retention is per process — this replica's verdict must
+            # not depend on the gateway's posture).
+            sampled = True if (self.tail is not None and remote_parent) \
+                else parent_ctx.sampled
+            parent_id = parent_ctx.span_id
+        ctx = SpanContext(trace_id, _new_span_id(), sampled)
+        span = Span(name, ctx, parent_id, attrs if sampled else {},
+                    remote_parent=remote_parent)
+        token = _current.set(ctx)
+        error: Optional[BaseException] = None
+        try:
+            yield span
+        except BaseException as e:
+            error = e
+            raise
+        finally:
+            _current.reset(token)
+            if sampled:
+                rec = span._finish(error)
+                if self.tail is None:
+                    self._record(rec)
+                else:
+                    kept = self.tail.offer(rec)
+                    if kept is not None:
+                        for buffered in kept[1]:
+                            self._record(buffered)
+
+    def _record(self, rec: dict) -> None:
+        self.buffer.add(rec)
+        if self.export_path:
+            try:
+                import json
+
+                line = json.dumps(rec, default=str) + "\n"
+                with self._export_lock, open(self.export_path, "a") as f:
+                    f.write(line)
+            except OSError:
+                pass  # observability must never take down serving
+
+    def inject(self, headers: Dict[str, str]) -> None:
+        """Write ``traceparent`` for the ambient context into a header
+        dict (outbound RPC). No ambient trace → no header."""
+        ctx = current_context()
+        if ctx is not None:
+            headers["traceparent"] = format_traceparent(ctx)
+
+
+# ── process-wide tracer ──────────────────────────────────────────────
+
+_tracer: Optional[Tracer] = None
+_tracer_lock = threading.Lock()
+
+
+def _from_env() -> Tracer:
+    # Lazy import: core.config imports nothing from obs, so this cannot
+    # cycle; reading through ObsConfig keeps the env parsing in one place.
+    from routest_tpu_torch.core.config import load_obs_config
+
+    obs = load_obs_config()
+    tail = None
+    if obs.enabled and obs.tail:
+        from routest_tpu_torch.obs.export import TailSampler
+
+        tail = TailSampler.from_obs_config(obs)
+    return Tracer(enabled=obs.enabled, sample_rate=obs.sample_rate,
+                  buffer_size=obs.buffer_spans,
+                  export_path=obs.trace_export_path, tail=tail)
+
+
+def get_tracer() -> Tracer:
+    """The process-wide tracer, built from ``RTPU_OBS_*`` on first use."""
+    global _tracer
+    if _tracer is None:
+        with _tracer_lock:
+            if _tracer is None:
+                _tracer = _from_env()
+    return _tracer
+
+
+def configure_tracer(tracer: Tracer) -> Tracer:
+    """Replace the process tracer (tests; embedders with their own
+    config). Returns the new tracer."""
+    global _tracer
+    with _tracer_lock:
+        _tracer = tracer
+    return tracer
+
+
+def trace_span(name: str, parent=CURRENT, **attrs):
+    """``get_tracer().span(...)`` — the one-liner instrumentation sites
+    use so a late ``configure_tracer`` is always respected."""
+    return get_tracer().span(name, parent=parent, **attrs)

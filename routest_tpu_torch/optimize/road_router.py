@@ -57,6 +57,9 @@ from routest_tpu_torch.data.road_graph import (_CLASS_SPEED_MPS,
                                                haversine_np)
 from routest_tpu_torch.live import set_metric_epoch
 from routest_tpu_torch.obs import get_registry
+from routest_tpu_torch.obs.efficiency import get_ledger
+from routest_tpu_torch.obs.ledger import record_change
+from routest_tpu_torch.obs.trace import trace_span
 from routest_tpu_torch.models.gnn import edge_feature_array
 from routest_tpu_torch.optimize.hierarchy import (_CACHE_VERSION, _INF,
                                                   HierarchicalIndex,
@@ -81,6 +84,12 @@ _m_road_swaps = get_registry().counter(
 _m_road_gen = get_registry().gauge(
     "rtpu_road_model_generation",
     "Generation id of the live road-GNN leg pricer (bumped per swap).")
+_m_overlay_info = get_registry().gauge(
+    "rtpu_router_overlay_info",
+    "Overlay build stats by level and stat.", ("level", "stat"))
+_m_overlay_build = get_registry().gauge(
+    "rtpu_router_overlay_build_seconds",
+    "Overlay precompute seconds by level.", ("level",))
 
 
 def _road_swap_divergence() -> float:
@@ -195,7 +204,8 @@ class _LiveMetric:
 
 
 class _BatchEntry:
-    __slots__ = ("sources", "live", "event", "dist", "pred", "error")
+    __slots__ = ("sources", "live", "event", "dist", "pred", "error",
+                 "dispatch_rows", "dispatch_requests", "t_q")
 
     def __init__(self, sources: np.ndarray, live) -> None:
         self.sources = sources
@@ -203,6 +213,12 @@ class _BatchEntry:
         self.event = threading.Event()
         self.dist = self.pred = None
         self.error: Optional[BaseException] = None
+        # Stamped by _dispatch: how big the merged device solve that
+        # carried this entry was (trace provenance).
+        self.dispatch_rows = 0
+        self.dispatch_requests = 0
+        # Enqueue stamp for the goodput ledger's queue/compute split.
+        self.t_q = time.monotonic()
 
 
 class _SolveBatcher:
@@ -248,6 +264,15 @@ class _SolveBatcher:
                     "mean_rows_per_dispatch": round(self._rows / d, 3)}
 
     def solve(self, sources: np.ndarray, live=None):
+        """One caller's solve through the merge queue, traced: the span
+        records how many rows rode the merged solve that carried it."""
+        with trace_span("router.batch_solve", rows=len(sources)) as span:
+            entry = self._solve_entry(sources, live)
+            span.set_attr("dispatch_rows", entry.dispatch_rows)
+            span.set_attr("merged_requests", entry.dispatch_requests)
+            return entry.dist, entry.pred
+
+    def _solve_entry(self, sources: np.ndarray, live) -> _BatchEntry:
         entry = _BatchEntry(sources,
                             live if live is not None and live.route
                             else None)
@@ -262,7 +287,7 @@ class _SolveBatcher:
                 raise TimeoutError("router solve batcher wedged")
             if entry.error is not None:
                 raise entry.error
-            return entry.dist, entry.pred
+            return entry
         drain_error: Optional[BaseException] = None
         try:
             if self.window_s > 0:
@@ -308,11 +333,13 @@ class _SolveBatcher:
                         it.event.set()
         if entry.error is not None:
             raise entry.error
-        return entry.dist, entry.pred
+        return entry
 
     def _dispatch(self, batch: List[_BatchEntry]) -> None:
         merged = (batch[0].sources if len(batch) == 1
                   else np.concatenate([it.sources for it in batch]))
+        queue_s = max(0.0, time.monotonic() - min(it.t_q for it in batch))
+        t0 = time.perf_counter()
         try:
             dist, pred = self._router._solve_rows(merged, batch[0].live)
         except BaseException as e:  # propagate to every merged caller
@@ -320,11 +347,20 @@ class _SolveBatcher:
                 it.error = e
                 it.event.set()
             return
+        # _solve_rows pads the source axis to the next power of two —
+        # that IS the launched batch the goodput ledger accounts.
+        n = len(merged)
+        bucket = 1 << max(0, n - 1).bit_length()
+        get_ledger().record(
+            "route_solve", real_rows=n, padded_rows=bucket, bucket=bucket,
+            queue_s=queue_s, compute_s=time.perf_counter() - t0)
         pos = 0
         for it in batch:
             m = len(it.sources)
             it.dist = dist[pos:pos + m]
             it.pred = pred[pos:pos + m]
+            it.dispatch_rows = len(merged)
+            it.dispatch_requests = len(batch)
             pos += m
             it.event.set()
 
@@ -406,6 +442,7 @@ class RoadRouter:
                     fingerprint=self._fingerprint, device=self.device)
         if self._hier is not None:
             self._overlay_solve = self._make_overlay_solve(self._hier)
+            self._publish_overlay_metrics()
 
         enabled, max_rows, window_s = _batcher_config()
         self._solve_batcher: Optional[_SolveBatcher] = (
@@ -625,6 +662,9 @@ class RoadRouter:
                     _m_road_swaps.labels(
                         result=verdict.pop("result", "accepted")).inc()
                     _m_road_gen.set(gen)
+                    record_change("model.road_swap",
+                                  detail={"generation": gen,
+                                          "path": self._gnn_path})
                     _log.info("road_model_swapped", generation=gen,
                               path=self._gnn_path, **verdict)
                 else:
@@ -807,7 +847,38 @@ class RoadRouter:
         batcher = self._solve_batcher
         if batcher is not None and 0 < len(source_nodes) <= batcher.max_rows:
             return batcher.solve(source_nodes, live)
-        return self._solve_rows(source_nodes, live)
+        # Direct path (batcher off, or oversized request): still a
+        # padded device solve the goodput ledger must see.
+        n = len(source_nodes)
+        t0 = time.perf_counter()
+        out = self._solve_rows(source_nodes, live)
+        if n > 0:
+            bucket = 1 << max(0, n - 1).bit_length()
+            get_ledger().record(
+                "route_solve", real_rows=n, padded_rows=bucket,
+                bucket=bucket, compute_s=time.perf_counter() - t0,
+                oversized=batcher is not None and n > batcher.max_rows)
+        return out
+
+    def _publish_overlay_metrics(self) -> None:
+        """Overlay build stats → the process registry: per-level
+        ``rtpu_router_overlay_info{level, stat}`` gauges plus
+        ``rtpu_router_overlay_build_seconds{level}``."""
+        if self._hier is None:
+            return
+        for lvl in self._hier.stats.get("levels", []):
+            level = str(lvl.get("level", 1))
+            for stat in ("n_cells", "c_max", "b_max", "n_overlay_nodes",
+                         "n_overlay_edges", "clique_edges_kept",
+                         "clique_edges_pruned"):
+                if stat in lvl:
+                    _m_overlay_info.labels(level=level, stat=stat).set(
+                        lvl[stat])
+            _m_overlay_build.labels(level=level).set(lvl.get("build_s", 0.0))
+        _m_overlay_info.labels(level="top", stat="n_overlay_nodes").set(
+            self._hier.stats.get("top_nodes", 0))
+        _m_overlay_info.labels(level="top", stat="n_overlay_edges").set(
+            self._hier.stats.get("top_edges", 0))
 
     def _solve_rows(self, source_nodes: np.ndarray, live=None):
         """One device solve (the batcher calls this with merged rows).
@@ -927,7 +998,14 @@ class RoadRouter:
         in it prices (and, with the route metric armed, routes) against
         the same generation, and a concurrent flip affects only later
         batches. A changed learned-pricer artifact is picked up first,
-        once for the whole batch."""
+        once for the whole batch. The ``router.route_legs`` span carries
+        the batch's provenance: solver regime, metric epoch, road-model
+        generation and route-cache outcome."""
+        with trace_span("router.route_legs",
+                        problems=len(problems)) as span:
+            return self._route_legs_batch_traced(problems, span)
+
+    def _route_legs_batch_traced(self, problems, span) -> List["RoadLegs"]:
         self._maybe_reload_models()
         pts_list = [np.asarray(p, np.float32) for p, _, _ in problems]
         counts = [len(p) for p in pts_list]
@@ -964,6 +1042,23 @@ class RoadRouter:
                 else:
                     my_leads[key] = i
                     solve_idx.append(i)
+        span.set_attr(
+            "solver",
+            "hub_labels" if (self._hier is not None
+                             and self._hier._labels is not None)
+            else ("overlay_top_bf" if self._hier is not None
+                  else "flat_bf"))
+        span.set_attr("metric_epoch",
+                      live.epoch if live is not None else 0)
+        span.set_attr("model_generation", self._model_gen)
+        if cache is None:
+            span.set_attr("route_cache", "off")
+        else:
+            span.set_attr("route_cache_hits",
+                          sum(1 for o in out if o is not None))
+            span.set_attr("route_cache_misses", len(solve_idx))
+            span.set_attr("route_cache_waits", len(waits))
+            span.set_attr("route_cache_aliases", len(aliases))
         try:
             if solve_idx:
                 self._solve_problems(problems, pts_list, counts, solve_idx,

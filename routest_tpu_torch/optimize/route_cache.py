@@ -10,15 +10,16 @@ under::
 
 The live metric epoch is the router's ``(epoch, install gen)`` pair
 (``(0, 0)`` while no live metric is installed), so a metric flip retires
-every cached route; the port never swaps a road model yet, so the last
-entry is always ``0``. The budget is bytes
+every cached route, and the last entry is the router's road-model
+generation, bumped by every verified road-GNN swap. The budget is bytes
 (``ROUTEST_ROUTE_CACHE_MB``), since an entry pins (M, N) predecessor and
 distance rows; a TTL (``ROUTEST_ROUTE_CACHE_TTL_S``) is a freshness
 backstop; ``ROUTEST_ROUTE_CACHE=0`` turns it off. N concurrent identical
 problems cost ONE solve: followers park on the leader's flight, and a
-leader failure reaches every waiter and caches nothing. The JAX
-package's registry counters wait for the observability slice; the same
-counts are in :meth:`RouteCache.stats`.
+leader failure reaches every waiter and caches nothing. Hits, misses,
+coalesced waits, evictions, bytes and entries count in the
+``rtpu_route_cache_*`` families (the timeline watcher's cache-collapse
+check reads them) as well as in :meth:`RouteCache.stats`.
 """
 
 from __future__ import annotations
@@ -28,6 +29,37 @@ import threading
 import time
 from collections import OrderedDict
 from typing import Dict, Optional, Tuple
+
+_metrics = None
+
+
+def _cache_metrics():
+    global _metrics
+    if _metrics is None:
+        from routest_tpu_torch.obs import get_registry
+
+        reg = get_registry()
+        _metrics = {
+            "hits": reg.counter(
+                "rtpu_route_cache_hits_total",
+                "Route problems served from the route fastlane."),
+            "misses": reg.counter(
+                "rtpu_route_cache_misses_total",
+                "Route problems that had to be solved."),
+            "coalesced": reg.counter(
+                "rtpu_route_cache_coalesced_total",
+                "Route problems served by waiting on another request's "
+                "in-flight solve (singleflight)."),
+            "evictions": reg.counter(
+                "rtpu_route_cache_evictions_total",
+                "Route-cache entries evicted by the byte-budget LRU."),
+            "bytes": reg.gauge(
+                "rtpu_route_cache_bytes", "Route-cache resident bytes."),
+            "entries": reg.gauge(
+                "rtpu_route_cache_entries", "Live route-cache entries."),
+        }
+    return _metrics
+
 
 def route_cache_config() -> Tuple[bool, int, float]:
     """(enabled, byte budget, ttl seconds) from the env knobs
@@ -103,10 +135,21 @@ class RouteCache:
                                   / total, 4) if total else 0.0,
             }
 
+    def invalidate(self) -> None:
+        """Drop everything (hygiene only — correctness comes from the
+        epoch/generation halves of the key)."""
+        with self._lock:
+            self._cache.clear()
+            self._bytes = 0
+            m = _cache_metrics()
+            m["bytes"].set(0)
+            m["entries"].set(0)
+
     # ── the protocol ──────────────────────────────────────────────────
 
     def lookup(self, key: Tuple):
         """→ ("hit", legs) | ("wait", flight) | ("lead", flight)."""
+        m = _cache_metrics()
         now = time.monotonic()
         with self._lock:
             hit = self._cache.get(key)
@@ -115,16 +158,19 @@ class RouteCache:
                 if self.ttl_s <= 0 or now - stored <= self.ttl_s:
                     self._cache.move_to_end(key)
                     self._hits += 1
+                    m["hits"].inc()
                     return "hit", legs
                 del self._cache[key]
                 self._bytes -= nbytes
             flight = self._inflight.get(key)
             if flight is not None:
                 self._coalesced += 1
+                m["coalesced"].inc()
                 return "wait", flight
             flight = _Flight()
             self._inflight[key] = flight
             self._misses += 1
+            m["misses"].inc()
             return "lead", flight
 
     def commit(self, key: Tuple, legs, nbytes: int) -> None:
@@ -132,6 +178,7 @@ class RouteCache:
         evicts from the cold end until the byte budget holds. Entries
         bigger than the whole budget publish to waiters but skip the
         cache (they would evict everything for one key)."""
+        m = _cache_metrics()
         now = time.monotonic()
         with self._lock:
             flight = self._inflight.pop(key, None)
@@ -142,15 +189,19 @@ class RouteCache:
                 self._cache[key] = (now, int(nbytes), legs)
                 self._bytes += int(nbytes)
                 self._evict_locked()
+            m["bytes"].set(self._bytes)
+            m["entries"].set(len(self._cache))
         if flight is not None:
             flight.value = legs
             flight.event.set()
 
     def _evict_locked(self) -> None:
+        m = _cache_metrics()
         while self._bytes > self.budget_bytes and self._cache:
             _, (_, nb, _) = self._cache.popitem(last=False)
             self._bytes -= nb
             self._evictions += 1
+            m["evictions"].inc()
 
     def abort(self, key: Tuple, error: BaseException) -> None:
         """Leader failed: nothing cached, every waiter gets the error,

@@ -22,6 +22,16 @@ drain in-flight requests (open SSE streams are not waited for) before
 exit. ``serve_listening`` and ``serve_stopped`` log the fused kernel's
 launch count in this process (``fused_launches``): their difference is
 the launches over the requests served.
+
+The replica's observability spine is armed as in the JAX server: every
+request is traced (``RTPU_OBS_*``: a caller's ``traceparent`` is
+adopted, ``RTPU_OBS_DEVICE_TRACE_DIR`` attaches a ``torch.profiler``
+Chrome trace to up to ``RTPU_OBS_DEVICE_TRACE_MAX`` sampled flushes),
+the flight recorder writes bundles under ``RTPU_RECORDER_DIR`` (and on
+SIGUSR2), the SLO engine, the timeline and the goodput watchdog tick on
+their own threads, and ``RTPU_CHAOS_SPEC`` arms fault injection. An
+artifact written by ``python -m routest_tpu_torch.train.export`` serves
+its own program (kernel ``torch_export``).
 """
 
 from __future__ import annotations
@@ -93,6 +103,7 @@ def main() -> None:
               port=config.serve.port,
               fused_launches=fused_eta_forward.launches)
     run_with_graceful_shutdown(app, config.serve.host, config.serve.port)
+    app.close()
     if wire_server is not None:
         wire_server.stop()
     _log.info("serve_stopped", fused_launches=fused_eta_forward.launches)

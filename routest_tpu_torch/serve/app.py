@@ -65,6 +65,7 @@ from routest_tpu_torch.core.config import (Config, load_config,
 from routest_tpu_torch.data import geo
 from routest_tpu_torch.data.locations import locations_table
 from routest_tpu_torch.obs import build_info, get_registry, register_build_info
+from routest_tpu_torch.obs.ledger import record_change
 from routest_tpu_torch.optimize import road_router
 from routest_tpu_torch.optimize.engine import (MAX_BATCH_PROBLEMS,
                                                _parse_problem,
@@ -152,6 +153,7 @@ def create_app(config: Optional[Config] = None,
     # Standard identity gauges (rtpu_build_info + process start time) on
     # the process registry /api/metrics exposes.
     register_build_info()
+    _arm_observability(app, config, bus)
 
     # Dispatch: concurrent POST /api/dispatch VRP problems merge into one
     # padded batch on the serving device (dispatch/batcher.py);
@@ -324,6 +326,10 @@ def create_app(config: Optional[Config] = None,
     app.wire_handlers = (
         {"/api/predict_eta_batch": _wire_eta, "/api/matrix": _wire_matrix}
         if wire_cfg.enabled else {})
+    if wire_cfg.enabled:
+        record_change("wire.enable",
+                      detail={"paths": sorted(app.wire_handlers),
+                              "channel": wire_cfg.channel})
 
     def _wire_negotiated(request, path):
         """None when the request is not wire content-type, else the
@@ -954,6 +960,15 @@ def create_app(config: Optional[Config] = None,
                 **({"error": live_snap["error"]}
                    if live_snap.get("error") else {}),
             }
+        # Device-efficiency gauge: the goodput watchdog's armed state, or
+        # why not (a missing or foreign-backend kernel record).
+        from routest_tpu_torch.obs.efficiency import get_ledger
+
+        if get_ledger().enabled or app.efficiency is not None:
+            engine_res["efficiency"] = (
+                app.efficiency.health() if app.efficiency is not None
+                else {"ledger": get_ledger().enabled,
+                      "watchdog": "disabled"})
         model_res = {"status": "ok" if eta.available else "degraded",
                      "generation": eta.generation,
                      "fingerprint": eta.fingerprint,
@@ -976,8 +991,270 @@ def create_app(config: Optional[Config] = None,
             "version": config.serve.version,
         }, 200  # always 200: degraded-not-down
 
+    _mount_observability(app, config, eta, device)
     _warm_optimizer(device)
     return app
+
+
+def _arm_observability(app: App, config: Config, bus) -> None:
+    """The replica's observability spine, as the JAX app arms it: the
+    flight recorder, the change ledger on the bus (local events fanned
+    out, foreign ones ingested), the SLO engine over this app's request
+    stats (its page edge writes a bundle), the metric timeline and its
+    anomaly watcher, the triggered profiler (armed by the SLO's upward
+    edges) and the goodput watchdog against the port's kernel record.
+    The tickers run on daemon threads; ``app.close()`` stops them."""
+    from routest_tpu_torch.core.config import load_efficiency_config
+    from routest_tpu_torch.obs.efficiency import (EfficiencyWatchdog,
+                                                  get_ledger)
+    from routest_tpu_torch.obs.ledger import (get_change_ledger,
+                                              replica_label)
+    from routest_tpu_torch.obs.profiler import TriggeredProfiler
+    from routest_tpu_torch.obs.recorder import get_recorder
+    from routest_tpu_torch.obs.slo import build_replica_engine
+    from routest_tpu_torch.obs.timeline import AnomalyWatcher, TimelineStore
+
+    recorder = get_recorder()
+    app.change_ledger = get_change_ledger()
+    app.change_ledger.set_context(
+        replica=replica_label(),
+        version=os.environ.get("RTPU_VERSION") or None)
+    if app.change_ledger.enabled:
+        app.change_ledger.attach_bus(bus)
+    recorder.register_change_ledger(app.change_ledger)
+
+    app.slo = None
+    if config.slo.enabled:
+        app.slo = build_replica_engine(app.request_stats.registry,
+                                       config.slo)
+        app.slo.on_page.append(recorder.on_slo_page)
+        recorder.register_slo_engine(app.slo)
+        if config.slo.tick_s > 0:
+            app.slo.start()
+
+    app.timeline = None
+    app.watcher = None
+    if config.timeline.enabled:
+        app.timeline = TimelineStore(
+            [app.request_stats.registry, get_registry()],
+            config.timeline, component="replica")
+        recorder.register_timeline(app.timeline)
+        if config.timeline.watch:
+            app.watcher = AnomalyWatcher(app.timeline, config.timeline,
+                                         recorder).attach()
+        app.timeline.start()
+
+    app.profiler = None
+    if config.profile.enabled:
+        app.profiler = TriggeredProfiler(config.profile, recorder,
+                                         component="replica",
+                                         device=config.serve.device)
+        if app.slo is not None:
+            app.slo.on_warn.append(app.profiler.on_slo_edge)
+
+    # Goodput: the ledger is always-on accounting inside the batchers;
+    # the watchdog pins the port's kernel record. A missing or
+    # foreign-backend record degrades to ledger-only, named in
+    # /api/health and /api/efficiency.
+    get_ledger().bind_device(config.serve.device)
+    app.efficiency = None
+    app.efficiency_config = eff_cfg = load_efficiency_config()
+    if eff_cfg.enabled and eff_cfg.watchdog:
+        app.efficiency = EfficiencyWatchdog(eff_cfg, recorder=recorder)
+        if app.efficiency.arm():
+            app.efficiency.start()
+
+    def close() -> None:
+        """Stop the app's background threads: the SLO and timeline
+        tickers, the watchdog, the change-ledger tap and the dispatch
+        re-optimization loop."""
+        for part in (app.slo, app.timeline, app.efficiency,
+                     app.change_ledger):
+            if part is not None:
+                part.stop()
+        dispatch = getattr(app, "dispatch", None)
+        if dispatch is not None and dispatch.reopt is not None:
+            dispatch.reopt.stop()
+
+    app.close = close
+
+
+def _mount_observability(app: App, config: Config, eta: EtaService,
+                         device) -> None:
+    """The nine observability routes of the JAX app: ``/api/trace``,
+    ``/api/slo``, ``/api/efficiency``, ``/api/changes``,
+    ``/api/incidents``, ``/api/timeline``, ``POST /api/debug/profile``,
+    ``GET /api/debug/probe_subgraph`` and ``POST /api/debug/snapshot``."""
+    import json
+
+    from routest_tpu_torch.core.config import load_prober_config
+    from routest_tpu_torch.data.road_graph import haversine_np
+    from routest_tpu_torch.obs import to_chrome_trace
+    from routest_tpu_torch.obs.efficiency import get_ledger
+    from routest_tpu_torch.obs.recorder import get_recorder
+    from routest_tpu_torch.obs.trace import get_tracer
+
+    def _num(request, name):
+        raw = request.args.get(name)
+        if not raw:
+            return None
+        try:
+            return float(raw)
+        except ValueError:
+            return None
+
+    @app.route("/api/trace", methods=("GET",))
+    def trace_dump(request):
+        # Span flight recorder: raw span JSON by default; ?format=chrome
+        # emits Trace Event JSON (chrome://tracing / Perfetto);
+        # ?trace_id= narrows to one request's tree; ?limit=N tails it.
+        buf = get_tracer().buffer
+        spans = buf.snapshot(trace_id=request.args.get("trace_id") or None)
+        raw_limit = request.args.get("limit", "")
+        if raw_limit.isdigit():
+            spans = spans[-int(raw_limit):]
+        payload = (to_chrome_trace(spans)
+                   if request.args.get("format") == "chrome"
+                   else {"count": len(spans), "dropped": buf.dropped,
+                         "spans": spans})
+        # default=str: span attrs are caller-supplied — a dump endpoint
+        # must render them, not 500.
+        return Response(json.dumps(payload, default=str), 200,
+                        content_type="application/json")
+
+    @app.route("/api/slo", methods=("GET",))
+    def slo_state(request):
+        # Burn-rate alert surface; a request forces a fresh tick.
+        if app.slo is None:
+            return {"enabled": False}, 200
+        app.slo.tick()
+        return app.slo.snapshot(), 200
+
+    @app.route("/api/efficiency", methods=("GET",))
+    def efficiency_state(request):
+        # Device goodput: per-program real/padded/cached rows, live
+        # per-bucket windows, the watchdog's pin and verdicts (a request
+        # forces a fresh watchdog tick).
+        out = {"enabled": get_ledger().enabled,
+               "ledger": get_ledger().snapshot()}
+        wd = app.efficiency
+        if wd is None:
+            out["watchdog"] = {"armed": False,
+                               "status": "disabled"
+                               if not app.efficiency_config.watchdog
+                               else "unarmed"}
+        else:
+            if wd.armed:
+                wd.tick()
+            out["watchdog"] = wd.snapshot()
+        return out, 200
+
+    @app.route("/api/changes", methods=("GET",))
+    def changes_query(request):
+        # Newest-first state-change events with label filtering.
+        limit = _num(request, "limit")
+        out = app.change_ledger.query(
+            kind=request.args.get("kind") or None,
+            replica=request.args.get("replica") or None,
+            version=request.args.get("version") or None,
+            region=request.args.get("region") or None,
+            bucket=request.args.get("bucket") or None,
+            since=_num(request, "since"),
+            limit=int(limit) if limit else None)
+        out["ledger"] = app.change_ledger.snapshot()
+        return out, 200
+
+    @app.route("/api/incidents", methods=("GET",))
+    def incidents_query(request):
+        # Recent flight-recorder pages, each with its ranked suspects.
+        incidents = get_recorder().incidents_snapshot()
+        return {"enabled": app.change_ledger.enabled,
+                "count": len(incidents), "incidents": incidents}, 200
+
+    @app.route("/api/timeline", methods=("GET",))
+    def timeline_query(request):
+        # Windowed deltas/percentiles from the in-process rings.
+        if app.timeline is None:
+            return {"enabled": False}, 200
+        out = app.timeline.query(
+            family=request.args.get("family") or None,
+            window_s=_num(request, "window"), step_s=_num(request, "step"))
+        out["enabled"] = True
+        if app.watcher is not None:
+            out["watcher"] = app.watcher.snapshot()
+        return out, 200
+
+    @app.route("/api/debug/profile", methods=("POST",))
+    def debug_profile(request):
+        # Arms a bounded stack-sample capture (plus a torch.profiler
+        # trace under RTPU_PROFILE_DEVICE=1, whose start it waits for,
+        # so a refused capture is named in this answer); the result
+        # lands as a flight-recorder bundle. 202 armed / 409 when one
+        # is running or the budget is spent.
+        if app.profiler is None:
+            return {"error": "profiler disabled"}, 503
+        body = get_json(request) or {}
+        duration = body.get("duration_s")
+        if duration is not None and not isinstance(duration, (int, float)):
+            return {"error": "duration_s must be a number"}, 400
+        armed = app.profiler.arm("manual_api", {"source": "api"},
+                                 duration_s=duration, wait_start_s=30.0)
+        return ({"armed": armed, "profiler": app.profiler.snapshot()},
+                202 if armed else 409)
+
+    @app.route("/api/debug/probe_subgraph", methods=("GET",))
+    def probe_subgraph(request):
+        # The prober's oracle feed: the road graph's edge topology in
+        # graph edge order plus the probe waypoints' snapped nodes and
+        # snap distances, bounded by RTPU_PROBER_SUBGRAPH_MAX_EDGES.
+        router = road_router._default_routers.get(str(torch.device(device)))
+        if router is None:
+            return {"error": "no road router built"}, 503
+        n_edges = int(len(router.senders))
+        max_edges = load_prober_config().subgraph_max_edges
+        if n_edges > max_edges:
+            return {"error": f"graph too large to export ({n_edges} "
+                             f"edges > RTPU_PROBER_SUBGRAPH_MAX_EDGES="
+                             f"{max_edges})"}, 413
+        latlon = []
+        for raw in request.arg_list("wp"):
+            lat, sep, lon = raw.partition(",")
+            try:
+                if not sep:
+                    raise ValueError(raw)
+                latlon.append((float(lat), float(lon)))
+            except ValueError:
+                return {"error": f"malformed wp {raw!r}: want "
+                                 "lat,lon"}, 400
+        out = {
+            "nodes": int(router.n_nodes),
+            "edges": n_edges,
+            "senders": np.asarray(router.senders).tolist(),
+            "receivers": np.asarray(router.receivers).tolist(),
+            "snapped": [],
+            "snap_m": [],
+        }
+        if latlon:
+            pts = np.asarray(latlon, np.float32)
+            snapped = np.asarray(router.snap(pts), np.int64)
+            snap_m = haversine_np(
+                pts[:, 0].astype(np.float64),
+                pts[:, 1].astype(np.float64),
+                router.coords[snapped, 0], router.coords[snapped, 1])
+            out["snapped"] = snapped.tolist()
+            out["snap_m"] = [round(float(v), 3) for v in snap_m]
+        return out, 200
+
+    @app.route("/api/debug/snapshot", methods=("POST",))
+    def debug_snapshot(request):
+        # Manual postmortem trigger; force=True bypasses the rate limit,
+        # the disk bounds hold.
+        rec = get_recorder()
+        bundle = rec.trigger("manual_api", {"source": "api"}, force=True)
+        if bundle is None:
+            return {"error": "recorder disabled or bundle write failed",
+                    "recorder": rec.snapshot()}, 503
+        return {"bundle": bundle, "recorder": rec.snapshot()}, 200
 
 
 _warmed_devices = set()

@@ -13,8 +13,7 @@ cached and deduplicated with NO semantic drift:
   half is a process-wide counter bumped every time ``EtaService``
   brings a serving state live (startup and every successful
   ``reload_if_changed()``), the epoch half is the live-traffic metric
-  generation (0 until live traffic is ported, as in the JAX package
-  while ``RTPU_LIVE`` is off) — so
+  generation (``routest_tpu_torch/live``, 0 while live traffic is off) — so
   neither a hot-reload nor a metric flip leaves a window where new
   serving state answers with old numbers. Keys are the raw row bytes
   (48 B for the ABI row), not a digest: exact equality, zero collision
@@ -44,6 +43,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from routest_tpu_torch.obs import get_registry
+from routest_tpu_torch.obs.efficiency import get_ledger
 
 
 class _Inflight:
@@ -229,6 +229,10 @@ class FastLane:
             self._m_misses.inc(misses)
         if coalesced:
             self._m_coalesced.inc(coalesced)
+        if hits or coalesced:
+            # Goodput the device never paid for: rows answered from
+            # cache or by riding an in-flight leader's computation.
+            get_ledger().record_cached("eta_score", hits + coalesced)
         if span is not None:
             span.set_attr("cache_hits", hits)
             span.set_attr("cache_misses", misses)

@@ -39,16 +39,26 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from routest_tpu_torch.chaos import ChaosError
+from routest_tpu_torch.chaos import inject as chaos_inject
 from routest_tpu_torch.core.config import ServeConfig, resolve_device
 from routest_tpu_torch.core.dtypes import backend_compute_policy
 from routest_tpu_torch.data.features import encode_requests
 from routest_tpu_torch.live import metric_epoch
 from routest_tpu_torch.obs import get_registry
+from routest_tpu_torch.obs.efficiency import get_ledger
+from routest_tpu_torch.obs.export import maybe_device_trace
+from routest_tpu_torch.obs.ledger import record_change
+from routest_tpu_torch.obs.trace import trace_span
 from routest_tpu_torch.ops.fused_mlp import (fused_eta_forward,
                                              pack_eta_params,
                                              resolve_kernel_dtype)
 from routest_tpu_torch.serve.deadline import DeadlineExceeded
-from routest_tpu_torch.train.checkpoint import default_model_path, load_model
+from routest_tpu_torch.train.checkpoint import (JAX_EXPORT_MAGIC,
+                                                TORCH_EXPORT_MAGIC,
+                                                default_model_path,
+                                                load_exported_serving_fn,
+                                                load_model)
 from routest_tpu_torch.utils.logging import get_logger
 
 
@@ -178,7 +188,7 @@ class _Pending:
     oversized submissions and slab overflow."""
 
     __slots__ = ("rows", "slab", "offset", "n", "event", "result", "error",
-                 "deadline")
+                 "deadline", "t_q")
 
     def __init__(self, rows: Optional[np.ndarray] = None,
                  deadline: Optional[float] = None, *,
@@ -193,6 +203,8 @@ class _Pending:
         # Absolute time.monotonic() deadline captured from the ambient
         # request context at submit; None = no budget.
         self.deadline = deadline
+        # Enqueue time: the goodput ledger's queue-vs-compute split.
+        self.t_q = time.monotonic()
 
 
 class _WindowController:
@@ -254,8 +266,12 @@ class DynamicBatcher:
 
     def __init__(self, score_fn, buckets: Sequence[int], max_batch: int,
                  max_wait_ms: float, hard_cap_s: float = 60.0,
-                 adaptive: bool = False, min_wait_ms: float = 0.0) -> None:
+                 adaptive: bool = False, min_wait_ms: float = 0.0,
+                 device="cpu") -> None:
         self._score = score_fn
+        # The device ``score_fn`` runs on: a sampled flush's device trace
+        # records its CUDA activity when it is the card.
+        self._device = device
         # Waiter give-up bound: a submit with no request deadline still
         # cannot wait past this — a wedged flush (device hang) must
         # surface as DeadlineExceeded, not pin the waiter forever.
@@ -378,58 +394,61 @@ class DynamicBatcher:
         give_up_at = t_mono + self._hard_cap_s
         if req_deadline is not None:
             give_up_at = min(give_up_at, req_deadline)
-        with self._lock:
-            pending = self._stage_locked(rows, req_deadline)
-            self._queue.append(pending)
-            self._queued_rows += pending.n
-            if self._ctrl is not None:
-                self._ctrl.observe(pending.n, t_mono)
-                wait_s = self._ctrl.window_s(self._flush_ewma_s)
-                if wait_s <= 0.0 and (self._flushing
-                                      or len(self._queue) > 1):
-                    # Latency mode only when the batcher is IDLE: with a
-                    # flush in flight (or peers queued) an immediate
-                    # drain would fragment batches into lone-row flushes.
-                    wait_s = min(max(self._flush_ewma_s, 0.0005),
-                                 self._max_wait)
-                self._m_window.set(wait_s * 1000.0)
-            else:
-                wait_s = self._max_wait
-            should_flush = (self._queued_rows >= self._max_batch
-                            and not self._flushing)
-        # A flush exception here may belong to OTHER requests' rows; our
-        # own failure arrives via pending.error below. A zero adaptive
-        # window is latency mode: drain NOW.
-        if should_flush or wait_s <= 0.0:
-            self._flush_quietly()
-        deadline = time.monotonic() + wait_s
-        spin = 0.001
-        while True:
-            # Oldest-waiter timeout: whoever wakes first drains the
-            # queue. After the deadline, escalating short waits (1 → 50
-            # ms) keep a flush in flight on another thread from being
-            # hot-spun against; ``give_up_at`` bounds the whole wait.
-            now = time.monotonic()
-            if now >= give_up_at and not pending.event.is_set():
-                with self._lock:
-                    self._withdraw_locked(pending)
-                if not pending.event.is_set():
-                    self._m_expired.labels(stage="wait").inc()
-                    self._m_queue_wait.observe(
-                        time.perf_counter() - t_submit)
-                    raise DeadlineExceeded(
-                        f"batcher wait exceeded "
-                        f"{(now - t_mono) * 1000:.0f} ms budget")
-            remaining = deadline - now
-            if remaining <= 0:
-                remaining = spin
-                spin = min(spin * 2, 0.05)
-            wait = max(min(remaining, give_up_at - now + 0.001), 0.001)
-            if pending.event.wait(timeout=wait):
-                break
-            if time.monotonic() >= give_up_at:
-                continue
-            self._flush_quietly()
+        with trace_span("batcher.queue_wait", rows=len(rows)) as qs:
+            with self._lock:
+                pending = self._stage_locked(rows, req_deadline)
+                self._queue.append(pending)
+                self._queued_rows += pending.n
+                if self._ctrl is not None:
+                    self._ctrl.observe(pending.n, t_mono)
+                    wait_s = self._ctrl.window_s(self._flush_ewma_s)
+                    if wait_s <= 0.0 and (self._flushing
+                                          or len(self._queue) > 1):
+                        # Latency mode only when the batcher is IDLE: with a
+                        # flush in flight (or peers queued) an immediate
+                        # drain would fragment batches into lone-row flushes.
+                        wait_s = min(max(self._flush_ewma_s, 0.0005),
+                                     self._max_wait)
+                    self._m_window.set(wait_s * 1000.0)
+                else:
+                    wait_s = self._max_wait
+                should_flush = (self._queued_rows >= self._max_batch
+                                and not self._flushing)
+            # A flush exception here may belong to OTHER requests' rows; our
+            # own failure arrives via pending.error below. A zero adaptive
+            # window is latency mode: drain NOW.
+            if should_flush or wait_s <= 0.0:
+                self._flush_quietly()
+            deadline = time.monotonic() + wait_s
+            spin = 0.001
+            while True:
+                # Oldest-waiter timeout: whoever wakes first drains the
+                # queue. After the deadline, escalating short waits (1 → 50
+                # ms) keep a flush in flight on another thread from being
+                # hot-spun against; ``give_up_at`` bounds the whole wait.
+                now = time.monotonic()
+                if now >= give_up_at and not pending.event.is_set():
+                    with self._lock:
+                        self._withdraw_locked(pending)
+                    if not pending.event.is_set():
+                        qs.set_attr("expired", True)
+                        self._m_expired.labels(stage="wait").inc()
+                        self._m_queue_wait.observe(
+                            time.perf_counter() - t_submit)
+                        raise DeadlineExceeded(
+                            f"batcher wait exceeded "
+                            f"{(now - t_mono) * 1000:.0f} ms budget")
+                remaining = deadline - now
+                if remaining <= 0:
+                    remaining = spin
+                    spin = min(spin * 2, 0.05)
+                wait = max(min(remaining, give_up_at - now + 0.001), 0.001)
+                if pending.event.wait(timeout=wait):
+                    break
+                if time.monotonic() >= give_up_at:
+                    continue
+                self._flush_quietly()
+            qs.set_attr("flushed_inline", should_flush)
         self._m_queue_wait.observe(time.perf_counter() - t_submit)
         if pending.error is not None:
             # A dead device must surface as an error on EVERY waiter,
@@ -514,27 +533,56 @@ class DynamicBatcher:
                 return
             try:
                 t_flush = time.perf_counter()
-                n = taken
-                bucket = self._bucket(n)
-                if batch_slab is not None:
-                    # Pad in place: zero the tail rows of the detached
-                    # slab and hand the device copy a VIEW.
-                    if bucket > n:
-                        batch_slab[n:bucket] = 0.0
-                    padded = batch_slab[:bucket]
-                else:
-                    padded = pad_rows(
-                        np.concatenate([p.rows for p in batch], axis=0),
-                        bucket)
-                t_dev = time.perf_counter()
-                preds = np.asarray(self._score(padded))[:n]
-                if batch_slab is not None and \
-                        np.shares_memory(preds, batch_slab):
-                    # The slab is about to be recycled, so waiters must
-                    # own their rows.
-                    preds = preds.copy()
-                self._m_compute.labels(bucket=bucket).observe(
-                    time.perf_counter() - t_dev)
+                queue_s = max(0.0, time.monotonic()
+                              - min(p.t_q for p in batch))
+                with trace_span("batcher.flush", requests=cnt) as fs:
+                    n = taken
+                    bucket = self._bucket(n)
+                    fs.set_attr("rows", n)
+                    fs.set_attr("bucket", bucket)
+                    fs.set_attr("zero_copy", batch_slab is not None)
+                    with trace_span("batcher.pad", rows=n, bucket=bucket,
+                                    pad_rows=bucket - n):
+                        if batch_slab is not None:
+                            # Pad in place: zero the tail rows of the
+                            # detached slab and hand the device copy a
+                            # VIEW.
+                            if bucket > n:
+                                batch_slab[n:bucket] = 0.0
+                            padded = batch_slab[:bucket]
+                        else:
+                            padded = pad_rows(
+                                np.concatenate([p.rows for p in batch],
+                                               axis=0), bucket)
+                    t_dev = time.perf_counter()
+                    with trace_span("batcher.device_compute", rows=n,
+                                    bucket=bucket) as ds:
+                        # Chaos fault point: an injected error here is
+                        # indistinguishable from a dead device — every
+                        # waiter in this batch surfaces it, nothing is
+                        # scored anywhere else, and the slab is only
+                        # recycled below. A ``skew`` fault returns a
+                        # magnitude added to the scored outputs.
+                        skew = chaos_inject("device.compute")
+                        # Budget permitting, a sampled flush also
+                        # records the torch.profiler trace that
+                        # explains it (one trace id across both).
+                        with maybe_device_trace(ds, self._device):
+                            preds = np.asarray(self._score(padded))[:n]
+                        if skew:
+                            preds = preds + skew
+                    if batch_slab is not None and \
+                            np.shares_memory(preds, batch_slab):
+                        # The slab is about to be recycled, so waiters
+                        # must own their rows.
+                        preds = preds.copy()
+                    compute_s = time.perf_counter() - t_dev
+                    self._m_compute.labels(bucket=bucket).observe(
+                        compute_s)
+                get_ledger().record(
+                    "eta_score", real_rows=n, padded_rows=bucket,
+                    bucket=bucket, queue_s=queue_s, compute_s=compute_s,
+                    oversized=n > self._buckets[-1])
                 flush_dur = time.perf_counter() - t_flush
                 self._m_flush.observe(flush_dur)
                 self._flush_ewma_s += 0.3 * (flush_dur - self._flush_ewma_s)
@@ -622,12 +670,39 @@ class EtaService:
             self._finish_init()
 
     def _load(self, path: str) -> None:
-        """Load + pack once: the packed weights stay on the device. An
-        ``RTPU1`` artifact is tried first, then the reference's own model
-        family, an XGBoost JSON file, served as tensorized gather chains
-        (``models/gbdt.py``) on the same device. When both fail, the
-        first loader's error is the one reported."""
+        """Load + pack once: the packed weights stay on the device. The
+        file's magic is sniffed first: a ``torch.export`` artifact
+        (``RTPUT1``) serves its own program on the device (kernel
+        ``torch_export``), and a JAX StableHLO export (``RTPUX1``) is
+        refused by name. Otherwise an ``RTPU1`` artifact is tried, then
+        the reference's own model family, an XGBoost JSON file, served
+        as tensorized gather chains (``models/gbdt.py``) on the same
+        device. When both fail, the first loader's error is the one
+        reported."""
+        # Chaos fault point: an injected fault degrades exactly like a
+        # corrupt file — load_error set, the old model (if any) keeps
+        # serving.
+        try:
+            chaos_inject("model.load")
+        except ChaosError as e:
+            self._error = f"chaos injected at model.load: {e}"
+            return
         self.fingerprint = _artifact_fingerprint(path)
+        try:
+            with open(path, "rb") as f:
+                head = f.read(len(TORCH_EXPORT_MAGIC))
+        except OSError:
+            head = b""  # load_model reports the missing path
+        if head in (TORCH_EXPORT_MAGIC, JAX_EXPORT_MAGIC):
+            try:
+                self._model = load_exported_serving_fn(path, self.device)
+            except Exception as e:
+                self._error = f"{type(e).__name__}: {e}"
+                return
+            self._params = None  # weights are constants in the program
+            self.kernel = "torch_export"
+            self.kernel_dtype = self._model.header.get("compute_dtype")
+            return
         try:
             model, params = load_model(path)
             model.policy = backend_compute_policy(model.policy, self.device)
@@ -658,6 +733,15 @@ class EtaService:
         the model, so a batcher keeps scoring its own model after a hot
         swap replaces the service's fields."""
         device = self.device
+        if self.kernel == "torch_export":
+            program = self._model
+
+            def score(x: np.ndarray) -> np.ndarray:
+                xt = torch.from_numpy(np.ascontiguousarray(x, np.float32))
+                with torch.no_grad():
+                    return program(xt.to(device)).cpu().numpy()
+
+            return score
         if self._packed is None:
             ensemble, params = self._model, self._params
 
@@ -681,7 +765,8 @@ class EtaService:
         self._score = self._score_fn()
         self._batcher = DynamicBatcher(
             self._score, cfg.batch_buckets, cfg.max_batch, cfg.max_wait_ms,
-            adaptive=cfg.adaptive_wait, min_wait_ms=cfg.min_wait_ms)
+            adaptive=cfg.adaptive_wait, min_wait_ms=cfg.min_wait_ms,
+            device=self.device)
         # Self-check: an artifact can deserialize fine yet be unusable,
         # and a kernel can fail to build or launch. Run one dummy row
         # now so breakage surfaces in health as model:degraded instead
@@ -779,6 +864,10 @@ class EtaService:
             self.loaded_unix = fresh.loaded_unix
             _m_swaps.labels(result="accepted").inc()
             _m_generation.set(self._serving.generation)
+            record_change("model.swap",
+                          detail={"generation": self._serving.generation,
+                                  "fingerprint": self.fingerprint,
+                                  "path": self._path})
             # Correctness already holds (the new generation keys new
             # cache entries); this frees the dead generation's entries
             # now instead of at LRU/TTL time.
@@ -905,9 +994,11 @@ class EtaService:
         """Which model family serves (``eta_mlp``, or ``xgboost`` for a
         tree ensemble), through which compute path (``cuda_fused`` on
         the card, ``torch_plain`` on an explicit CPU run, ``gbdt_gather``
-        for trees), at what dtype, where."""
+        for trees, ``torch_export`` for an exported program), at what
+        dtype, where."""
         family = (None if self._model is None else
-                  "eta_mlp" if self._packed is not None else "xgboost")
+                  "eta_mlp" if self._packed is not None
+                  or self.kernel == "torch_export" else "xgboost")
         return {"family": family, "kernel": self.kernel,
                 "dtype": self.kernel_dtype, "device": str(self.device)}
 
@@ -948,9 +1039,17 @@ class EtaService:
             # Cache key = (model generation, live-metric epoch): a metric
             # flip retires every cached prediction the same way a model
             # swap does. The epoch is 0 while live traffic is off.
-            preds = fl.predict(rows, (serving.generation, metric_epoch()),
-                               lambda miss: self._submit_chunked(batcher, miss),
-                               blob=blob)
+            # The span carries the request's provenance: which model
+            # generation and metric epoch served the rows, and how many
+            # came from the cache.
+            epoch = metric_epoch()
+            with trace_span("fastlane.predict", rows=len(rows),
+                            model_generation=serving.generation,
+                            metric_epoch=epoch) as fspan:
+                preds = fl.predict(
+                    rows, (serving.generation, epoch),
+                    lambda miss: self._submit_chunked(batcher, miss),
+                    span=fspan, blob=blob)
         else:
             preds = self._submit_chunked(batcher, rows)
         if bad.any() and preds is not None:

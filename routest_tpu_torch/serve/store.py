@@ -17,9 +17,10 @@ Two backends behind one interface, both wrapped by :func:`make_store`:
 
 then ``ResilientStore`` (bounded retry with jittered backoff, a circuit
 breaker, a bounded write journal that replays on recovery) and
-``TracedStore`` (the ``rtpu_store_op_seconds{op,backend}`` histogram).
-The chaos points, the flight recorder's breaker trigger and the trace
-spans arrive with the observability slice.
+``TracedStore`` (a ``store.<op>`` trace span and the
+``rtpu_store_op_seconds{op,backend}`` histogram per operation). Every
+backend attempt passes the ``store.http`` chaos point, and the breaker
+opening triggers a flight-recorder bundle, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -37,7 +38,10 @@ import urllib.request
 import uuid
 from typing import Deque, Dict, List, Optional, Protocol, Tuple
 
+from routest_tpu_torch.chaos import ChaosError
+from routest_tpu_torch.chaos import inject as chaos_inject
 from routest_tpu_torch.obs import get_registry
+from routest_tpu_torch.obs.trace import trace_span
 from routest_tpu_torch.utils.logging import get_logger
 
 _log = get_logger("routest_tpu_torch.serve.store")
@@ -242,10 +246,14 @@ def _is_transient(e: BaseException) -> bool:
     the caller's problem and raises immediately.
 
     The status check comes FIRST: ``urllib.error.HTTPError`` subclasses
-    ``OSError``, so a 409 would otherwise read as a dead socket."""
+    ``OSError``, so a 409 would otherwise read as a dead socket. An
+    injected ``store.http`` fault is transient, like the outage it
+    models."""
     if isinstance(e, urllib.error.HTTPError):
         return e.code >= 500  # 5xx = backend's fault; 4xx = ours
-    return isinstance(e, (ConnectionError, TimeoutError, OSError))
+    if isinstance(e, (ConnectionError, TimeoutError, OSError)):
+        return True
+    return isinstance(e, ChaosError)
 
 
 class ResilientStore:
@@ -337,6 +345,17 @@ class ResilientStore:
                          failures=self._failures,
                          cooldown_s=self._cooldown_s,
                          last_error=f"{type(e).__name__}: {e}")
+            # Postmortem trigger: the breaker opening marks the moment
+            # the outage became policy (fail-fast + journal) — capture
+            # the evidence while the offending requests are still in the
+            # recorder and span rings. Rate-limited inside trigger().
+            from routest_tpu_torch.obs.recorder import get_recorder
+
+            get_recorder().trigger("store_breaker_open", {
+                "backend": self._inner.kind,
+                "consecutive_failures": self._failures,
+                "last_error": f"{type(e).__name__}: {e}",
+            })
         else:
             _log.warning("store_error", op=op, backend=self._inner.kind,
                          error=f"{type(e).__name__}: {e}")
@@ -410,6 +429,7 @@ class ResilientStore:
         return replayed
 
     def _attempt(self, op: str, row: Dict):
+        chaos_inject("store.http")
         if op == "insert_request":
             return self._inner.insert_request(row)
         return self._inner.insert_result(row)
@@ -426,6 +446,7 @@ class ResilientStore:
         last: Optional[BaseException] = None
         for attempt in range(self._retries + 1):
             try:
+                chaos_inject("store.http")
                 out = fn(*args)
             except Exception as e:
                 if not _is_transient(e):
@@ -514,6 +535,7 @@ class ResilientStore:
         if self._breaker_blocks():
             return False
         try:
+            chaos_inject("store.http")
             ok = bool(self._inner.ping())
         except Exception as e:
             if not _is_transient(e):
@@ -548,8 +570,9 @@ class ResilientStore:
 
 
 class TracedStore:
-    """Store decorator: one observation per operation in the process
-    registry's ``rtpu_store_op_seconds{op,backend}`` histogram. Pure
+    """Store decorator: every operation becomes a child span of the
+    ambient request trace plus one observation in the process registry's
+    ``rtpu_store_op_seconds{op,backend}`` histogram. Pure
     pass-through otherwise (same Protocol, same exceptions)."""
 
     def __init__(self, inner: Store) -> None:
@@ -560,11 +583,12 @@ class TracedStore:
 
     def _call(self, op: str, fn, *args):
         t0 = time.perf_counter()
-        try:
-            return fn(*args)
-        finally:
-            self._hist.labels(op=op, backend=self._inner.kind).observe(
-                time.perf_counter() - t0)
+        with trace_span(f"store.{op}", backend=self._inner.kind):
+            try:
+                return fn(*args)
+            finally:
+                self._hist.labels(op=op, backend=self._inner.kind).observe(
+                    time.perf_counter() - t0)
 
     def insert_request(self, row: Dict) -> str:
         return self._call("insert_request", self._inner.insert_request, row)
@@ -604,7 +628,7 @@ class TracedStore:
 
 def make_store(supabase_url: Optional[str],
                service_key: Optional[str]) -> Store:
-    """Backend → resilience layer → timing, outermost last: PostgREST
+    """Backend → resilience layer → tracing, outermost last: PostgREST
     when a Supabase URL and key are both set, else memory. Retry /
     breaker / journal knobs are env-tunable (``RTPU_STORE_*``) with
     boot-safe parsing (a malformed value keeps the default)."""

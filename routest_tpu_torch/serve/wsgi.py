@@ -11,8 +11,12 @@ streamed responses for SSE, per-route request stats
 skipped, their lifetime is connection time), and a threaded ``wsgiref``
 server that drains in-flight handlers on SIGTERM. Cookies are read
 with ``http.cookies`` and written with werkzeug's attributes (one
-``Set-Cookie`` line each). The flight recorder and trace spans arrive
-with the observability slice.
+``Set-Cookie`` line each). Every request runs inside a
+``replica.request`` span (a caller's W3C ``traceparent`` is adopted,
+``X-Trace-Id`` is echoed), its handler inside ``replica.handler``, and
+the flight recorder keeps one record per completed request; probe
+traffic (``X-RTPU-Probe``) counts in its own family, never in the
+route stats the SLO engine rolls up.
 """
 
 from __future__ import annotations
@@ -27,12 +31,14 @@ import signal
 import socketserver
 import threading
 import time
-import uuid
 from typing import Any, Callable, Dict, List, Optional, Tuple
 from urllib.parse import parse_qsl
 from wsgiref.simple_server import WSGIRequestHandler, WSGIServer
 
 from routest_tpu_torch.obs import get_registry
+from routest_tpu_torch.obs.recorder import get_recorder
+from routest_tpu_torch.obs.trace import (REQUEST_ID_RE, mint_request_id,
+                                         parse_traceparent, trace_span)
 from routest_tpu_torch.serve.deadline import (DEADLINE_HEADER,
                                               DeadlineExceeded,
                                               bind_deadline,
@@ -43,10 +49,6 @@ from routest_tpu_torch.utils.logging import (get_logger, reset_request_id,
 from routest_tpu_torch.utils.profiling import RequestStats
 
 _PARAM_RE = re.compile(r"<([a-zA-Z_][a-zA-Z0-9_]*)>")
-# A caller-supplied correlation id is echoed only if it is shaped like
-# one (bounded, log-safe charset); anything else gets a fresh id.
-_REQUEST_ID_RE = re.compile(r"^[A-Za-z0-9._-]{1,64}$")
-
 # Origins the reference allows: the localhost dev origins plus the
 # configured production frontend (``ROUTEST_FRONTEND_ORIGIN``) get
 # credentialed CORS; the ``*.vercel.app`` wildcard stays reachable but
@@ -83,13 +85,19 @@ class Request:
         # The parsed query string, first value per name (what werkzeug's
         # ``request.args.get`` returns).
         self.args: Dict[str, str] = {}
-        for name, value in parse_qsl(environ.get("QUERY_STRING", ""),
-                                     keep_blank_values=True):
+        self._query = parse_qsl(environ.get("QUERY_STRING", ""),
+                                keep_blank_values=True)
+        for name, value in self._query:
             self.args.setdefault(name, value)
         self.remote_addr: Optional[str] = environ.get("REMOTE_ADDR")
         self.content_type: str = environ.get("CONTENT_TYPE", "")
         self.scheme: str = environ.get("wsgi.url_scheme", "http")
         self._cookies: Optional[Dict[str, str]] = None
+
+    def arg_list(self, name: str) -> List[str]:
+        """Every value of a repeated query parameter, in order (what
+        werkzeug's ``request.args.getlist`` returns)."""
+        return [v for k, v in self._query if k == name]
 
     @property
     def cookies(self) -> Dict[str, str]:
@@ -232,6 +240,14 @@ class App:
             "rtpu_replica_expired_total",
             "Requests rejected with 504: deadline already expired at "
             "the replica edge.")
+        # Probe traffic (X-RTPU-Probe header) counts HERE instead of the
+        # per-route request-stat families the SLO engine rolls up:
+        # synthetic probe load must never burn user error budget.
+        self._m_probe = get_registry().counter(
+            "rtpu_probe_replica_requests_total",
+            "Probe-tagged requests served by this replica (excluded "
+            "from the user request-stat families), by route.",
+            ("route",))
 
     @property
     def inflight(self) -> int:
@@ -271,46 +287,74 @@ class App:
         # one; bound to the logging context for the handler's duration
         # and echoed on the response.
         rid = request.header("X-Request-ID")
-        if not _REQUEST_ID_RE.match(rid):
-            rid = uuid.uuid4().hex[:16]
+        if not REQUEST_ID_RE.match(rid):
+            rid = mint_request_id()
         token = set_request_id(rid)
+        # Trace context: adopt the caller's ``traceparent``; a missing or
+        # malformed header starts a new root HERE (parent=None, never
+        # the ambient context of a reused server thread).
+        remote_ctx = parse_traceparent(request.header("traceparent") or None)
         # Deadline propagation: an already-expired request is rejected
         # with 504 here, before model or device work.
         raw_deadline = request.header(DEADLINE_HEADER)
         deadline_ms = parse_deadline_ms(raw_deadline) if raw_deadline else None
+        # Synthetic-probe tag: the route-stats record sites divert to
+        # the probe family, and the root span carries it.
+        probe_kind = request.header("X-RTPU-Probe") or None
+        request._rtpu_probe = probe_kind
         with self._inflight_lock:
             self._inflight += 1
+        t0 = time.perf_counter()
         try:
-            dl_token = None
-            try:
-                if deadline_ms is not None and deadline_ms <= 0:
-                    self._m_expired.inc()
-                    # An edge rejection counts in the route's stats: a
-                    # deadline storm is an availability incident.
-                    _fn, template, _kw, _al = self._match(request.method,
-                                                          request.path)
-                    self.request_stats.add(
-                        f"{request.method} {template or request.path}",
-                        0.0, error=True)
+            with trace_span("replica.request", parent=remote_ctx,
+                            method=request.method, path=request.path,
+                            request_id=rid) as span:
+                if probe_kind:
+                    span.set_attr("probe", probe_kind)
+                dl_token = None
+                try:
+                    if deadline_ms is not None and deadline_ms <= 0:
+                        self._m_expired.inc()
+                        # An edge rejection counts in the route's stats:
+                        # a deadline storm is an availability incident.
+                        _fn, template, _kw, _al = self._match(
+                            request.method, request.path)
+                        route = f"{request.method} {template or request.path}"
+                        if probe_kind:
+                            self._m_probe.labels(route=route).inc()
+                        else:
+                            self.request_stats.add(route, 0.0, error=True)
+                        response = json_response(
+                            {"error": "deadline exceeded",
+                             "deadline_ms": deadline_ms}, 504)
+                    else:
+                        if deadline_ms is not None:
+                            dl_token = bind_deadline(deadline_ms)
+                        response = self._dispatch(request)
+                except Exception as e:  # last resort: one request, not the server
+                    get_logger("routest_tpu_torch.serve").error(
+                        "handler_failed", path=request.path,
+                        error=f"{type(e).__name__}: {e}")
                     response = json_response(
-                        {"error": "deadline exceeded",
-                         "deadline_ms": deadline_ms}, 504)
-                else:
-                    if deadline_ms is not None:
-                        dl_token = bind_deadline(deadline_ms)
-                    response = self._dispatch(request)
-            except Exception as e:  # last resort: one request, not the server
-                get_logger("routest_tpu_torch.serve").error(
-                    "handler_failed", path=request.path,
-                    error=f"{type(e).__name__}: {e}")
-                response = json_response(
-                    {"error": f"internal error: {e}"}, 500)
-            finally:
-                if dl_token is not None:
-                    reset_deadline(dl_token)
-                reset_request_id(token)
+                        {"error": f"internal error: {e}"}, 500)
+                finally:
+                    if dl_token is not None:
+                        reset_deadline(dl_token)
+                    reset_request_id(token)
+                span.set_attr("status", response.status_code)
+                if span.trace_id is not None:
+                    response.headers["X-Trace-Id"] = span.trace_id
             response.headers["X-Request-ID"] = rid
             self._apply_cors(request, response)
+            # Flight recorder: one bounded-ring record per completed
+            # request (streamed responses record at handler return).
+            get_recorder().record_request(
+                tier="replica", method=request.method, path=request.path,
+                status=response.status_code,
+                duration_ms=(time.perf_counter() - t0) * 1000.0,
+                request_id=rid, trace_id=span.trace_id,
+                deadline_ms=deadline_ms,
+                extra={"probe": probe_kind} if probe_kind else None)
             return response(environ, start_response)
         finally:
             with self._inflight_lock:
@@ -329,14 +373,18 @@ class App:
         t0 = time.perf_counter()
         response: Optional[Response] = None
         try:
-            result = fn(request, **kwargs)
-            if isinstance(result, Response):
-                response = result
-            elif isinstance(result, tuple):
-                payload, status = result
-                response = json_response(payload, status)
-            else:
-                response = json_response(result)
+            with trace_span("replica.handler",
+                            route=f"{request.method} {template}") as hs:
+                result = fn(request, **kwargs)
+                if isinstance(result, Response):
+                    response = result
+                elif isinstance(result, tuple):
+                    payload, status = result
+                    response = json_response(payload, status)
+                else:
+                    response = json_response(result)
+                hs.set_attr("status", response.status_code)
+                hs.set_attr("streamed", response.is_streamed)
             return response
         except RequestEntityTooLarge:
             response = json_response(
@@ -354,10 +402,16 @@ class App:
             # error; a streamed (SSE) body's lifetime is connection
             # time, not handler latency, so it is skipped.
             if response is None or not response.is_streamed:
-                self.request_stats.add(
-                    f"{request.method} {template}",
-                    time.perf_counter() - t0,
-                    error=response is None or response.status_code >= 500)
+                error = response is None or response.status_code >= 500
+                route = f"{request.method} {template}"
+                if getattr(request, "_rtpu_probe", None):
+                    # Probe traffic: its own family, never the user
+                    # request stats the SLO engine rolls up.
+                    self._m_probe.labels(route=route).inc()
+                else:
+                    self.request_stats.add(route,
+                                           time.perf_counter() - t0,
+                                           error=error)
 
     @staticmethod
     def _apply_cors(request: Request, response: Response) -> None:
@@ -458,9 +512,14 @@ def run_with_graceful_shutdown(app: App, host: str, port: int,
                                ready_event: Optional[threading.Event] = None):
     """Serve ``app`` until SIGTERM/SIGINT, then drain: stop accepting,
     wait up to ``drain_timeout_s`` for in-flight handlers to finish
-    (streamed SSE bodies are not waited for), then return. Must run on the main thread (signal handlers). Returns
-    the count of handlers still running at exit (0 = clean drain)."""
+    (streamed SSE bodies are not waited for), then return. Must run on
+    the main thread (signal handlers). Returns the count of handlers still running at exit (0 = clean drain)."""
     log = get_logger("routest_tpu_torch.serve.boot")
+    # SIGUSR2 → postmortem bundle; main-thread only, which this function
+    # already requires.
+    from routest_tpu_torch.obs.recorder import install_sigusr2_trigger
+
+    install_sigusr2_trigger()
     server = make_server(app, host, port)
     stop = threading.Event()
 

@@ -19,6 +19,13 @@ file per checkpoint, written by ``torch.save`` to a temp file and
 renamed, read back with ``torch.load(weights_only=True)``. A JAX Orbax
 checkpoint directory is not read.
 
+The ``torch.export`` scoring artifact (:func:`export_serving_fn`) is the
+counterpart of the JAX package's StableHLO export: ``TORCH_EXPORT_MAGIC``
++ one JSON header line + the bytes of ``torch.export.save`` of the
+plain ``EtaMLP`` forward with the weights inside the program and a
+symbolic batch dimension. The JAX export (``RTPUX1``) is refused by
+name: it needs the JAX package to run.
+
 Error texts for bad magic, format and version are the JAX package's,
 word for word.
 """
@@ -349,6 +356,136 @@ def save_model(path: str, model) -> None:
         header["version"] = QUANTILE_ARTIFACT_VERSION
         header["quantiles"] = list(model.quantiles)
     _write_artifact(path, MAGIC, header, _packb(model.to_numpy()))
+
+
+TORCH_EXPORT_MAGIC = b"RTPUT1\n"
+TORCH_EXPORT_VERSION = 1
+TORCH_EXPORT_FORMAT = "routest_tpu_torch.eta_torch_export"
+# The JAX package's StableHLO export: recognised only to refuse it.
+JAX_EXPORT_MAGIC = b"RTPUX1\n"
+# The largest batch the exported program accepts (the symbolic batch
+# dimension's bound; serving buckets stay far below it).
+_EXPORT_MAX_BATCH = 1 << 20
+
+
+def export_serving_fn(path: str, model, device="cpu"):
+    """``torch.export`` the serving forward of an ``EtaMLP`` module — the
+    plain forward, ``forward`` for a point model and ``apply_quantiles``
+    for a quantile model — with the weights as constants of the program
+    and a symbolic batch dimension (1 … 2**20 rows), so one file serves
+    every batch bucket. Traced on ``device`` at the module's policy; the
+    example batch has 2 rows, since ``torch.export`` specializes sizes
+    0 and 1. Layout: ``TORCH_EXPORT_MAGIC`` + JSON header (format,
+    version, ``n_features``, ``quantiles``, ``hidden``, the torch
+    version) + the ``torch.export.save`` bytes. Returns the
+    ``ExportedProgram`` that was saved."""
+    import io
+
+    import torch
+    from torch.export import Dim, export, save
+
+    forward = _serving_forward(model).to(device).eval()
+    example = torch.zeros((2, model.n_features), dtype=torch.float32,
+                          device=device)
+    batch = Dim("batch", min=1, max=_EXPORT_MAX_BATCH)
+    with torch.no_grad():
+        program = export(forward, (example,),
+                         dynamic_shapes={"x": {0: batch}})
+    buf = io.BytesIO()
+    save(program, buf)
+    _write_artifact(path, TORCH_EXPORT_MAGIC, {
+        "format": TORCH_EXPORT_FORMAT,
+        "version": TORCH_EXPORT_VERSION,
+        "n_features": model.n_features,
+        "quantiles": list(model.quantiles),
+        "hidden": list(model.hidden),  # informational; not needed to run
+        "compute_dtype": _dtype_name(model.policy.compute_dtype),
+        "torch": torch.__version__,
+    }, buf.getvalue())
+    return program
+
+
+def _torch_minor(version: str) -> str:
+    return ".".join(version.split("+")[0].split(".")[:2])
+
+
+def _serving_forward(model):
+    """The point forward or the quantile forward of an ``EtaMLP``, as
+    the one ``forward`` of a module that ``torch.export`` traces."""
+    import torch
+
+    class Forward(torch.nn.Module):
+        def __init__(self, m) -> None:
+            super().__init__()
+            self.m = m
+
+        def forward(self, x):
+            return self.m.apply_quantiles(x) if self.m.quantiles \
+                else self.m(x)
+
+    return Forward(model)
+
+
+class ExportedServingModel:
+    """A loaded ``torch.export`` artifact, shaped like a model for the
+    serving layer: ``n_features`` / ``quantiles`` / ``hidden`` + a call
+    on a (B, n_features) float32 tensor on the device it was loaded
+    onto."""
+
+    def __init__(self, program, header: dict) -> None:
+        self._call = program.module()
+        self.header = header
+        self.n_features = int(header["n_features"])
+        self.quantiles = tuple(header.get("quantiles", ()))
+        self.hidden = tuple(header.get("hidden", ()))
+
+    def __call__(self, x):
+        return self._call(x)
+
+
+def load_exported_serving_fn(path: str, device="cpu") -> ExportedServingModel:
+    """Load an :func:`export_serving_fn` artifact onto ``device``.
+    Raises ValueError for wrong magic, format or version, for a JAX
+    StableHLO export (it needs the JAX package), for an artifact written
+    by another torch minor version (``.pt2`` bytes are not portable
+    between them), and for a quantile export without the 0.5 median."""
+    import io
+
+    import torch
+    from torch.export import load
+
+    with open(path, "rb") as f:
+        head = f.read(len(JAX_EXPORT_MAGIC))
+    if head == JAX_EXPORT_MAGIC:
+        raise ValueError(
+            f"{path}: a JAX StableHLO export (RTPUX1) needs the JAX "
+            f"package (routest_tpu) to run; export a torch.export "
+            f"artifact with python -m routest_tpu_torch.train.export")
+    header, blob = _read_artifact(
+        path, TORCH_EXPORT_MAGIC, TORCH_EXPORT_FORMAT,
+        (TORCH_EXPORT_VERSION,), kind="routest_tpu_torch torch.export "
+        "artifact", retrain_hint="re-export via python -m "
+        "routest_tpu_torch.train.export")
+    written = str(header.get("torch", ""))
+    if _torch_minor(written) != _torch_minor(torch.__version__):
+        raise ValueError(
+            f"{path}: exported by torch {written}, running torch "
+            f"{torch.__version__}; re-export via python -m "
+            f"routest_tpu_torch.train.export")
+    # Same contract as EtaMLP's constructor: a quantile head must carry
+    # the median, or every per-request ``q.index(0.5)`` would raise.
+    quantiles = header.get("quantiles") or []
+    if quantiles and 0.5 not in quantiles:
+        raise ValueError(
+            f"{path}: quantile export lacks the 0.5 median "
+            f"(quantiles={quantiles}); serving requires it")
+    program = load(io.BytesIO(blob))
+    device = torch.device(device)
+    if device.type != "cpu":
+        from torch.export.passes import move_to_device_pass
+
+        program = move_to_device_pass(program, device)
+    return ExportedServingModel(program, header)
 
 
 def default_model_path(cfg=None) -> str:

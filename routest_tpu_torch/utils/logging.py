@@ -2,8 +2,9 @@
 
 Every event is one JSON object on stderr: machine-parseable, with logger
 name, level, wall time, and free-form fields. Copied from
-``routest_tpu/utils/logging.py``; trace-span correlation and the flight
-recorder's log tee arrive with the observability slice.
+``routest_tpu/utils/logging.py``: a line emitted inside a trace span
+carries its trace and span ids, and the flight recorder's log tee
+(``set_log_tee``) sees every record.
 """
 
 from __future__ import annotations
@@ -24,6 +25,37 @@ _LEVELS = {"debug": 10, "info": 20, "warning": 30, "error": 40}
 _request_id: contextvars.ContextVar[Optional[str]] = contextvars.ContextVar(
     "rtpu_request_id", default=None)
 
+# Trace correlation: every line emitted inside an active span carries
+# the span's trace/span ids automatically, so the flight recorder (and
+# a grep) can pull one request's log lines with no per-call-site
+# changes. The lookup is deferred-imported: obs.trace imports nothing
+# from this module, so this cannot cycle, and utils stays importable
+# without the obs package initialized.
+_trace_context = None
+
+
+def _ambient_span_ids():
+    global _trace_context
+    if _trace_context is None:
+        from routest_tpu_torch.obs.trace import current_context
+
+        _trace_context = current_context
+    return _trace_context()
+
+
+# Log tee: the flight recorder installs a callback here to keep a
+# bounded ring of recent records (dicts, post-stamping). One slot, not
+# a list — there is one process recorder; tests may swap it.
+_tee = None
+
+
+def set_log_tee(fn) -> None:
+    """Install (or clear, with None) the process log tee. ``fn`` gets
+    every record dict AFTER level filtering and id stamping; it must
+    not raise (the recorder's ring append cannot)."""
+    global _tee
+    _tee = fn
+
 
 def set_request_id(rid: Optional[str]):
     """Bind the current context's request id; returns the reset token."""
@@ -32,6 +64,10 @@ def set_request_id(rid: Optional[str]):
 
 def reset_request_id(token) -> None:
     _request_id.reset(token)
+
+
+def current_request_id() -> Optional[str]:
+    return _request_id.get()
 
 
 class JsonLogger:
@@ -55,14 +91,27 @@ class JsonLogger:
         rid = _request_id.get()
         if rid is not None and "request_id" not in record:
             record["request_id"] = rid
+        ctx = _ambient_span_ids()
+        if ctx is not None:
+            # Ids flow even for unsampled traces (same rule the tracer
+            # applies to header propagation): correlation must not
+            # depend on the sampling coin.
+            record.setdefault("trace_id", ctx.trace_id)
+            record.setdefault("span_id", ctx.span_id)
+        tee = _tee
+        if tee is not None:
+            tee(record)
         line = json.dumps(record, default=str)
         with self._lock:
             try:
                 print(line, file=self._stream, flush=True)
             except ValueError:
                 # The stream can be closed under us (pytest tears its
-                # capture stream down while daemon threads are still
-                # finishing); a log line must never crash its thread.
+                # capture stream down while daemon threads — SLO
+                # ticker, timeline ticker, triggered profiler — are
+                # still finishing). The tee above already delivered the
+                # record to the flight recorder; a log line must never
+                # crash the thread that emitted it.
                 pass
 
     def debug(self, event: str, **fields: Any) -> None:

@@ -1,16 +1,26 @@
-"""Per-request latency stats for the serving layer.
+"""Per-request latency stats and ``torch.profiler`` device traces.
 
-The counterpart of ``routest_tpu/utils/profiling.py``'s ``RequestStats``:
-the per-route view behind ``/api/metrics``'s ``http`` section, backed by
-the registry's metric types (a log-bucket histogram + an error counter
-per route). The JAX module's ``device_trace`` (``jax.profiler``) has no
-counterpart here.
+The counterpart of ``routest_tpu/utils/profiling.py``:
+
+- ``RequestStats``: the per-route view behind ``/api/metrics``'s
+  ``http`` section, backed by the registry's metric types (a
+  log-bucket histogram + an error counter per route);
+- ``DeviceTrace``: a ``torch.profiler`` capture (CPU activity, plus
+  CUDA activity when the traced device is the card) written as a
+  Chrome trace, the counterpart of the JAX module's ``device_trace``. ``torch.profiler`` is process-wide, so every
+  capture in the process (a sampled span's device trace, the triggered
+  profiler, a kernel count) holds the one slot :func:`profiler_slot`
+  guards; a capture that finds it taken is refused with
+  :class:`ProfilerBusy`, never queued behind the other.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
+import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
 
 from routest_tpu_torch.obs.registry import MetricsRegistry
 
@@ -57,3 +67,78 @@ class RequestStats:
             "uptime_s": round(time.time() - self.started, 1),
             "routes": routes,
         }
+
+
+class ProfilerBusy(RuntimeError):
+    """Another ``torch.profiler`` capture holds the process's slot."""
+
+
+_slot = threading.Lock()
+_slot_holder: Optional[str] = None
+
+
+@contextlib.contextmanager
+def profiler_slot(who: str) -> Iterator[None]:
+    """Hold the process's one ``torch.profiler`` slot for the block, or
+    raise :class:`ProfilerBusy` naming the holder (never waits)."""
+    global _slot_holder
+    if not _slot.acquire(blocking=False):
+        raise ProfilerBusy(f"torch.profiler is busy ({_slot_holder}); "
+                           f"{who} refused")
+    _slot_holder = who
+    try:
+        yield
+    finally:
+        _slot_holder = None
+        _slot.release()
+
+
+class DeviceTrace:
+    """One ``torch.profiler`` capture from :meth:`start` to :meth:`stop`
+    (same thread: the profiler's state is per-thread), exported to
+    ``path`` as a Chrome trace. CUDA activity is recorded when
+    ``device`` is the card, CPU activity always. Holds the profiler
+    slot in between; a failed start releases it and raises."""
+
+    def __init__(self, path: str, device="cuda", who: str = "trace") -> None:
+        import torch
+
+        self.path = path
+        self.cuda = torch.device(device).type == "cuda"
+        self.who = who
+        self._prof = None
+        self._slot = None
+
+    def start(self) -> None:
+        from torch.profiler import ProfilerActivity, profile
+
+        slot = profiler_slot(self.who)
+        slot.__enter__()
+        try:
+            activities = [ProfilerActivity.CPU]
+            if self.cuda:
+                activities.append(ProfilerActivity.CUDA)
+            prof = profile(activities=activities)
+            prof.__enter__()
+        except BaseException:
+            slot.__exit__(None, None, None)
+            raise
+        self._prof, self._slot = prof, slot
+
+    def stop(self) -> None:
+        """End the capture and write the Chrome trace; the slot is
+        released whatever happens."""
+        prof, slot = self._prof, self._slot
+        self._prof = self._slot = None
+        if prof is None:
+            return
+        try:
+            if self.cuda:
+                import torch
+
+                torch.cuda.synchronize()
+            prof.__exit__(None, None, None)
+            os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
+            prof.export_chrome_trace(self.path)
+        finally:
+            slot.__exit__(None, None, None)

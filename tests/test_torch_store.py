@@ -371,7 +371,20 @@ def _drive(mod, script, registry):
     return out, inner.calls, [b - a for a, b in zip(before, after)]
 
 
-def test_resilient_store_matches_jax_on_a_scripted_outage():
+@pytest.fixture
+def quiet_recorders(monkeypatch):
+    """Both packages' flight recorders off: a breaker that opens writes
+    a postmortem bundle, and a bundle written inside the 50 ms cooldown
+    this test scripts would let the breaker half-open early."""
+    from routest_tpu.obs import recorder as jrecorder
+    from routest_tpu_torch.obs import recorder as trecorder
+
+    for mod in (jrecorder, trecorder):
+        monkeypatch.setattr(mod, "_recorder", mod.FlightRecorder(
+            mod.RecorderConfig(enabled=False)))
+
+
+def test_resilient_store_matches_jax_on_a_scripted_outage(quiet_recorders):
     jout, jcalls, jdelta = _drive(jstore, [], jget_registry())
     tout, tcalls, tdelta = _drive(tstore, [], get_registry())
     assert tcalls == jcalls
