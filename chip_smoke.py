@@ -173,8 +173,8 @@ of which fails the run:
    ``slo_page`` bundle and ``/api/incidents`` rank the swap among the
    suspects; (b) ``/api/efficiency``'s ``eta_score`` rows and padding
    per bucket are what was sent, a road route and a dispatch reach
-   ``route_solve`` / ``dispatch_solve``, the watchdog reads
-   ``no_artifact`` (health too); (e) ``POST /api/debug/profile`` writes
+   ``route_solve`` / ``dispatch_solve``, the watchdog reads ``pinned``
+   from the measured record (health too); (e) ``POST /api/debug/profile`` writes
    ``profile.folded`` and a device trace naming the kernel; then in this
    process (c) ``device.compute:error=1@2``: two 503s as the JAX app
    answers, no launch, the third answer bitwise the fault-free one, and
@@ -185,11 +185,30 @@ of which fails the run:
    kernel-vs-plain tolerance of the kernel-served artifact and bitwise
    the program before saving; (g) single-row ``/api/predict_eta`` p95
    with tracing off, at the default sample rate and at 1.0, in a fresh
-   process (a record).
+   process (a record);
+15. selection and the native data plane, run between phases 4 and 5:
+   the committed ``artifacts/kernel_bench_cuda.json`` and
+   ``serving_kernel_cuda.json`` must say ``backend: "cuda"`` and this
+   card's name (else the mismatch is printed and
+   ``scripts/bench_serving_kernel_cuda.py`` measures a temporary record
+   that the rest of the run serves from; the committed files are never
+   written); ``EtaService`` on the card under ``ROUTEST_FUSED`` unset, 1
+   and 0: the ``kernel`` string (``cuda_fused``, ``torch_plain`` under
+   0), the ``win_bucket`` provenance (path, status, backend, card, win
+   bucket, mode), one kernel launch at every serving bucket (none under
+   0), answers within the bf16 class of the plain version, and a note
+   of any recorded tile that differs from ``tile_rows``'; one 4096-row
+   ``/api/predict_eta_batch`` through the port's
+   app, whose ``/api/efficiency`` watchdog (and health) read ``pinned``;
+   ``routest_tpu_torch.native.available()``, and its ``encode_batch``
+   (4096 rows), ``parse_csv`` (a generated 4096-row CSV) and
+   ``parse_osm`` (the metro extract) bitwise the numpy, Python and
+   ElementTree paths, with each path's median host ms.
 
 The lines before the last are one ``{"optimize": {...}}``, one
 ``{"road": {...}}``, one ``{"overlay": {...}}``, one ``{"live": {...}}``,
-one ``{"dispatch": {...}}``, one ``{"serving_core": {...}}``, one
+one ``{"selection": {...}}``, one ``{"dispatch": {...}}``, one
+``{"serving_core": {...}}``, one
 ``{"train": {...}}``, one ``{"observability": {...}}`` and one
 ``{"kernels": [...]}`` JSON object and the
 card's name and power limit; the last line is
@@ -298,60 +317,6 @@ def compare(got, want, tol, n_q):
         check((np.diff(got, axis=1) >= -1e-5).all(), "quantiles cross")
     rel = err / np.maximum(np.abs(want), 1e-6)
     return float(err.max()), float(rel.max())
-
-
-def time_ms(fn, iters):
-    """→ (CUDA-event ms per call, host ms per call to enqueue it). The
-    enqueue time is taken over a run short enough not to fill the launch
-    queue, so it is the wrapper's own host cost."""
-    import torch
-
-    for _ in range(5):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(50):
-        fn()
-    enqueue_ms = (time.perf_counter() - t0) * 1e3 / 50
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters, enqueue_ms
-
-
-def graph_ms(fn, reps=20, replays=10):
-    """→ device ms per call of ``fn``: ``reps`` calls captured in one CUDA
-    graph, replayed ``replays`` times between CUDA events. With no host
-    work between launches this is the kernel's own time (plus the
-    graph's launch gap), where back-to-back eager launches would measure
-    the wrapper's host cost whenever that is the longer of the two."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / (reps * replays)
 
 
 def _request(port, method, path, body=None):
@@ -566,6 +531,21 @@ def _check_batch(out, n):
     return eta
 
 
+def _batch_body(rng, n):
+    """A columnar ``/api/predict_eta_batch`` body of ``n`` seeded rows,
+    unknown categories included."""
+    weather_pool = ["Cloudy", "Stormy", "Sunny", "Windy", "Fog"]
+    traffic_pool = ["High", "Jam", "Low", "Medium", "Gridlock"]
+    return {
+        "distance_m": rng.uniform(200.0, 40_000.0, n).round(1).tolist(),
+        "weather": [weather_pool[i] for i in rng.integers(0, 5, n)],
+        "traffic": [traffic_pool[i] for i in rng.integers(0, 5, n)],
+        "driver_age": rng.integers(18, 70, n).tolist(),
+        "pickup_time": [f"2026-10-{12 + i % 7:02d}T{i % 24:02d}:15:00"
+                        for i in range(n)],
+    }
+
+
 def phase_serving(rng):
     """→ {variant: kernel launches over its served requests}."""
     import numpy as np
@@ -581,16 +561,7 @@ def phase_serving(rng):
     svc = EtaService(ServeConfig(), model_path=artifact, device="cuda")
     check(svc.available, f"EtaService not serving: {svc.load_error}")
     n = 4096
-    weather_pool = ["Cloudy", "Stormy", "Sunny", "Windy", "Fog"]
-    traffic_pool = ["High", "Jam", "Low", "Medium", "Gridlock"]
-    batch = {
-        "distance_m": rng.uniform(200.0, 40_000.0, n).round(1).tolist(),
-        "weather": [weather_pool[i] for i in rng.integers(0, 5, n)],
-        "traffic": [traffic_pool[i] for i in rng.integers(0, 5, n)],
-        "driver_age": rng.integers(18, 70, n).tolist(),
-        "pickup_time": [f"2026-10-{12 + i % 7:02d}T{i % 24:02d}:15:00"
-                        for i in range(n)],
-    }
+    batch = _batch_body(rng, n)
     rows = torch.from_numpy(_batch_rows(batch)).cuda()
     launches = {}
     with _Server(svc) as srv:
@@ -668,6 +639,274 @@ def phase_serving(rng):
           f"{err8[0]:.3g}; vs the bf16 service max abs "
           f"{float(np.abs(eta8 - eta).max()):.3g} (not a check)")
     return launches
+
+
+# ── phase 15: the kernel chosen by a measured record; native ─────────
+
+# The records serving and the watchdog read, in artifacts/.
+SELECTION_RECORD = "kernel_bench_cuda.json"
+SERVING_RECORD = "serving_kernel_cuda.json"
+# The records this run holds serving to: the committed ones, or ones
+# measured in this run when those name another card.
+_RECORDS = {}
+NATIVE_ROWS = 4096
+NATIVE_REPS = 20
+OSM_REPS = 3
+
+
+def _record_paths():
+    return _RECORDS or {
+        name: os.path.join(ROOT, "artifacts", name)
+        for name in (SELECTION_RECORD, SERVING_RECORD)}
+
+
+def _selection_records(name):
+    """→ {record name: path} this card serves from: the committed
+    records when both say ``backend: "cuda"`` and this card's name;
+    else (the mismatch printed) records measured now by
+    ``scripts/bench_serving_kernel_cuda.py`` into a temporary
+    directory, which serving and the watchdog read for the rest of the
+    run. The committed files are never written."""
+    import atexit
+    import shutil
+    import tempfile
+
+    paths = _record_paths()
+    wrong = []
+    for path in paths.values():
+        try:
+            with open(path) as f:
+                rec = json.load(f)
+        except (OSError, ValueError) as e:
+            wrong.append(f"{os.path.relpath(path, ROOT)}: {e}")
+            continue
+        if (rec.get("backend"), rec.get("device")) != ("cuda", name):
+            wrong.append(f"{os.path.relpath(path, ROOT)}: backend "
+                         f"{rec.get('backend')!r}, device "
+                         f"{rec.get('device')!r}")
+    if not wrong:
+        return paths
+    print(f"[selection] the committed records are not this card's "
+          f"({name!r}): {'; '.join(wrong)}; measuring a temporary record")
+    tmp = tempfile.mkdtemp(prefix="rtpu_records_")
+    atexit.register(shutil.rmtree, tmp, True)
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "scripts",
+                                      "bench_serving_kernel_cuda.py"),
+         "--out", tmp, "--repeats", "3"], cwd=ROOT, capture_output=True,
+        text=True, timeout=900)
+    check(proc.returncode == 0, f"re-measuring the record failed: "
+                                f"{proc.stderr[-2000:]}")
+    _RECORDS.update({n: os.path.join(tmp, n)
+                     for n in (SELECTION_RECORD, SERVING_RECORD)})
+    os.environ["ROUTEST_KERNEL_BENCH"] = _RECORDS[SELECTION_RECORD]
+    os.environ["RTPU_EFF_KERNEL_ARTIFACT"] = _RECORDS[SERVING_RECORD]
+    return dict(_RECORDS)
+
+
+def _selection_modes(rng, name, paths):
+    """``EtaService`` on the card under ``ROUTEST_FUSED`` unset, 1 and
+    0: kernel string and provenance, launches per serving bucket, and
+    answers against the plain version. → (auto service, auto's
+    launches over the buckets, record)."""
+    import numpy as np
+    import torch
+
+    from routest_tpu_torch.core.config import ServeConfig
+    from routest_tpu_torch.ops.fused_mlp import (fused_eta_forward,
+                                                 fused_eta_forward_plain,
+                                                 tile_rows)
+    from routest_tpu_torch.serve.ml_service import EtaService
+
+    with open(paths[SELECTION_RECORD]) as f:
+        table = json.load(f)["by_dtype"]["bfloat16"]
+    win = table["kernel_wins_max_bucket"]
+    # a record in which the plain version won a batch is refused, and
+    # the kernel serves all the same
+    status = ("selected" if win >= max(r["batch"] for r in table["rows"])
+              else "plain_won")
+    artifact = os.path.join(ROOT, "artifacts", "eta_mlp.msgpack")
+    auto_svc, auto_launches, rec = None, 0, {"record_status": status}
+    for mode in ("auto", "1", "0"):
+        if mode == "auto":
+            os.environ.pop("ROUTEST_FUSED", None)
+        else:
+            os.environ["ROUTEST_FUSED"] = mode
+        try:
+            svc = EtaService(ServeConfig(), model_path=artifact,
+                             device=CARD)
+        finally:
+            os.environ.pop("ROUTEST_FUSED", None)
+        check(svc.available, f"ROUTEST_FUSED={mode}: {svc.load_error}")
+        scoring = svc.scoring_info()
+        want = "torch_plain" if mode == "0" else "cuda_fused"
+        check(scoring["kernel"] == want,
+              f"ROUTEST_FUSED={mode}: kernel {scoring['kernel']}, want {want}")
+        prov = scoring.get("win_bucket") or {}
+        check(prov.get("path") == paths[SELECTION_RECORD]
+              and prov.get("status") == status
+              and prov.get("backend") == "cuda"
+              and prov.get("device") == name
+              and prov.get("kernel_wins_max_bucket") == win
+              and prov.get("mode") == mode,
+              f"ROUTEST_FUSED={mode}: provenance {prov}")
+        launches, worst = {}, 0.0
+        for b in SERVING_BUCKETS:
+            x = random_rows(rng, b)
+            before = fused_eta_forward.launches
+            got = svc.predict_batch(x)
+            launches[b] = fused_eta_forward.launches - before
+            check(launches[b] == (0 if mode == "0" else 1),
+                  f"ROUTEST_FUSED={mode}, bucket {b}: {launches[b]} "
+                  f"kernel launches")
+            plain = fused_eta_forward_plain(
+                svc._packed, torch.from_numpy(x).to(CARD), n_q=3)
+            err = compare(torch.from_numpy(np.asarray(got)), plain,
+                          PLAIN_TOL["bfloat16"], 3)
+            worst = max(worst, err[0])
+        rec[mode] = {"kernel": scoring["kernel"], "launches": launches,
+                     "max_abs_err_vs_plain": worst}
+        print(f"[selection] ROUTEST_FUSED={mode}: kernel "
+              f"{scoring['kernel']}, launches per bucket {launches}, max "
+              f"abs err vs plain {worst:.3g}; record {prov.get('path')} "
+              f"({prov.get('status')}, {prov.get('device')}, "
+              f"{prov.get('power_limit')}, recorded "
+              f"{prov.get('recorded_unix')})")
+        if mode == "auto":
+            auto_svc, auto_launches = svc, sum(launches.values())
+    if CARD == "cuda":
+        # The kernel takes tile_rows' tile; the record's winning tiles
+        # are provenance. Where they differ, serving would have to
+        # replay them: a note, since the two tiles can be within noise.
+        args = auto_svc._packed["launch"]
+        differ = {r["batch"]: (r["kernel_tile"],
+                               tile_rows(r["batch"], args.dims, args.dtype,
+                                         args.sms))
+                  for r in table["rows"]}
+        differ = {b: t for b, t in differ.items() if t[0] != t[1]}
+        rec["tiles_differing_from_tile_rows"] = differ
+        print(f"[selection] recorded tiles that differ from tile_rows' "
+              f"(recorded, tile_rows): {differ or 'none'} (a note)")
+    return auto_svc, auto_launches, rec
+
+
+def _selection_served(rng, svc, paths):
+    """One 4096-row ``/api/predict_eta_batch`` through the port's app on
+    the auto service; ``/api/efficiency``'s watchdog reads ``pinned``
+    from the serving record, and health says so. → (record, launches)."""
+    from routest_tpu_torch.ops.fused_mlp import fused_eta_forward
+
+    n = 4096
+    want = "pinned" if CARD == "cuda" else "backend_mismatch"
+    os.environ["RTPU_EFF_KERNEL_ARTIFACT"] = paths[SERVING_RECORD]
+    with _Server(svc) as srv:
+        before = fused_eta_forward.launches
+        status, out = _request(srv.port, "POST", "/api/predict_eta_batch",
+                               _batch_body(rng, n))
+        launches = fused_eta_forward.launches - before
+        check(status == 200 and out.get("count") == n,
+              f"selection batch: {status}")
+        _check_batch(out, n)
+        status, eff = _request(srv.port, "GET", "/api/efficiency")
+        check(status == 200, f"/api/efficiency: {status}")
+        status, health = _request(srv.port, "GET", "/api/health")
+    watchdog = eff["watchdog"]
+    check(watchdog["status"] == want, f"watchdog {watchdog.get('status')}: "
+                                      f"{watchdog.get('pin')}")
+    check(health["checks"]["engine"]["efficiency"]["status"] == want,
+          f"health efficiency {health['checks']['engine']['efficiency']}")
+    if CARD == "cuda":
+        check(launches > 0, "the selection batch launched no kernel")
+        check(watchdog["pin"]["kernel_artifact"] == paths[SERVING_RECORD],
+              f"watchdog pinned {watchdog['pin'].get('kernel_artifact')}")
+    print(f"[selection] 4096-row batch served ({launches} launches); "
+          f"watchdog {watchdog['status']} from "
+          f"{watchdog['pin'].get('kernel_artifact')}")
+    return {"watchdog": watchdog["status"], "batch_launches": launches}, \
+        launches
+
+
+def _best_ms(fn, reps):
+    """Median host ms of ``reps`` calls of ``fn`` → (ms, last result)."""
+    times, out = [], None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2], out
+
+
+def _selection_native(rng):
+    """The native data plane is in use here, and bitwise its numpy and
+    ElementTree twins: ``encode_batch`` at 4096 rows, ``parse_csv`` on a
+    generated CSV of 4096 rows, ``parse_osm`` on the metro extract;
+    each path's median host ms."""
+    import tempfile
+
+    import numpy as np
+
+    from routest_tpu_torch import native
+    from routest_tpu_torch.data import csv_io, features, osm
+    from routest_tpu_torch.data.synthetic import generate_dataset
+
+    check(native.available(), "native: fastfeat did not build or load "
+                              "on this machine (g++ and the cache)")
+    data = generate_dataset(NATIVE_ROWS, seed=15)
+    for key, every in (("weather_idx", 17), ("traffic_idx", 23)):
+        data[key] = np.asarray(data[key], np.int32).copy()
+        data[key][::every] = -1          # unknown categories
+    rec = {}
+    enc_ms, enc = _best_ms(lambda: features.batch_from_mapping(data),
+                           NATIVE_REPS)
+    ref_ms, ref = _best_ms(lambda: features.batch_from_mapping(
+        data, force_python=True), NATIVE_REPS)
+    check(np.array_equal(enc, ref) and enc.dtype == ref.dtype,
+          "native encode_batch differs from numpy")
+    rec["encode_4096"] = {"native_ms": enc_ms, "numpy_ms": ref_ms}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "deliveries.csv")
+        csv_io.save_csv(path, data)
+        csv_ms, got = _best_ms(lambda: csv_io.load_csv(path), NATIVE_REPS)
+        py_ms, want = _best_ms(lambda: csv_io.load_csv(
+            path, force_python=True), NATIVE_REPS)
+    check(sorted(got) == sorted(want) and all(
+        got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k])
+        for k in want), "native parse_csv differs from the Python parser")
+    rec["csv_4096"] = {"native_ms": csv_ms, "python_ms": py_ms}
+    metro = os.path.join(ROOT, METRO_OSM)
+    osm_ms, got = _best_ms(lambda: osm.load_osm(metro), OSM_REPS)
+    et_ms, want = _best_ms(lambda: osm.load_osm(metro, force_python=True),
+                           OSM_REPS)
+    check(sorted(got) == sorted(want) and all(
+        got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k])
+        for k in want), "native parse_osm differs from ElementTree")
+    rec["osm_metro_8192"] = {"native_ms": osm_ms, "elementtree_ms": et_ms,
+                             "nodes": int(len(got["node_coords"])),
+                             "edges": int(len(got["senders"]))}
+    print(f"[selection] native in use, bitwise: encode {NATIVE_ROWS} rows "
+          f"{enc_ms:.3f} ms (numpy {ref_ms:.3f}); CSV {NATIVE_ROWS} rows "
+          f"{csv_ms:.3f} ms (Python {py_ms:.3f}); metro OSM {osm_ms:.1f} ms "
+          f"(ElementTree {et_ms:.1f})")
+    return rec
+
+
+def phase_selection(name):
+    """Phase 15, run between phases 4 and 5: the kernel chosen by the
+    measured record, the goodput watchdog pinned from it, and the native
+    data plane. → (record, kernel launches of its main path)."""
+    import numpy as np
+
+    rng = np.random.default_rng(15)
+    t0 = time.perf_counter()
+    paths = _selection_records(name)
+    svc, mode_launches, record = _selection_modes(rng, name, paths)
+    record["served"], served_launches = _selection_served(rng, svc, paths)
+    record["native"] = _selection_native(rng)
+    record["records"] = {k: os.path.relpath(v, ROOT)
+                         for k, v in paths.items()}
+    record["wall_s"] = time.perf_counter() - t0
+    print(json.dumps({"selection": record}))
+    return record, mode_launches + served_launches
 
 
 # Requests per kind in the optimize phase (each body different, so the
@@ -3809,6 +4048,7 @@ def phase_times(rng):
                                                  fused_eta_forward_plain,
                                                  pack_eta_params, tile_rows)
     from routest_tpu_torch.train.checkpoint import load_model
+    from routest_tpu_torch.utils.cuda_timing import graph_ms, time_ms
 
     model, params = load_model(os.path.join(ROOT, "artifacts",
                                             "eta_mlp.msgpack"))
@@ -4014,7 +4254,8 @@ def _obs_rows(eff, program):
 def _obs_goodput(port, rng):
     """(b): ``eta_score`` real and padded rows per bucket equal what was
     sent; a road route and a dispatch reach ``route_solve`` and
-    ``dispatch_solve``; the watchdog reads ``no_artifact``."""
+    ``dispatch_solve``; the watchdog reads ``pinned`` from the serving
+    record (``backend_mismatch`` on a CPU rehearsal)."""
     r0, p0, c0, _, b0 = _obs_rows(_obs_efficiency(port), "eta_score")
     small = _obs_batch(rng, 100)
     for body in (_obs_batch(rng, OBS_BATCH), small, small):
@@ -4041,12 +4282,13 @@ def _obs_goodput(port, rng):
     calls = {p: eff["ledger"]["programs"][p]["calls"]
              for p in ("route_solve", "dispatch_solve")}
     check(all(v > 0 for v in calls.values()), f"ledger calls {calls}")
-    check(eff["watchdog"]["status"] == "no_artifact"
+    pinned = "pinned" if CARD == "cuda" else "backend_mismatch"
+    check(eff["watchdog"]["status"] == pinned
           and eff["ledger"]["identity"]["backend"] == CARD,
           f"watchdog {eff['watchdog'].get('status')}, identity "
           f"{eff['ledger']['identity']}")
     status, health = _request(port, "GET", "/api/health")
-    check(health["checks"]["engine"]["efficiency"]["status"] == "no_artifact",
+    check(health["checks"]["engine"]["efficiency"]["status"] == pinned,
           f"health efficiency {health['checks']['engine'].get('efficiency')}")
     rec = {"eta_score_per_bucket": {str(b): {"rows": v[0], "padded": v[1]}
                                     for b, v in per_bucket.items()},
@@ -4192,8 +4434,9 @@ def _obs_server(rng, tmp):
                RTPU_STORE_BACKOFF_MS="0")
     for var in ("ROAD_GRAPH_OSM", "ROAD_GNN_PATH", "ROUTE_TRANSFORMER_PATH",
                 "ROUTEST_HIER_MIN_NODES", "REDIS_URL", "SUPABASE_URL",
-                "RTPU_EFF_KERNEL_ARTIFACT", "RTPU_KERNEL_DTYPE", "RTPU_LIVE"):
+                "RTPU_KERNEL_DTYPE", "RTPU_LIVE"):
         env.pop(var, None)
+    env["RTPU_EFF_KERNEL_ARTIFACT"] = _record_paths()[SERVING_RECORD]
     log = open(os.path.join(tmp, "server.log"), "w+")
     t_start = time.perf_counter()
     proc = subprocess.Popen([sys.executable, "-m", "routest_tpu_torch.serve"],
@@ -4529,6 +4772,8 @@ def main() -> int:
         err_random = phase_random(rng)
         phase = "artifacts"
         err_artifacts = phase_artifacts(rng)
+        phase = "selection"
+        _, selection_launches = phase_selection(name)
         phase = "serving"
         launches = phase_serving(rng)
         phase = "optimize"
@@ -4584,6 +4829,9 @@ def main() -> int:
     # ... and over phase 14's: the traced server's requests and this
     # process's chaos, export-comparison and overhead requests
     kernels[0]["launches_observability"] = obs_launches
+    # ... and over phase 15's: auto selection per serving bucket and the
+    # 4096-row request the watchdog's check rides on
+    kernels[0]["launches_selection"] = selection_launches
     print(json.dumps({"kernels": kernels}))
     print(f"{smi_line}")
     print(json.dumps({"ok": True, "device": {

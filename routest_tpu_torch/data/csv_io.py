@@ -18,9 +18,10 @@ and both parsers treat it identically: the header is validated verbatim
 before parsing, a row without exactly 7 fields is an error naming the
 line, and quote characters are ordinary text (an unknown category).
 
-``load_csv`` always takes the Python parser here: the JAX package's
-native parser (``routest_tpu/native``) is not ported yet (Queue A item
-11), and the Python path is its identical-contract twin there.
+Ingest goes through the native parser (``routest_tpu_torch/native``)
+when its library is available — one C pass, no per-row Python objects —
+and an identical-contract Python fallback otherwise (parity enforced by
+``tests/test_torch_native.py``).
 """
 
 from __future__ import annotations
@@ -79,9 +80,14 @@ def _check_header(path: str) -> None:
             f"{path}:1: bad header (expected {','.join(COLUMNS)!r})")
 
 
-def load_csv(path: str) -> Dict[str, np.ndarray]:
-    """CSV file → dataset dict (the Python parser)."""
+def load_csv(path: str, *, force_python: bool = False) -> Dict[str, np.ndarray]:
+    """CSV file → dataset dict (native parser when available)."""
     _check_header(path)
+    if not force_python:
+        from routest_tpu_torch import native
+
+        if native.available():
+            return native.parse_csv(path, WEATHER_CATEGORIES, TRAFFIC_CATEGORIES)
     return _load_csv_python(path)
 
 

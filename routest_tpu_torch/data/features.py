@@ -111,12 +111,21 @@ def encode_request(
     )
 
 
-def batch_from_mapping(batch: Mapping[str, np.ndarray]) -> np.ndarray:
+def batch_from_mapping(batch: Mapping[str, np.ndarray], *,
+                       force_python: bool = False) -> np.ndarray:
     """Dataset-dict (``weather_idx``, ``traffic_idx``, ``weekday``,
     ``hour``, ``distance_km``, ``driver_age``) → (N, 12) float32
-    features, on the host. The JAX package's C++ encoder
-    (``routest_tpu/native``) computes the same bytes; this port keeps
-    the numpy path only."""
+    features, on the host: one C pass through the native encoder
+    (``routest_tpu_torch/native``) when its library is available, the
+    numpy twin below (the same bytes) otherwise; ``ROUTEST_NATIVE=0``
+    or ``force_python`` takes numpy."""
+    from routest_tpu_torch import native
+
+    if not force_python and native.available():
+        return native.encode_batch(
+            np.asarray(batch["weather_idx"]), np.asarray(batch["traffic_idx"]),
+            np.asarray(batch["weekday"]), np.asarray(batch["hour"]),
+            np.asarray(batch["distance_km"]), np.asarray(batch["driver_age"]))
     w = np.asarray(batch["weather_idx"], dtype=np.int64)
     t = np.asarray(batch["traffic_idx"], dtype=np.int64)
     n = len(w)

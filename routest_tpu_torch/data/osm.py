@@ -2,10 +2,11 @@
 
 The counterpart of ``routest_tpu/data/osm.py``: parse an OpenStreetMap
 XML extract (``.osm``, optionally gzipped) into the flat-array schema
-``RoadRouter(graph=load_osm(path))`` routes over. The JAX package's C++
-scanner is not ported (it waits with ``native/`` for Queue A item 18);
-this is its ElementTree path, which owns the semantics and every error
-message, and which that scanner matches array for array.
+``RoadRouter(graph=load_osm(path))`` routes over. The native C++
+scanner (``routest_tpu_torch/native``) parses an extract when its
+library is available; any anomaly it reports sends the file through the
+ElementTree path below, which owns the semantics and every error
+message, and which the scanner matches array for array.
 
 Parsing model (stdlib ``xml.etree.iterparse``, element by element):
 
@@ -52,8 +53,9 @@ def _parse_maxspeed(value: str) -> float:
 
     Deliberately stricter than bare ``float()``: hex forms, digit
     underscores, and inf/nan are rejected too — they never appear in
-    real OSM data (the JAX package's native scanner applies the same
-    rule)."""
+    real OSM data, and the native scanner
+    (``native/fastfeat.cpp:parse_float``) applies the identical rule so
+    the two paths stay observably identical."""
 
     def strict(text: str) -> float:
         if not text or any(c not in "0123456789.+-eE" for c in text):
@@ -77,16 +79,49 @@ def _open(path: str) -> IO[bytes]:
     return open(path, "rb")
 
 
-def load_osm(path: str) -> Dict[str, np.ndarray]:
+def load_osm(path: str, *,
+             force_python: bool = False) -> Dict[str, np.ndarray]:
     """Parse an OSM XML extract into the road-graph dict schema.
 
     Returns the arrays ``RoadRouter`` consumes: ``node_coords`` (N, 2)
     lat/lon, ``senders``/``receivers``/``length_m``/``road_class``/
     ``speed_limit`` (E,). Raises ValueError for malformed XML or an
-    extract with no drivable ways.
+    extract with no drivable ways. ``force_python`` skips the native
+    scanner.
     """
     if not os.path.exists(path):
         raise FileNotFoundError(path)
+
+    # Native fast path (routest_tpu_torch/native: the C++ scanner):
+    # exact-parity semantics, verified by tests; ANY parser anomaly
+    # returns None and this function proceeds with the ElementTree path
+    # below, which owns the slow-path semantics and all error messages.
+    # ROUTEST_NATIVE=0 disables, like every native path.
+    from routest_tpu_torch import native
+
+    if not force_python and native.available():
+        # The scanner needs the (decompressed) bytes in memory; cap the
+        # slurp so a country-scale extract streams through the O(1)-
+        # memory ElementTree path below instead of ballooning host RSS.
+        try:
+            cap = int(os.environ.get("ROUTEST_NATIVE_OSM_MAX_BYTES",
+                                     str(256 * 1024 * 1024)))
+        except ValueError:  # malformed knob degrades like every other
+            cap = 256 * 1024 * 1024
+        with _open(path) as f:
+            buf = f.read(cap + 1)
+        parsed = (native.parse_osm(buf, _CLASS_SPEED_MPS)
+                  if len(buf) <= cap else None)
+        del buf
+        if parsed is not None:
+            senders = parsed["senders"]
+            receivers = parsed["receivers"]
+            node_coords = parsed["node_coords"]
+            parsed["length_m"] = haversine_np(
+                node_coords[senders, 0], node_coords[senders, 1],
+                node_coords[receivers, 0], node_coords[receivers, 1],
+            ).astype(np.float32)
+            return parsed
 
     coords: Dict[int, Tuple[float, float]] = {}
     # per edge: (from_osm_id, to_osm_id, road_class, speed, both_ways)

@@ -26,7 +26,9 @@ Two pieces:
   (``artifacts/serving_kernel_cuda.json``, ``RTPU_EFF_KERNEL_ARTIFACT``;
   backend-matched: a record whose ``backend`` is not this process's —
   ``cuda`` on the card, ``cpu`` when the caller asked for the CPU — is
-  refused as ``backend_mismatch``), continuously
+  refused as ``backend_mismatch``, and one whose ``device`` names
+  another card than this process's as ``device_mismatch``: a curve
+  measured on another card says nothing about this one), continuously
   compares live goodput against the pinned curve, and on sustained
   shortfall past ``RTPU_EFF_MIN_RATIO`` — or windowed padding waste
   past ``RTPU_EFF_MAX_WASTE`` — debounced over ``RTPU_EFF_AFTER``
@@ -44,12 +46,16 @@ artifact IO (device identity is resolved lazily and cached off-path).
 Disabled (``RTPU_EFF=0``) it is one attribute check.
 
 The kernel record the watchdog pins from is a JSON object with
-``backend`` (``"cuda"``) and ``rows``: one per batch size, ``{"batch":
-B, "kernel_mpreds_s": r, "plain_mpreds_s": r}`` — the hand-written
-kernel's and its plain PyTorch version's measured rates in millions of
-rows per second, the port's counterparts of the JAX record's
-``xla_mpreds_s`` / ``aot_mpreds_s``. The expected rate per bucket is the
-smaller of the two. On more than one device the per-replica factor
+``backend`` (``"cuda"``), ``device`` (``torch.cuda.get_device_name``)
+and ``rows``: one per batch size, ``{"batch": B, "kernel_mpreds_s": r,
+"plain_mpreds_s": r}`` — the hand-written kernel's and its plain
+PyTorch version's measured rates in millions of rows per second, the
+port's counterparts of the JAX record's ``xla_mpreds_s`` /
+``aot_mpreds_s``. ``scripts/bench_serving_kernel_cuda.py`` writes it on
+the card (``rows`` are the served dtype's; other keys it writes, such
+as ``kernel_us``, ``kernel_tile``, ``plain_us`` and ``rows_by_dtype``,
+are not read here). The expected rate per bucket is the smaller of the
+two. On more than one device the per-replica factor
 stays 1.0 (``chips_note`` says ``placement_not_ported``): the fleet
 placement curve that scales it arrives with the fleet slice.
 """
@@ -326,13 +332,14 @@ def get_ledger() -> GoodputLedger:
 
 def pin_expected_curve(config: EfficiencyConfig,
                        backend: Optional[str],
-                       chips: int = 1) -> dict:
+                       chips: int = 1,
+                       device: Optional[str] = None) -> dict:
     """Pin the expected per-bucket throughput curve from the committed
     battery artifacts. Returns ``{"status": "pinned", "curve":
     {bucket: rows_per_s}, "chips_factor": f, ...}`` or a refusal
     (``no_artifact`` / ``unreadable`` / ``backend_mismatch`` /
-    ``empty``) the caller must surface loudly — the watchdog degrades
-    to ledger-only on anything but ``pinned``.
+    ``device_mismatch`` / ``empty``) the caller must surface loudly —
+    the watchdog degrades to ledger-only on anything but ``pinned``.
 
     The expected rate per bucket is the MINIMUM of the artifact's
     measured execution paths (``kernel_mpreds_s`` / ``plain_mpreds_s``,
@@ -357,6 +364,12 @@ def pin_expected_curve(config: EfficiencyConfig,
                   recorded=recorded, runtime=backend)
         return {"status": "backend_mismatch", "kernel_artifact": path,
                 "recorded_backend": recorded, "runtime_backend": backend}
+    recorded_device = record.get("device")
+    if device and recorded_device and recorded_device != device:
+        _log.info("efficiency_artifact_device_mismatch", path=path,
+                  recorded=recorded_device, runtime=device)
+        return {"status": "device_mismatch", "kernel_artifact": path,
+                "recorded_device": recorded_device, "runtime_device": device}
     curve: Dict[int, float] = {}
     for row in record.get("rows") or []:
         try:
@@ -456,7 +469,7 @@ class EfficiencyWatchdog:
         ident = self.ledger.identity()
         chips = max(1, int(ident.get("device_count") or 1))
         self.pin = pin_expected_curve(
-            self.config, ident.get("backend"), chips)
+            self.config, ident.get("backend"), chips, ident.get("device"))
         armed = self.pin.get("status") == "pinned"
         self._m_armed.set(1 if armed else 0)
         if not armed:

@@ -2,14 +2,26 @@
 
 The counterpart of ``routest_tpu/serve/ml_service.py``. Concurrent
 requests coalesce into one device batch, padded to a small set of bucket
-sizes. On the card every batch is scored by the hand-written fused
-kernel (``ops/fused_mlp.py``): the weights are packed once and stay on
-the device, each flush copies its bucket slab host→device, launches the
-kernel and copies the result back. There is no selection record and no
-fallback: a kernel that does not build or launch fails the self-check
-and health reports the model degraded. On an explicit CPU run
-(``device="cpu"``) the same wrapper runs the kernel's plain PyTorch
-version.
+sizes. On the card a flush is scored by the hand-written fused kernel
+(``ops/fused_mlp.py``): the weights are packed once and stay on the
+device, each flush copies its bucket slab host→device, launches the
+kernel and copies the result back.
+
+``ROUTEST_FUSED`` chooses the path, as in the JAX package: ``1`` and
+``auto`` (the default) serve the kernel at every batch, ``0`` the
+kernel's plain PyTorch version on the card (an operator's explicit
+choice, named ``torch_plain``). The measured record
+``artifacts/kernel_bench_cuda.json`` (``ROUTEST_KERNEL_BENCH`` relocates
+it; written on the card by ``scripts/bench_serving_kernel_cuda.py``) is
+read for provenance: health's ``checks.model.scoring.win_bucket`` names
+it. A record that is missing, unreadable, from another backend or
+another card, or that says the plain version won a measured batch, is
+refused and named there and in a ``kernel_record_refused`` log line:
+the kernel still serves, since the plain version on the card is only
+ever an operator's choice. There is no fallback: a kernel that does not
+build or launch fails the self-check and health reports the model
+degraded. On an explicit CPU run (``device="cpu"``) the same wrapper
+runs the kernel's plain version.
 
 Failure semantics mirror the reference: a missing/broken model artifact
 makes ``predict`` return ``(None, None)`` and the caller degrades
@@ -30,6 +42,7 @@ from __future__ import annotations
 import datetime as dt
 import hashlib
 import itertools
+import json
 import math
 import os
 import threading
@@ -50,7 +63,8 @@ from routest_tpu_torch.obs.efficiency import get_ledger
 from routest_tpu_torch.obs.export import maybe_device_trace
 from routest_tpu_torch.obs.ledger import record_change
 from routest_tpu_torch.obs.trace import trace_span
-from routest_tpu_torch.ops.fused_mlp import (fused_eta_forward,
+from routest_tpu_torch.ops.fused_mlp import (_TILES, fused_eta_forward,
+                                             fused_eta_forward_plain,
                                              pack_eta_params,
                                              resolve_kernel_dtype)
 from routest_tpu_torch.serve.deadline import DeadlineExceeded
@@ -83,6 +97,11 @@ class _ServingState:
 
 
 _EMPTY_SERVING = _ServingState(None, None, ())
+
+# The measured selection table (``ROUTEST_KERNEL_BENCH`` relocates it).
+KERNEL_BENCH_RECORD = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), "artifacts", "kernel_bench_cuda.json")
 
 # Model-generation counter: every serving state that goes live in the
 # process draws a fresh id.
@@ -639,6 +658,9 @@ class EtaService:
         self.kernel_dtype: Optional[str] = None
         self.kernel = ("cuda_fused" if self.device.type == "cuda"
                        else "torch_plain")
+        # The measured record behind the kernel (health's
+        # scoring.win_bucket).
+        self._win_provenance: Optional[dict] = None
         self._path = model_path or default_model_path()
         # Taken before the load: a file changed during it is picked up
         # by the next poll.
@@ -665,6 +687,12 @@ class EtaService:
         # Suppressed inside a reload's own replacement construction.
         if cfg.reload_sec > 0 and not _in_reload.flag:
             self._watcher_stop = self.start_reload_watcher(cfg.reload_sec)
+        # Warm the native encoder now: its first use triggers a g++
+        # build (content-cached), which must happen at startup, not
+        # inside the first customer request's batcher flush.
+        from routest_tpu_torch import native
+
+        native.available()
         self._load(self._path)
         if self._model is not None:
             self._finish_init()
@@ -750,12 +778,96 @@ class EtaService:
                 return ensemble.apply(params, xt.to(device)).cpu().numpy()
 
             return score
-        packed, n_q = self._packed, len(self.quantiles)
+        return self._select_scorer()
+
+    def _runtime_identity(self) -> Tuple[str, str]:
+        """(backend, device name) a selection record must match:
+        ``("cuda", torch.cuda.get_device_name)`` on the card; ``("cpu",
+        "cpu")`` on an explicit CPU run, which selects nothing."""
+        if self.device.type == "cuda":
+            return "cuda", torch.cuda.get_device_name(self.device)
+        return "cpu", "cpu"
+
+    @staticmethod
+    def _fused_selection(variant: str, runtime: Tuple[str, str]) -> dict:
+        """The provenance of the measured selection table
+        (``ROUTEST_KERNEL_BENCH``, default
+        ``artifacts/kernel_bench_cuda.json``) for kernel ``variant`` on
+        ``runtime`` (backend, device name): the record's path, backend,
+        device, power limit and timestamp, and ``status``. ``selected``
+        means the record is this card's and the kernel won every batch
+        it measured; the record's ``kernel_wins_max_bucket`` and winning
+        tile per batch (``kernel_tiles``) are then given too. Any other
+        status refuses the record: ``no_record``, ``unreadable``,
+        ``backend_mismatch``, ``device_mismatch``,
+        ``dtype_not_recorded``, or ``plain_won`` (the plain version won
+        a measured batch; the win bucket and tiles are given)."""
+        path = os.environ.get("ROUTEST_KERNEL_BENCH") or KERNEL_BENCH_RECORD
+        prov = {"path": path, "backend": None, "device": None,
+                "power_limit": None, "recorded_unix": None,
+                "kernel_dtype": variant}
+        try:
+            with open(path) as f:
+                rec = json.load(f)
+        except FileNotFoundError:
+            return dict(prov, status="no_record")
+        except (OSError, ValueError):
+            return dict(prov, status="unreadable")
+        if not isinstance(rec, dict):
+            return dict(prov, status="unreadable")
+        prov.update({k: rec.get(k) for k in ("backend", "device",
+                                             "power_limit", "recorded_unix")})
+        if rec.get("backend") != runtime[0]:
+            return dict(prov, status="backend_mismatch")
+        if rec.get("device") != runtime[1]:
+            return dict(prov, status="device_mismatch")
+        table = (rec.get("by_dtype") or {}).get(variant)
+        if table is None and rec.get("kernel_dtype") == variant:
+            table = rec
+        if not isinstance(table, dict):
+            return dict(prov, status="dtype_not_recorded")
+        try:
+            win = int(table["kernel_wins_max_bucket"])
+            tiles = {int(r["batch"]): int(r["kernel_tile"])
+                     for r in table["rows"]}
+        except (KeyError, TypeError, ValueError):
+            return dict(prov, status="unreadable")
+        if not tiles or not set(tiles.values()) <= set(_TILES):
+            return dict(prov, status="unreadable")
+        return dict(prov, kernel_wins_max_bucket=win,
+                    kernel_tiles={str(b): tiles[b] for b in sorted(tiles)},
+                    status="selected" if win >= max(tiles) else "plain_won")
+
+    def _select_scorer(self):
+        """The packed model's scorer (the module docstring): the kernel
+        at every batch, or the plain version on the card where the
+        operator asked for it (``ROUTEST_FUSED=0``). Sets ``kernel`` and
+        the provenance health reports. Nothing here catches a kernel's
+        failure: the self-check sees it."""
+        device, packed = self.device, self._packed
+        n_q = len(self.quantiles)
+        runtime = self._runtime_identity()
+        forward = fused_eta_forward
+        if runtime[0] != "cuda":
+            # the caller asked for the CPU: the wrapper runs the plain
+            # version, and there is nothing to select
+            self.kernel = "torch_plain"
+        else:
+            mode = os.environ.get("ROUTEST_FUSED", "auto")
+            mode = mode if mode in ("0", "1") else "auto"
+            self._win_provenance = dict(
+                self._fused_selection(self.kernel_dtype, runtime), mode=mode)
+            if self._win_provenance["status"] != "selected":
+                get_logger("routest_tpu_torch.serve").warning(
+                    "kernel_record_refused", **self._win_provenance)
+            if mode == "0":
+                self.kernel, forward = "torch_plain", fused_eta_forward_plain
+            else:
+                self.kernel = "cuda_fused"
 
         def score(x: np.ndarray) -> np.ndarray:
             xt = torch.from_numpy(np.ascontiguousarray(x, np.float32))
-            return fused_eta_forward(packed, xt.to(device),
-                                     n_q=n_q).cpu().numpy()
+            return forward(packed, xt.to(device), n_q=n_q).cpu().numpy()
 
         return score
 
@@ -858,6 +970,7 @@ class EtaService:
             self._score = fresh._score
             self.kernel = fresh.kernel
             self.kernel_dtype = fresh.kernel_dtype
+            self._win_provenance = fresh._win_provenance
             self._error = None
             self._loaded_mtime_ns = fresh._loaded_mtime_ns
             self.fingerprint = fresh.fingerprint
@@ -992,15 +1105,23 @@ class EtaService:
 
     def scoring_info(self) -> dict:
         """Which model family serves (``eta_mlp``, or ``xgboost`` for a
-        tree ensemble), through which compute path (``cuda_fused`` on
-        the card, ``torch_plain`` on an explicit CPU run, ``gbdt_gather``
-        for trees, ``torch_export`` for an exported program), at what
-        dtype, where."""
+        tree ensemble), through which compute path (``cuda_fused``, or
+        ``torch_plain`` under ``ROUTEST_FUSED=0``, on the card;
+        ``torch_plain`` on an explicit CPU run,
+        ``gbdt_gather`` for trees, ``torch_export`` for an exported
+        program), at what dtype, where, and — for the packed model —
+        which record stands behind the path (``win_bucket``: the
+        record's path, backend, device, power limit, timestamp, its win
+        bucket and tiles or why it was refused, and ``ROUTEST_FUSED``'s
+        mode)."""
         family = (None if self._model is None else
                   "eta_mlp" if self._packed is not None
                   or self.kernel == "torch_export" else "xgboost")
-        return {"family": family, "kernel": self.kernel,
+        info = {"family": family, "kernel": self.kernel,
                 "dtype": self.kernel_dtype, "device": str(self.device)}
+        if self._packed is not None and self._win_provenance:
+            info["win_bucket"] = self._win_provenance
+        return info
 
     def mesh_info(self) -> dict:
         """The replica's device topology (health's ``checks.engine.mesh``)."""

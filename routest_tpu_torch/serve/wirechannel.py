@@ -12,8 +12,9 @@ length-prefixed binary messages, many requests in flight at once:
   and a reader thread that matches responses to waiting callers by
   request id — requests multiplex instead of queueing behind each other,
   so one slow batch does not head-of-line-block a small one. A dead
-  socket fails every pending request loudly and the next call
-  reconnects.
+  socket fails every request pending on it loudly (and only those: a
+  late second kill of an old socket leaves the new channel's requests
+  alone) and the next call reconnects.
 - **Server** (replica side): an accept loop, one reader thread per
   connection, one handler thread per in-flight request (the handlers
   are the SAME ``app.wire_handlers`` the HTTP negotiation path calls),
@@ -281,9 +282,10 @@ class WireChannelServer:
 
 
 class _Waiter:
-    __slots__ = ("event", "status", "frame", "error")
+    __slots__ = ("event", "status", "frame", "error", "sock")
 
-    def __init__(self) -> None:
+    def __init__(self, sock: socket.socket) -> None:
+        self.sock = sock   # the channel this request was sent on
         self.event = threading.Event()
         self.status: Optional[int] = None
         self.frame: Optional[bytes] = None
@@ -347,13 +349,18 @@ class WireChannelClient:
             return sock
 
     def _kill(self, sock: socket.socket, reason: str) -> None:
-        """Fail every pending request and drop the socket (the next
-        ``request()`` reconnects)."""
+        """Fail every request pending on ``sock`` and drop it (the next
+        ``request()`` reconnects). A socket is killed twice when a send
+        fails first and its reader then wakes; by then a new channel may
+        carry requests, and they are not this socket's to fail."""
         with self._state_lock:
             if self._sock is sock:
                 self._sock = None
                 _m_conns.labels(event="dead").inc()
-            pending, self._pending = dict(self._pending), {}
+            pending = {rid: w for rid, w in self._pending.items()
+                       if w.sock is sock}
+            for rid in pending:
+                del self._pending[rid]
         try:
             # shutdown() wakes the reader blocked in recv(), and its FIN
             # ends the server's connection thread; close() alone leaves
@@ -402,7 +409,7 @@ class WireChannelClient:
                 deadline_ms: Optional[float] = None) -> Tuple[int, bytes]:
         """One multiplexed exchange → (status, response frame bytes)."""
         sock = self._ensure_connected()
-        waiter = _Waiter()
+        waiter = _Waiter(sock)
         with self._state_lock:
             self._next_rid = (self._next_rid + 1) & 0xFFFFFFFF
             rid = self._next_rid

@@ -443,8 +443,10 @@ class ExportedServingModel:
         return self._call(x)
 
 
-def load_exported_serving_fn(path: str, device="cpu") -> ExportedServingModel:
-    """Load an :func:`export_serving_fn` artifact onto ``device``.
+def load_exported_serving_fn(path: str, device=None) -> ExportedServingModel:
+    """Load an :func:`export_serving_fn` artifact onto ``device`` (None:
+    the serving device, the card unless ``ROUTEST_DEVICE`` says
+    otherwise; asking for the card where there is none raises).
     Raises ValueError for wrong magic, format or version, for a JAX
     StableHLO export (it needs the JAX package), for an artifact written
     by another torch minor version (``.pt2`` bytes are not portable
@@ -454,6 +456,9 @@ def load_exported_serving_fn(path: str, device="cpu") -> ExportedServingModel:
     import torch
     from torch.export import load
 
+    from routest_tpu_torch.core.config import resolve_device
+
+    device = resolve_device(device, "load_exported_serving_fn")
     with open(path, "rb") as f:
         head = f.read(len(JAX_EXPORT_MAGIC))
     if head == JAX_EXPORT_MAGIC:
@@ -480,7 +485,6 @@ def load_exported_serving_fn(path: str, device="cpu") -> ExportedServingModel:
             f"{path}: quantile export lacks the 0.5 median "
             f"(quantiles={quantiles}); serving requires it")
     program = load(io.BytesIO(blob))
-    device = torch.device(device)
     if device.type != "cpu":
         from torch.export.passes import move_to_device_pass
 

@@ -103,6 +103,25 @@ def test_roundtrip_parity_across_every_bucket(point, data, tmp_path):
                                    atol=F32_ATOL)
 
 
+def test_the_loader_defaults_to_the_serving_device(point, monkeypatch,
+                                                   tmp_path):
+    """Like every entry point of the port, the loader serves on the card
+    unless the caller (or ``ROUTEST_DEVICE``) asks for the CPU; asking
+    for the card where there is none raises before anything loads."""
+    _, _, tmodel = point
+    path = str(tmp_path / "m.pt2")
+    export_serving_fn(path, tmodel, "cpu")
+    monkeypatch.delenv("ROUTEST_DEVICE", raising=False)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            load_exported_serving_fn(path)
+    monkeypatch.setenv("ROUTEST_DEVICE", "cpu")
+    exported = load_exported_serving_fn(path)
+    x = torch.from_numpy(np.zeros((2, 12), np.float32))
+    with torch.no_grad():
+        assert exported(x).device.type == "cpu"
+
+
 def test_quantile_export(data, tmp_path):
     jmodel, params, tmodel = _pair((16,), quantiles=(0.1, 0.5, 0.9),
                                    seed=1)
@@ -186,7 +205,7 @@ def test_load_failure_modes(point, tmp_path):
     bad.write_bytes(b"not an export")
     with pytest.raises(ValueError,
                        match="not a routest_tpu_torch torch.export"):
-        load_exported_serving_fn(str(bad))
+        load_exported_serving_fn(str(bad), "cpu")
     good = str(tmp_path / "good.pt2")
     export_serving_fn(good, tmodel, "cpu")
     with open(good, "rb") as f:
@@ -202,22 +221,22 @@ def test_load_failure_modes(point, tmp_path):
         return str(p)
 
     with pytest.raises(ValueError, match="unknown artifact format"):
-        load_exported_serving_fn(rewrite("fmt.pt2", format="other"))
+        load_exported_serving_fn(rewrite("fmt.pt2", format="other"), "cpu")
     with pytest.raises(ValueError, match="artifact version 9"):
-        load_exported_serving_fn(rewrite("ver.pt2", version=9))
+        load_exported_serving_fn(rewrite("ver.pt2", version=9), "cpu")
     with pytest.raises(ValueError, match="exported by torch 1.0"):
-        load_exported_serving_fn(rewrite("torch.pt2", torch="1.0.0"))
+        load_exported_serving_fn(rewrite("torch.pt2", torch="1.0.0"), "cpu")
     with pytest.raises(ValueError, match="lacks the 0.5 median"):
-        load_exported_serving_fn(rewrite("q.pt2", quantiles=[0.1, 0.9]))
+        load_exported_serving_fn(rewrite("q.pt2", quantiles=[0.1, 0.9]), "cpu")
     trunc = tmp_path / "trunc.pt2"
     trunc.write_bytes(blob[: len(blob) // 2])
     with pytest.raises(Exception):
-        load_exported_serving_fn(str(trunc))
+        load_exported_serving_fn(str(trunc), "cpu")
     # the JAX package's StableHLO export is refused by name
     jfile = str(tmp_path / "jax.stablehlo")
     jexport(jfile, jmodel, params, platforms=("cpu",))
     with pytest.raises(ValueError, match="needs the JAX package"):
-        load_exported_serving_fn(jfile)
+        load_exported_serving_fn(jfile, "cpu")
     # the service reports each refusal as a load error, never raises
     for path in (jfile, str(trunc), rewrite("q2.pt2", quantiles=[0.9])):
         svc = EtaService(ServeConfig(batch_buckets=(8,)), model_path=path,

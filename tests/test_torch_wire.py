@@ -488,12 +488,25 @@ def test_channel_dead_socket_fails_loudly_then_reconnects(server, client):
     chan, _ = server
     srv = chan.WireChannelServer({"/e": lambda f: (200, f)}, "127.0.0.1", 0)
     srv.start()
+    before = set(threading.enumerate())
     cli = client.WireChannelClient("127.0.0.1", srv.port)
     assert cli.request("/e", b"a") == (200, b"a")
+    reader = [t for t in threading.enumerate()
+              if t not in before and t.name.startswith("wirechannel-read-")]
     port = srv.port
     srv.stop()
     with pytest.raises(client.WireChannelError):
         cli.request("/e", b"b", timeout=3.0)
+    # The dead socket's reader thread reports its death too, and when the
+    # failed send killed the socket first, that second kill can come
+    # late. The JAX client's kill fails every pending request, not only
+    # the dead socket's, so under load a late one failed the reconnected
+    # request below: with that client the reader must end first. The
+    # port's client fails only the dead socket's requests
+    # (test_a_late_kill_of_a_dead_socket_spares_the_new_channel), so its
+    # crossings reconnect without waiting, racing the late kill.
+    if client is jchan:
+        _join(*reader)
     srv2 = None
     deadline = time.monotonic() + 10
     while srv2 is None:
@@ -510,6 +523,47 @@ def test_channel_dead_socket_fails_loudly_then_reconnects(server, client):
         cli.close()
     finally:
         srv2.stop()
+
+
+@pytest.mark.parametrize("server", [tchan, jchan], ids=["port", "jax"])
+def test_a_late_kill_of_a_dead_socket_spares_the_new_channel(server):
+    """The port's client. A socket dies twice when a send on it fails
+    first (the request path kills it) and its reader thread, woken by
+    that kill, kills it again; under load the reader can run after the
+    client has reconnected and sent on the new channel. That late kill
+    must fail only the dead socket's requests: failing every pending one
+    made ``test_channel_dead_socket_fails_loudly_then_reconnects`` fail
+    its reconnect with the old socket's error under the suite's load."""
+    gate = threading.Event()
+
+    def slow(frame):
+        gate.wait(10)
+        return 200, frame
+
+    srv = server.WireChannelServer({"/e": lambda f: (200, f), "/slow": slow},
+                                   "127.0.0.1", 0)
+    srv.start()
+    cli = tchan.WireChannelClient("127.0.0.1", srv.port)
+    try:
+        assert cli.request("/e", b"a") == (200, b"a")
+        old = cli._sock
+        cli._kill(old, "send failed")           # the request path's kill
+        out = []
+        call = threading.Thread(target=lambda: out.append(
+            cli.request("/slow", b"c", timeout=10)))
+        call.start()
+        deadline = time.monotonic() + 10
+        while not (cli._pending and cli._sock not in (None, old)):
+            assert time.monotonic() < deadline, "no request on a new channel"
+            time.sleep(0.01)
+        cli._kill(old, "peer closed the wire channel")   # the reader's
+        gate.set()
+        _join(call)
+        assert out == [(200, b"c")]
+    finally:
+        gate.set()
+        cli.close()
+        srv.stop()
 
 
 @pytest.mark.parametrize("server,client", CROSSED, ids=CROSSED_IDS)
