@@ -203,13 +203,36 @@ of which fails the run:
    ``routest_tpu_torch.native.available()``, and its ``encode_batch``
    (4096 rows), ``parse_csv`` (a generated 4096-row CSV) and
    ``parse_osm`` (the metro extract) bitwise the numpy, Python and
-   ElementTree paths, with each path's median host ms.
+   ElementTree paths, with each path's median host ms;
+16. the fleet, run between phases 14 and 9: (a) ``python -m
+   routest_tpu_torch.serve.fleet`` with its defaults and a free gateway
+   port: its ``placement_plan`` says ``gpu``, 1 device, ``1x1``, the
+   gateway's health names ``cuda_fused``, phase 5's 4096-row body through
+   the gateway answers bitwise phase 5's direct answer, SIGTERM drains it
+   to exit 0, and a process that ran ``plan_from_env`` has no CUDA
+   context and no JAX; (b) in this process, the broker,
+   ``plan_from_env``, the supervisor (``REDIS_URL`` on the broker,
+   ``RTPU_WIRE=1``), the gateway and a rollout controller, then
+   ``scale_to(2)``: the grown slice is ``g1:1chip`` on
+   ``CUDA_VISIBLE_DEVICES=0``, both replicas score ``cuda_fused`` on
+   ``cuda``; 200 single rows and 20 seeded 4096-row batches on 8 threads
+   through the gateway, every answer bitwise a direct single-process
+   app's, with fused launches on each replica (their ``/api/metrics``
+   read through ``/api/metrics?replicas=1`` before and after); one RTW1
+   frame over the gateway's wire channel with no HTTP fallback, bitwise
+   the JSON path; ``/api/confirm_route`` on r0 read through the gateway
+   from r1 over SSE; ``kill_replica(1)`` mid-traffic with no answer
+   >= 500, restarted and rejoined; a ``v2`` rollout canaried, baked and
+   promoted; each replica's boot seconds, single-row p50/p95 direct and
+   through the gateway, 4096-row preds/s with one and two replicas and
+   the restart seconds, each beside the card's name and power limit.
 
 The lines before the last are one ``{"optimize": {...}}``, one
 ``{"road": {...}}``, one ``{"overlay": {...}}``, one ``{"live": {...}}``,
 one ``{"selection": {...}}``, one ``{"dispatch": {...}}``, one
 ``{"serving_core": {...}}``, one
-``{"train": {...}}``, one ``{"observability": {...}}`` and one
+``{"train": {...}}``, one ``{"observability": {...}}``, one
+``{"fleet": {...}}`` and one
 ``{"kernels": [...]}`` JSON object and the
 card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
@@ -594,6 +617,7 @@ def phase_serving(rng):
         check(status == 200 and out.get("count") == n,
               f"predict_eta_batch: {status}")
         eta = _check_batch(out, n)
+        _SERVING_ANSWER.update(batch=batch, out=out)
         status, items = _request(port, "POST", "/api/predict", {"items": [
             {"summary": {"distance": 3_000}, "weather": "Sunny"},
             {"summary": {"distance": 18_000}, "traffic": "High",
@@ -4747,6 +4771,539 @@ def phase_obs(smi_line):
     return record, launches
 
 
+# ── phase 16: the fleet on the card ──────────────────────────────────
+
+# Phase 5's 4096-row body and the direct single-process answer to it;
+# phase 16 (a) holds the fleet's answer to the same body to it.
+_SERVING_ANSWER = {}
+FLEET_SINGLES = 200          # single-row requests through the gateway
+FLEET_BATCHES = 20           # seeded 4096-row batches through it
+FLEET_THREADS = 8
+FLEET_OVERHEAD_REPS = 100    # sequential single rows, direct and gateway
+FLEET_RATE_BATCHES = 16      # 4096-row batches per preds/s reading
+FLEET_BOOT_S = 240.0         # bound on one replica's boot on the card
+FLEET_BAKE_S = 5.0
+
+
+def _fleet_env(**extra):
+    """The environment a fleet starts from: this process's, without the
+    serving knobs earlier phases may have set, plus ``extra``. A CPU
+    rehearsal (``CARD = "cpu"``) plans one stand-in card and serves the
+    replicas on the CPU."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("RTPU_", "ROUTEST_", "ROAD_", "ETA_MODEL",
+                                "REDIS_URL", "SUPABASE_"))}
+    if CARD != "cuda":
+        env.update({"ROUTEST_DEVICE": "cpu", "RTPU_FLEET_CHIPS": "1",
+                    "RTPU_FLEET_PLATFORM": "gpu"})
+    env.update(extra)
+    return env
+
+
+def _fleet_kernel():
+    return "cuda_fused" if CARD == "cuda" else "torch_plain"
+
+
+def _fleet_single(i):
+    """The i-th seeded single-row body (a pickup time, so the answer is
+    the same wherever and whenever it is computed)."""
+    weather = ["Cloudy", "Stormy", "Sunny", "Windy", "Fog"]
+    traffic = ["High", "Jam", "Low", "Medium", "Gridlock"]
+    return {"summary": {"distance": 500 + (i * 7919) % 39_000},
+            "weather": weather[i % 5], "traffic": traffic[(i // 5) % 5],
+            "driver_age": 18 + (i * 31) % 52,
+            "pickup_time": f"2026-10-{12 + i % 7:02d}T{i % 24:02d}:"
+                           f"{(i * 13) % 60:02d}:00"}
+
+
+def _fleet_launches(metrics):
+    """Each replica's fused launch count from the gateway's
+    ``/api/metrics?replicas=1`` → {replica id: launches}."""
+    out = {}
+    for rid, snap in metrics["replica_metrics"].items():
+        check(isinstance(snap, dict) and "registry" in snap,
+              f"fleet: {rid}'s metrics: {str(snap)[:200]}")
+        series = snap["registry"]["rtpu_fused_launches"]["series"]
+        out[rid] = int(series[0]["value"])
+    return out
+
+
+def _fleet_health(port, label):
+    status, health = _request(port, "GET", "/api/health")
+    check(status == 200 and health["status"] == "ok",
+          f"fleet: {label} health {status}: {str(health)[:300]}")
+    scoring = health["checks"]["model"]["scoring"]
+    check(scoring["kernel"] == _fleet_kernel()
+          and scoring["device"].startswith(CARD),
+          f"fleet: {label} scores with {scoring}")
+    return health
+
+
+def _fleet_entry(smi_line):
+    """(a) ``python -m routest_tpu_torch.serve.fleet`` with its defaults
+    and a free gateway port → record."""
+    import signal
+
+    import numpy as np
+
+    record = {}
+    # Planning in a fresh process: no jax, no CUDA context.
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import json, sys, torch\n"
+         "from routest_tpu_torch.serve.fleet.placement import plan_from_env\n"
+         "p = plan_from_env()\n"
+         "print(json.dumps({'layout': p.layout, 'platform': p.platform,\n"
+         "  'cuda_initialized': torch.cuda.is_initialized(),\n"
+         "  'foreign': sorted(m for m in sys.modules if m == 'jax'\n"
+         "    or m.startswith(('jax.', 'routest_tpu.')))}))"],
+        cwd=ROOT, env=_fleet_env(), capture_output=True, text=True,
+        timeout=300)
+    check(out.returncode == 0, f"fleet: planning failed: {out.stderr[-500:]}")
+    plan = json.loads(out.stdout.strip().splitlines()[-1])
+    check(plan == {"layout": "1x1", "platform": "gpu",
+                   "cuda_initialized": False, "foreign": []},
+          f"fleet: planning process {plan}")
+    gw_port = _free_port()
+    env = _fleet_env(RTPU_GATEWAY_PORT=str(gw_port))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "routest_tpu_torch.serve.fleet"], cwd=ROOT,
+        env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        text=True)
+    lines = []
+    reader = threading.Thread(target=lambda: lines.extend(proc.stderr),
+                              daemon=True)
+    reader.start()
+    try:
+        def events():
+            return [json.loads(x) for x in list(lines)
+                    if x.startswith("{")]
+
+        _wait_for("the gateway", lambda: any(
+            e.get("event") == "gateway_up" for e in events()),
+            FLEET_BOOT_S, proc, who="fleet")
+        record["boot_s"] = time.perf_counter() - t0
+        plan_line = next(e for e in events()
+                         if e.get("event") == "placement_plan")
+        check((plan_line["platform"], plan_line["chips"],
+               plan_line["layout"]) == ("gpu", 1, "1x1"),
+              f"fleet: placement_plan {plan_line}")
+        _fleet_health(gw_port, "the entry point's gateway")
+        _, metrics0 = _request(gw_port, "GET", "/api/metrics?replicas=1")
+        before = _fleet_launches(metrics0)
+        batch = _SERVING_ANSWER.get("batch") or _batch_body(
+            np.random.default_rng(5), 4096)
+        status, got = _request(gw_port, "POST", "/api/predict_eta_batch",
+                               batch)
+        check(status == 200, f"fleet: batch through the gateway {status}")
+        want = _SERVING_ANSWER.get("out")
+        if want is None:   # a rehearsal without phase 5
+            want = _fleet_direct_batches([batch])[0]
+        check(got == want, "fleet: the gateway's 4096-row answer is not "
+                           "bitwise phase 5's direct answer")
+        _, metrics1 = _request(gw_port, "GET", "/api/metrics?replicas=1")
+        after = _fleet_launches(metrics1)
+        record["launches"] = sum(after.values()) - sum(before.values())
+        if CARD == "cuda":
+            check(record["launches"] >= 1, "fleet: the entry point's "
+                                           "replica launched no kernel")
+        proc.send_signal(signal.SIGTERM)
+        record["exit_code"] = proc.wait(timeout=120)
+        check(record["exit_code"] == 0,
+              f"fleet: SIGTERM gave exit {record['exit_code']}")
+        check(any(e.get("event") == "fleet_stopped" for e in events()),
+              "fleet: no fleet_stopped line")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        reader.join(timeout=30)
+    print(f"[fleet] (a) entry point: plan gpu/1/1x1, no CUDA context in "
+          f"the planner, {_fleet_kernel()} through the gateway, 4096 rows "
+          f"bitwise phase 5, boot {record['boot_s']:.3f} s, launches "
+          f"{record['launches']}, SIGTERM exit 0 | {smi_line}")
+    return record
+
+
+def _fleet_direct_batches(bodies):
+    """The direct single-process answers (an app around an
+    ``EtaService`` built as phase 5 builds it) to ``bodies``, sent to
+    ``/api/predict_eta_batch`` or, for single-row bodies,
+    ``/api/predict_eta``."""
+    from routest_tpu_torch.core.config import Config, ServeConfig
+    from routest_tpu_torch.serve.ml_service import EtaService
+
+    artifact = os.path.join(ROOT, "artifacts", "eta_mlp.msgpack")
+    svc = EtaService(ServeConfig(device=CARD), model_path=artifact,
+                     device=CARD)
+    check(svc.available, f"fleet: direct service: {svc.load_error}")
+    out = []
+    with _Server(svc, Config(serve=ServeConfig(device=CARD))) as srv:
+        for body in bodies:
+            path = "/api/predict_eta_batch" if "distance_m" in body \
+                else "/api/predict_eta"
+            status, answer = _request(srv.port, "POST", path, body)
+            check(status == 200, f"fleet: direct {path}: {status}")
+            out.append(answer)
+    return out
+
+
+def _fleet_pool(fn, items, threads=FLEET_THREADS):
+    """``fn`` over ``items`` on ``threads`` threads → results in order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(threads) as pool:
+        return list(pool.map(fn, items))
+
+
+def _fleet_rate(gw_port, body, n):
+    """4096-row preds/s through the gateway: ``n`` copies of ``body`` on
+    8 threads, wall clock around all of them."""
+    t0 = time.perf_counter()
+    statuses = _fleet_pool(
+        lambda _: _request(gw_port, "POST", "/api/predict_eta_batch",
+                           body)[0],
+        range(n))
+    wall = time.perf_counter() - t0
+    check(all(s == 200 for s in statuses), f"fleet: rate run {statuses}")
+    return n * len(body["distance_m"]) / wall
+
+
+def _fleet_latency(port, first, reps):
+    """Sequential single-row ms (p50, p95) against ``port``, on fresh
+    rows (no cache hit)."""
+    import numpy as np
+
+    ms = []
+    for i in range(first, first + reps):
+        t0 = time.perf_counter()
+        status, _ = _request(port, "POST", "/api/predict_eta",
+                             _fleet_single(i))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        check(status == 200, f"fleet: single row {status}")
+    return float(np.percentile(ms, 50)), float(np.percentile(ms, 95))
+
+
+class _FleetPump:
+    """Single-row requests through the gateway on 4 threads until
+    stopped: every status, for the zero-5xx checks. Each thread keeps
+    one connection alive: a client that closes a connection per request
+    leaves a TIME_WAIT on an ephemeral port, and a replica the
+    supervisor spawns on that port fails to bind it (ROADMAP Queue C
+    14)."""
+
+    def __init__(self, gw_port, first):
+        self.port, self.next = gw_port, first
+        self.statuses, self.errors = [], []
+        self._stop = threading.Event()
+        self._lock = threading.Lock()
+        self._threads = [threading.Thread(target=self._run, daemon=True,
+                                          name="fleet-pump")
+                         for _ in range(4)]
+
+    def _run(self):
+        conn = None
+        while not self._stop.is_set():
+            with self._lock:
+                i, self.next = self.next, self.next + 1
+            try:
+                if conn is None:
+                    conn = http.client.HTTPConnection("127.0.0.1",
+                                                      self.port, timeout=120)
+                conn.request("POST", "/api/predict_eta",
+                             json.dumps(_fleet_single(i)),
+                             {"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                resp.read()
+                self.statuses.append(resp.status)
+            except (OSError, http.client.HTTPException) as e:
+                self.errors.append(f"{type(e).__name__}: {e}")
+                conn.close()
+                conn = None
+            time.sleep(0.01)
+        if conn is not None:
+            conn.close()
+
+    def __enter__(self):
+        for t in self._threads:
+            t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=60)
+
+    def check_clean(self, what):
+        bad = sorted({s for s in self.statuses if s >= 500})
+        check(self.statuses and not bad and not self.errors,
+              f"fleet: {what}: {len(self.statuses)} answers, 5xx {bad}, "
+              f"errors {self.errors[:3]}")
+
+
+def _fleet_wire(gw_port, rng):
+    """One RTW1 frame through the gateway's wire channel: no HTTP
+    fallback, answers bitwise the JSON path's."""
+    from routest_tpu_torch.obs import get_registry
+
+    def fallbacks():
+        fam = get_registry().snapshot().get("rtpu_wire_conns_total", {})
+        return sum(s["value"] for s in fam.get("series", [])
+                   if s["labels"].get("event") == "fallback_http")
+
+    body, frame = _wire_batch(rng, 4096)
+    before = fallbacks()
+    status, head, raw = _http(gw_port, "POST", "/api/predict_eta_batch",
+                              frame, {"Content-Type": WIRE_CT})
+    check(status == 200 and head.get("Content-Type") == WIRE_CT,
+          f"fleet: wire frame through the gateway {status} {head}")
+    fallback = fallbacks() - before
+    check(fallback == 0, f"fleet: {fallback} wire fallback to HTTP")
+    status, _, json_raw = _http(gw_port, "POST", "/api/predict_eta_batch",
+                                body, {"Content-Type": "application/json"})
+    check(status == 200, f"fleet: JSON twin of the wire frame {status}")
+    _same_as_json(raw, json_raw, "fleet wire")
+    return fallback
+
+
+def _fleet_two(smi_line, rng):
+    """(b) two replicas on the one card, in this process → record."""
+    from unittest import mock
+
+    import numpy as np
+
+    from routest_tpu_torch.core.config import FleetConfig, RolloutConfig
+    from routest_tpu_torch.serve.fleet.gateway import Gateway
+    from routest_tpu_torch.serve.fleet.placement import plan_from_env
+    from routest_tpu_torch.serve.fleet.rollout import RolloutController
+    from routest_tpu_torch.serve.fleet.supervisor import ReplicaSupervisor
+    from routest_tpu_torch.serve.netbus import start_broker
+
+    record = {}
+    singles = [_fleet_single(i) for i in range(FLEET_SINGLES)]
+    batches = [_batch_body(rng, 4096) for _ in range(FLEET_BATCHES)]
+    direct = _fleet_direct_batches(singles + batches)
+    broker, _ = start_broker()
+    base_env = _fleet_env()
+    plan = plan_from_env(base_env, replicas=1)
+    check(plan.layout == "1x1" and plan.platform == "gpu",
+          f"fleet: plan {plan.as_dict()}")
+    wire = {"RTPU_WIRE": "1"}
+    env = dict(base_env, REDIS_URL=f"tcp://127.0.0.1:{broker.port}", **wire)
+    port0 = _free_port()
+    while port0 + 1000 > 65535:   # r0's wire channel (PORT + the
+        port0 = _free_port()      # default offset) carries (b)'s frame
+    sup = ReplicaSupervisor([port0], env=env, cwd=ROOT, quiet=True,
+                            probe_interval_s=0.5, backoff_base_s=0.5,
+                            backoff_cap_s=5.0, placement=plan)
+    gw = None
+    try:
+        t0 = time.perf_counter()
+        sup.start()
+        check(sup.ready(timeout=FLEET_BOOT_S), "fleet: r0 never answered")
+        boot = {"r0": time.perf_counter() - t0}
+        with mock.patch.dict(os.environ, wire):   # read once, here
+            gw = Gateway([("127.0.0.1", port0)],
+                         FleetConfig(hedge=False, eject_after=2,
+                                     cooldown_s=0.5), supervisor=sup)
+        s0 = plan.slices[0]
+        gw.set_topology("r0", chips=s0.chips, capacity=s0.capacity)
+        httpd = gw.serve("127.0.0.1", 0)
+        gw_port = httpd.server_address[1]
+        rollout = RolloutController(sup, gw, RolloutConfig(
+            canary_fraction=0.5, bake_s=FLEET_BAKE_S, tick_s=0.25,
+            min_canary_requests=10, boot_timeout_s=FLEET_BOOT_S,
+            health_timeout_s=60.0, drain_timeout_s=30.0))
+        _fleet_health(port0, "r0")
+        # preds/s with one replica on the card
+        rate_body = batches[0]
+        _fleet_rate(gw_port, rate_body, 2)           # warm the path
+        record["preds_per_s_1"] = _fleet_rate(gw_port, rate_body,
+                                              FLEET_RATE_BATCHES)
+        # grow onto the same card
+        t0 = time.perf_counter()
+        grown = sup.scale_to(2)
+        check([i for i, _ in grown["added"]] == [1],
+              f"fleet: scale_to(2) {grown}")
+        port1 = grown["added"][0][1]
+        status1 = sup.replica_status(1)
+        check(status1["placement_label"] == "g1:1chip"
+              and status1["placement_env"]["CUDA_VISIBLE_DEVICES"] == "0",
+              f"fleet: the grown slice {status1}")
+        check(sup.wait_port_ready(port1, timeout=FLEET_BOOT_S),
+              "fleet: r1 never answered")
+        boot["r1"] = time.perf_counter() - t0
+        gw.add_replica("127.0.0.1", port1, rid="r1",
+                       chips=status1["chips"],
+                       capacity=status1["capacity"])
+        for rid, port in (("r0", port0), ("r1", port1)):
+            health = _fleet_health(port, rid)
+            check(health["checks"]["engine"]["mesh"].get("placement")
+                  == {"r0": "s0:1chip", "r1": "g1:1chip"}[rid],
+                  f"fleet: {rid} mesh {health['checks']['engine']['mesh']}")
+        record["boot_s"] = boot
+        # 8 threads: 200 single rows and 20 4096-row batches, every
+        # answer bitwise the direct single-process answer
+        _, m0 = _request(gw_port, "GET", "/api/metrics?replicas=1")
+        before = _fleet_launches(m0)
+        bodies = singles + batches
+        order = list(range(len(bodies)))
+        np.random.default_rng(16).shuffle(order)
+
+        def send(i):
+            body = bodies[i]
+            path = "/api/predict_eta_batch" if "distance_m" in body \
+                else "/api/predict_eta"
+            return i, _request(gw_port, "POST", path, body)
+
+        t0 = time.perf_counter()
+        answers = _fleet_pool(send, order)
+        record["traffic_s"] = time.perf_counter() - t0
+        for i, (status, got) in answers:
+            check(status == 200, f"fleet: request {i}: {status} {got}")
+            check(got == direct[i], f"fleet: request {i} is not bitwise "
+                                    f"the direct answer")
+        _, m1 = _request(gw_port, "GET", "/api/metrics?replicas=1")
+        after = _fleet_launches(m1)
+        per = {rid: after[rid] - before.get(rid, 0) for rid in after}
+        record["launches_per_replica"] = per
+        record["launches"] = sum(per.values())
+        if CARD == "cuda":
+            check(set(per) == {"r0", "r1"} and all(
+                v > 0 for v in per.values()),
+                f"fleet: fused launches per replica {per}")
+        # preds/s with two replicas on the card
+        record["preds_per_s_2"] = _fleet_rate(gw_port, rate_body,
+                                              FLEET_RATE_BATCHES)
+        # gateway overhead: single rows, direct against through it
+        _fleet_latency(port0, 10_000, 10)          # warm both paths
+        _fleet_latency(gw_port, 10_100, 10)
+        record["single_direct_ms"] = _fleet_latency(
+            port0, 20_000, FLEET_OVERHEAD_REPS)
+        record["single_gateway_ms"] = _fleet_latency(
+            gw_port, 30_000, FLEET_OVERHEAD_REPS)
+        # one RTW1 frame over the gateway's channel to r0 (a grown
+        # replica's port may leave no room for its channel's)
+        gw.set_canary({"r0"}, 1.0)
+        try:
+            record["wire_fallback"] = _fleet_wire(gw_port, rng)
+        finally:
+            gw.clear_canary()
+        # SSE: confirmed on r0 directly, read through the gateway on r1
+        coords = [[121.0437, 14.6760], [121.0244, 14.5547]]
+        status, out = _request(port0, "POST", "/api/confirm_route", {
+            "driver_details": {"driver_name": "fleet-sse",
+                               "vehicle_type": "car"},
+            "route_details": {"geometry": {"coordinates": coords},
+                              "properties": {
+                                  "summary": {"distance": 14_000.0,
+                                              "duration": 1500.0},
+                                  "destinations": ["A", "B"]}},
+            "sim_seed": 3})
+        check(status == 200, f"fleet: confirm_route on r0 {status} {out}")
+        gw.set_canary({"r1"}, 1.0)
+        try:
+            frames = _sse(gw_port, "/api/realtime_feed?channel=fleet-sse"
+                          "&max_events=1", {"Last-Event-ID": "0"})
+        finally:
+            gw.clear_canary()
+        check(len(frames) == 1 and frames[0][1]["assigned_driver"]
+              == "fleet-sse" and frames[0][1]["remaining_routes"] == coords,
+              f"fleet: SSE across replicas {frames}")
+        # kill r1 mid-traffic: no 5xx, restarted, rejoined
+        with _FleetPump(gw_port, 40_000) as pump:
+            time.sleep(0.5)
+            check(sup.kill_replica(1), "fleet: kill_replica(1) killed none")
+            t0 = time.perf_counter()
+            while True:
+                snap = sup.snapshot()["r1"]
+                if snap["restarts"] >= 1 and snap["alive"] \
+                        and sup._probe(port1):
+                    break
+                check(time.perf_counter() - t0 < FLEET_BOOT_S,
+                      "fleet: r1 was not restarted")
+                time.sleep(0.1)
+            record["restart_s"] = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            while True:
+                with gw._lock:
+                    r1 = next(r for r in gw.replicas if r.id == "r1")
+                    rejoined = r1.state == "closed" and r1.requests > 0
+                if rejoined:
+                    break
+                check(time.perf_counter() - t1 < 60.0,
+                      f"fleet: r1 did not rejoin ({r1.state})")
+                time.sleep(0.1)
+            n_before = r1.requests
+            time.sleep(1.0)
+        pump.check_clean("across the kill")
+        with gw._lock:
+            check(r1.requests > n_before, "fleet: r1 takes no traffic")
+        record["kill_answers"] = len(pump.statuses)
+        _fleet_health(port1, "r1 after its restart")
+        # rollout of v2: canary → bake → promote, health-gated
+        t0 = time.perf_counter()
+        with _FleetPump(gw_port, 50_000) as pump:
+            check(rollout.start("v2", env={"RTPU_VERSION": "v2"}),
+                  "fleet: the rollout did not start")
+            state = rollout.wait(timeout=4 * FLEET_BOOT_S)
+        record["rollout_s"] = time.perf_counter() - t0
+        snap = rollout.snapshot()
+        check(state == "done", f"fleet: rollout ended {state}: "
+                               f"{snap['history'][-3:]}")
+        events = [h.get("event") for h in snap["history"]]
+        check({"canary_replace", "bake_passed", "promoted"} <= set(events),
+              f"fleet: rollout events {events}")
+        pump.check_clean("during the rollout")
+        with gw._lock:
+            versions = sorted(str(r.version) for r in gw.replicas)
+        check(versions == ["v2", "v2"], f"fleet: versions {versions}")
+        for rid, info in sup.snapshot().items():
+            _fleet_health(info["port"], f"{rid} on v2")
+        record["rollout_answers"] = len(pump.statuses)
+    finally:
+        if gw is not None:
+            gw.drain(timeout=30)
+            with gw._lock:
+                for r in gw.replicas:
+                    r.drop_conns()
+        sup.drain(timeout=60)
+        broker.shutdown()
+        broker.server_close()
+    d50, d95 = record["single_direct_ms"]
+    g50, g95 = record["single_gateway_ms"]
+    print(f"[fleet] (b) boot s: r0 {boot['r0']:.3f}, r1 {boot['r1']:.3f} "
+          f"| {smi_line}")
+    print(f"[fleet] (b) single-row ms p50/p95: direct {d50:.3f}/{d95:.3f}, "
+          f"through the gateway {g50:.3f}/{g95:.3f} | {smi_line}")
+    print(f"[fleet] (b) 4096-row preds/s through the gateway: one replica "
+          f"{record['preds_per_s_1']:.1f}, two on the card "
+          f"{record['preds_per_s_2']:.1f} | {smi_line}")
+    print(f"[fleet] (b) restart s after kill_replica(1): "
+          f"{record['restart_s']:.3f} ({record['kill_answers']} answers, "
+          f"none >= 500); rollout v2 {record['rollout_s']:.3f} s "
+          f"({record['rollout_answers']} answers, none >= 500) | {smi_line}")
+    print(f"[fleet] (b) {FLEET_SINGLES} single rows + {FLEET_BATCHES} x 4096 "
+          f"rows on {FLEET_THREADS} threads bitwise the direct answers; "
+          f"launches {record['launches_per_replica']}; wire fallback "
+          f"{record['wire_fallback']}; SSE r0 -> broker -> r1")
+    return record
+
+
+def phase_fleet(smi_line):
+    """Phase 16, the fleet on the card. → (record, fused launches in
+    the two replicas over (b)'s requests)."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    record = {"entry": _fleet_entry(smi_line),
+              "two": _fleet_two(smi_line, np.random.default_rng(16))}
+    record["wall_s"] = time.perf_counter() - t0
+    print(json.dumps({"fleet": record}))
+    return record, record["two"]["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -4792,6 +5349,8 @@ def main() -> int:
         _, train_launches = phase_train()
         phase = "observability"
         _, obs_launches = phase_obs(smi_line)
+        phase = "fleet"
+        _, fleet_launches = phase_fleet(smi_line)
         phase = "times"
         table = phase_times(rng)
     except Exception as e:
@@ -4832,6 +5391,10 @@ def main() -> int:
     # ... and over phase 15's: auto selection per serving bucket and the
     # 4096-row request the watchdog's check rides on
     kernels[0]["launches_selection"] = selection_launches
+    # ... and over phase 16 (b)'s: two replicas on the card (other
+    # processes), read from their /api/metrics before and after its
+    # requests through the gateway
+    kernels[0]["launches_fleet"] = fleet_launches
     print(json.dumps({"kernels": kernels}))
     print(f"{smi_line}")
     print(json.dumps({"ok": True, "device": {

@@ -9,9 +9,13 @@ and defaults (``ETA_MODEL_PATH``, ``PORT``, ``RTPU_*``, ``RTPU_LIVE_*``,
 ``RTPU_CKPT_DIR``, and the observability knobs ``RTPU_OBS_*``,
 ``RTPU_TAIL_SAMPLE*``, ``RTPU_TIMELINE*``, ``RTPU_PROFILE*``,
 ``RTPU_PROBER_*``, ``RTPU_EFF*``, ``RTPU_LEDGER*``, ``RTPU_SLO*``,
-``RTPU_RECORDER*``, ``RTPU_CHAOS*``), plus the port's own
-``ROUTEST_DEVICE``. One default differs: ``RTPU_EFF_KERNEL_ARTIFACT``
-falls back to the port's ``artifacts/serving_kernel_cuda.json``.
+``RTPU_RECORDER*``, ``RTPU_CHAOS*``, and the fleet's ``RTPU_FLEET_*``,
+``RTPU_GATEWAY_*``, ``RTPU_REGION``, ``RTPU_AUTOSCALE*`` and
+``RTPU_ROLLOUT_*``), plus the port's own ``ROUTEST_DEVICE``. Three
+defaults differ, each naming the port's own record:
+``RTPU_EFF_KERNEL_ARTIFACT`` falls back to
+``artifacts/serving_kernel_cuda.json``, and ``RTPU_EFF_CHIPS_ARTIFACT``
+and ``RTPU_FLEET_PLACEMENT_RECORD`` to ``artifacts/fleet_chips_cuda.json``.
 """
 
 from __future__ import annotations
@@ -97,9 +101,145 @@ class ServeConfig:
     # = the in-memory store.
     supabase_url: Optional[str] = None
     supabase_service_key: Optional[str] = None
-    # SSE bus backend (REDIS_URL); unset = the in-memory bus, the only
-    # one the port has.
+    # SSE bus backend (REDIS_URL): unset = the in-memory bus;
+    # tcp://host:port = the cross-process broker (serve/netbus.py).
     redis_url: Optional[str] = None
+
+
+# The fleet placement curve the port reads (``serve/fleet/placement.py``
+# and the goodput watchdog's chips factor): the port's own record, never
+# the JAX package's ``artifacts/fleet_chips.json``.
+FLEET_CHIPS_RECORD = "artifacts/fleet_chips_cuda.json"
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetConfig:
+    """Multi-replica serving fleet (``serve/fleet``): a supervisor that
+    keeps N shared-nothing worker processes alive plus a gateway that
+    routes, sheds, and hedges in front of them. All knobs are env-
+    tunable (``RTPU_FLEET_*``); the defaults target a small multi-core
+    host."""
+
+    replicas: int = 2
+    gateway_host: str = "127.0.0.1"
+    gateway_port: int = 8099
+    # First replica port; replica i listens on base_port + i.
+    base_port: int = 5101
+    # Admission control: at most ``max_inflight`` requests proxying at
+    # once; up to ``queue_depth`` more may wait. Beyond that (or past a
+    # request's deadline) the gateway sheds with 429 + Retry-After.
+    max_inflight: int = 64
+    queue_depth: int = 128
+    deadline_ms: float = 30_000.0
+    # Circuit breaker: ``eject_after`` consecutive failures open the
+    # breaker for ``cooldown_s``; then ONE half-open probe decides.
+    eject_after: int = 3
+    cooldown_s: float = 2.0
+    # Tail hedging for idempotent predict reads: a second copy goes to
+    # another replica once the first has been in flight for the fleet's
+    # observed p95 (floored at ``hedge_min_ms``). Only small requests
+    # hedge (``hedge_max_body_bytes``): duplicating a bulk batch doubles
+    # real device work, the overload hedging is meant to relieve.
+    hedge: bool = True
+    hedge_min_ms: float = 50.0
+    hedge_max_body_bytes: int = 16_384
+    # Supervisor restart backoff: min(cap, base * 2**consecutive_crashes).
+    backoff_base_s: float = 0.5
+    backoff_cap_s: float = 30.0
+    # Health probing: /up every ``probe_interval_s``; this many
+    # consecutive probe failures restart the worker.
+    probe_interval_s: float = 1.0
+    unhealthy_after: int = 3
+    # Topology-aware placement (``serve/fleet/placement.py``): how the
+    # host's devices are carved into replica slices. ``placement`` is
+    # ``auto``, ``replica`` (all 1-chip), ``mesh`` (one slice owns every
+    # device), ``NxK``, or an explicit ``4,2,1`` list. ``chips=0``
+    # detects (env override → ``ROUTEST_DEVICE=cpu`` → the CUDA device
+    # count); ``replicas`` above caps the slice count.
+    # ``placement_eff`` is the modeled per-added-chip mesh efficiency;
+    # the measured per-chip curve at ``placement_record`` overrides it.
+    placement: str = "auto"
+    chips: int = 0
+    placement_eff: float = 0.92
+    placement_record: str = FLEET_CHIPS_RECORD
+    # Region label (``RTPU_REGION``) stamped on the gateway's rollups;
+    # empty = single-region.
+    region: str = ""
+
+
+@dataclasses.dataclass(frozen=True)
+class AutoscaleConfig:
+    """SLO-driven fleet autoscaling (``serve/fleet/autoscaler.py``): a
+    control loop over gateway pressure (admission-queue depth, per-
+    replica outstanding) and the SLO engine's fast-window burn rate,
+    actuating supervisor membership changes through the gateway's
+    dynamic registration. ``RTPU_AUTOSCALE_*`` env vars; off by default.
+
+    Scale-up fires when ANY pressure signal (``up_queue_frac`` of the
+    admission queue occupied, mean outstanding per capacity unit ≥
+    ``up_outstanding``, or worst fast-window burn ≥ ``up_burn``) holds
+    for ``up_stable_ticks`` consecutive ticks outside the up-cooldown.
+    Scale-down requires EVERY quiet signal (no queue, outstanding ≤
+    ``down_outstanding``, burn < ``up_burn``) for ``down_stable_ticks``
+    ticks outside the down-cooldown."""
+
+    enabled: bool = False
+    min_replicas: int = 1
+    max_replicas: int = 4
+    tick_s: float = 1.0
+    # Pressure (scale-up) signals.
+    up_queue_frac: float = 0.25
+    up_outstanding: float = 8.0
+    up_burn: float = 6.0
+    up_stable_ticks: int = 2
+    up_step: int = 1
+    up_cooldown_s: float = 10.0
+    # Quiet (scale-down) signals.
+    down_outstanding: float = 1.0
+    down_stable_ticks: int = 12
+    down_step: int = 1
+    down_cooldown_s: float = 30.0
+    # Actuation bounds.
+    startup_timeout_s: float = 180.0
+    drain_timeout_s: float = 15.0
+
+
+@dataclasses.dataclass(frozen=True)
+class RolloutConfig:
+    """Safe change delivery (``serve/fleet/rollout.py``): canary → bake
+    → promote rollouts with automatic rollback. ``RTPU_ROLLOUT_*`` env
+    vars.
+
+    A rollout replaces ``canary_replicas`` workers with the new version
+    (retire → SIGTERM-drain → spawn → startup probe → health gate →
+    half-open gateway join), routes ``canary_fraction`` of traffic to
+    the canary cohort for ``bake_s``, and compares canary-vs-baseline
+    error rate and latency through the SLO engine's windowed rollups
+    over the version-labeled gateway request families. Rollback fires
+    on a boot crash loop (``crash_restarts`` supervisor restarts before
+    the startup probe answers), a failed model check (the canary's
+    ``/api/health`` ``checks.model.status`` is not ``ok``), a canary
+    error rate above ``max(max_error_rate, max_error_ratio ×
+    baseline)``, a canary over-``latency_threshold_ms`` fraction
+    exceeding baseline's by ``max_latency_regression``, or any
+    fleet-wide SLO page during the bake."""
+
+    canary_fraction: float = 0.25
+    canary_replicas: int = 1
+    bake_s: float = 30.0
+    tick_s: float = 0.5
+    max_unavailable: int = 1
+    # Comparison gates (the bake verdict needs evidence first).
+    min_canary_requests: int = 20
+    max_error_rate: float = 0.05
+    max_error_ratio: float = 3.0
+    latency_threshold_ms: float = 1500.0
+    max_latency_regression: float = 0.25
+    # Boot/verify gates for each replaced replica.
+    crash_restarts: int = 2
+    boot_timeout_s: float = 120.0
+    health_timeout_s: float = 20.0
+    drain_timeout_s: float = 15.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -343,8 +483,8 @@ class EfficiencyConfig:
     device-program call site records real vs padded rows and the
     queue/compute wall split. The watchdog pins the measured per-bucket
     throughput curve from the port's kernel record (``kernel_artifact``,
-    backend-matched; ``chips_artifact`` is the fleet placement curve,
-    read once placement is ported) and pages when
+    backend-matched; ``chips_artifact`` is the fleet placement curve
+    that scales it on a replica of more than one device) and pages when
     live goodput falls under ``min_ratio`` × pinned, or when windowed
     padding waste exceeds ``max_waste`` — each debounced over ``after``
     consecutive bad ticks, the prober's skew-verdict convention.
@@ -367,7 +507,7 @@ class EfficiencyConfig:
     # The port reads its own ``_cuda`` records (the JAX package's
     # default is ``artifacts/serving_kernel.json``).
     kernel_artifact: str = "artifacts/serving_kernel_cuda.json"
-    chips_artifact: str = "artifacts/fleet_chips.json"
+    chips_artifact: str = FLEET_CHIPS_RECORD
     slo_target: float = 0.99
     fast_window_s: float = 60.0
     slow_window_s: float = 600.0
@@ -485,6 +625,9 @@ class Config:
     recorder: RecorderConfig = RecorderConfig()
     timeline: TimelineConfig = TimelineConfig()
     profile: ProfileConfig = ProfileConfig()
+    fleet: FleetConfig = FleetConfig()
+    autoscale: AutoscaleConfig = AutoscaleConfig()
+    rollout: RolloutConfig = RolloutConfig()
 
 
 def resolve_device(device=None, who: str = "routest_tpu_torch"):
@@ -578,7 +721,34 @@ def load_config(env: Optional[Mapping[str, str]] = None) -> Config:
         supabase_service_key=env.get("SUPABASE_SERVICE_ROLE_KEY"),
         redis_url=env.get("REDIS_URL"),
     )
+    fleet = FleetConfig(
+        replicas=_int("RTPU_FLEET_REPLICAS", 2),
+        gateway_host=env.get("RTPU_GATEWAY_HOST", "127.0.0.1"),
+        gateway_port=_int("RTPU_GATEWAY_PORT", 8099),
+        base_port=_int("RTPU_FLEET_BASE_PORT", 5101),
+        max_inflight=_int("RTPU_FLEET_MAX_INFLIGHT", 64),
+        queue_depth=_int("RTPU_FLEET_QUEUE_DEPTH", 128),
+        deadline_ms=_float("RTPU_FLEET_DEADLINE_MS", 30_000.0),
+        eject_after=_int("RTPU_FLEET_EJECT_AFTER", 3),
+        cooldown_s=_float("RTPU_FLEET_COOLDOWN_S", 2.0),
+        hedge=env.get("RTPU_FLEET_HEDGE", "1") != "0",
+        hedge_min_ms=_float("RTPU_FLEET_HEDGE_MIN_MS", 50.0),
+        hedge_max_body_bytes=_int("RTPU_FLEET_HEDGE_MAX_BODY", 16_384),
+        backoff_base_s=_float("RTPU_FLEET_BACKOFF_BASE_S", 0.5),
+        backoff_cap_s=_float("RTPU_FLEET_BACKOFF_CAP_S", 30.0),
+        probe_interval_s=_float("RTPU_FLEET_PROBE_S", 1.0),
+        unhealthy_after=_int("RTPU_FLEET_UNHEALTHY_AFTER", 3),
+        placement=env.get("RTPU_FLEET_PLACEMENT") or "auto",
+        chips=_int("RTPU_FLEET_CHIPS", 0),
+        placement_eff=_env_num(env, "RTPU_FLEET_PLACEMENT_EFF",
+                               0.92, float),
+        placement_record=env.get("RTPU_FLEET_PLACEMENT_RECORD")
+        or FLEET_CHIPS_RECORD,
+        region=env.get("RTPU_REGION", ""),
+    )
     return Config(model=model, train=train, serve=serve,
+                  fleet=fleet, autoscale=load_autoscale_config(env),
+                  rollout=load_rollout_config(env),
                   live=load_live_config(env),
                   dispatch=load_dispatch_config(env),
                   obs=load_obs_config(env),
@@ -599,6 +769,71 @@ def _env_num(env: Mapping[str, str], name: str, default, cast):
         return cast(raw)
     except ValueError:
         return default
+
+
+def load_autoscale_config(
+        env: Optional[Mapping[str, str]] = None) -> AutoscaleConfig:
+    """Just the autoscaler knobs (``RTPU_AUTOSCALE=1`` arms it)."""
+    env = dict(env if env is not None else os.environ)
+    return AutoscaleConfig(
+        enabled=env.get("RTPU_AUTOSCALE", "0") == "1",
+        min_replicas=_env_num(env, "RTPU_AUTOSCALE_MIN", 1, int),
+        max_replicas=_env_num(env, "RTPU_AUTOSCALE_MAX", 4, int),
+        tick_s=_env_num(env, "RTPU_AUTOSCALE_TICK_S", 1.0, float),
+        up_queue_frac=_env_num(env, "RTPU_AUTOSCALE_UP_QUEUE_FRAC",
+                               0.25, float),
+        up_outstanding=_env_num(env, "RTPU_AUTOSCALE_UP_OUTSTANDING",
+                                8.0, float),
+        up_burn=_env_num(env, "RTPU_AUTOSCALE_UP_BURN", 6.0, float),
+        up_stable_ticks=_env_num(env, "RTPU_AUTOSCALE_UP_TICKS", 2, int),
+        up_step=_env_num(env, "RTPU_AUTOSCALE_UP_STEP", 1, int),
+        up_cooldown_s=_env_num(env, "RTPU_AUTOSCALE_UP_COOLDOWN_S",
+                               10.0, float),
+        down_outstanding=_env_num(env, "RTPU_AUTOSCALE_DOWN_OUTSTANDING",
+                                  1.0, float),
+        down_stable_ticks=_env_num(env, "RTPU_AUTOSCALE_DOWN_TICKS",
+                                   12, int),
+        down_step=_env_num(env, "RTPU_AUTOSCALE_DOWN_STEP", 1, int),
+        down_cooldown_s=_env_num(env, "RTPU_AUTOSCALE_DOWN_COOLDOWN_S",
+                                 30.0, float),
+        startup_timeout_s=_env_num(env, "RTPU_AUTOSCALE_STARTUP_TIMEOUT_S",
+                                   180.0, float),
+        drain_timeout_s=_env_num(env, "RTPU_AUTOSCALE_DRAIN_TIMEOUT_S",
+                                 15.0, float),
+    )
+
+
+def load_rollout_config(
+        env: Optional[Mapping[str, str]] = None) -> RolloutConfig:
+    """Just the change-delivery knobs (``RTPU_ROLLOUT_*``)."""
+    env = dict(env if env is not None else os.environ)
+    return RolloutConfig(
+        canary_fraction=_env_num(env, "RTPU_ROLLOUT_CANARY_FRACTION",
+                                 0.25, float),
+        canary_replicas=_env_num(env, "RTPU_ROLLOUT_CANARY_REPLICAS",
+                                 1, int),
+        bake_s=_env_num(env, "RTPU_ROLLOUT_BAKE_S", 30.0, float),
+        tick_s=_env_num(env, "RTPU_ROLLOUT_TICK_S", 0.5, float),
+        max_unavailable=_env_num(env, "RTPU_ROLLOUT_MAX_UNAVAILABLE",
+                                 1, int),
+        min_canary_requests=_env_num(env, "RTPU_ROLLOUT_MIN_REQUESTS",
+                                     20, int),
+        max_error_rate=_env_num(env, "RTPU_ROLLOUT_MAX_ERROR_RATE",
+                                0.05, float),
+        max_error_ratio=_env_num(env, "RTPU_ROLLOUT_MAX_ERROR_RATIO",
+                                 3.0, float),
+        latency_threshold_ms=_env_num(env, "RTPU_ROLLOUT_LATENCY_MS",
+                                      1500.0, float),
+        max_latency_regression=_env_num(
+            env, "RTPU_ROLLOUT_MAX_LATENCY_REGRESSION", 0.25, float),
+        crash_restarts=_env_num(env, "RTPU_ROLLOUT_CRASH_RESTARTS", 2, int),
+        boot_timeout_s=_env_num(env, "RTPU_ROLLOUT_BOOT_TIMEOUT_S",
+                                120.0, float),
+        health_timeout_s=_env_num(env, "RTPU_ROLLOUT_HEALTH_TIMEOUT_S",
+                                  20.0, float),
+        drain_timeout_s=_env_num(env, "RTPU_ROLLOUT_DRAIN_TIMEOUT_S",
+                                 15.0, float),
+    )
 
 
 def load_live_config(env: Optional[Mapping[str, str]] = None) -> LiveConfig:
@@ -727,7 +962,7 @@ def load_efficiency_config(
         kernel_artifact=env.get("RTPU_EFF_KERNEL_ARTIFACT")
         or EfficiencyConfig.kernel_artifact,
         chips_artifact=env.get("RTPU_EFF_CHIPS_ARTIFACT")
-        or "artifacts/fleet_chips.json",
+        or FLEET_CHIPS_RECORD,
         slo_target=_env_num(env, "RTPU_EFF_SLO_TARGET", 0.99, float),
         fast_window_s=_env_num(env, "RTPU_EFF_FAST_S", 60.0, float),
         slow_window_s=_env_num(env, "RTPU_EFF_SLOW_S", 600.0, float),

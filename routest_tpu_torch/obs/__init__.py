@@ -26,10 +26,10 @@ workbook ch. 5):
 - ``ledger``  — the change ledger and suspect ranking;
 - ``efficiency`` — the device goodput ledger and its watchdog.
 
-The blackbox prober's runner (``obs/prober.py``) arrives with the fleet
-slice. ``slo``, ``timeline``, ``profiler``, ``recorder``, ``ledger`` and
-``efficiency`` import lazily — they pull ``core.config``, which the
-spine itself must not.
+The blackbox prober's runner (``obs/prober.py``) is not ported yet:
+the fleet gateway refuses ``RTPU_PROBER=1``. ``slo``, ``timeline``,
+``profiler``, ``recorder``, ``ledger`` and ``efficiency`` import lazily
+— they pull ``core.config``, which the spine itself must not.
 """
 
 from routest_tpu_torch.obs.export import (SpanBuffer,  # noqa: F401

@@ -55,9 +55,11 @@ port's counterparts of the JAX record's ``xla_mpreds_s`` /
 the card (``rows`` are the served dtype's; other keys it writes, such
 as ``kernel_us``, ``kernel_tile``, ``plain_us`` and ``rows_by_dtype``,
 are not read here). The expected rate per bucket is the smaller of the
-two. On more than one device the per-replica factor
-stays 1.0 (``chips_note`` says ``placement_not_ported``): the fleet
-placement curve that scales it arrives with the fleet slice.
+two. On more than one device the per-replica factor comes from the
+fleet placement curve at ``chips_artifact`` (the port's
+``artifacts/fleet_chips_cuda.json``), read by the placement planner's
+own platform-matched reader; without a matching record it stays 1.0
+(``chips_note`` says ``chips_artifact_unmatched``).
 """
 
 from __future__ import annotations
@@ -385,21 +387,29 @@ def pin_expected_curve(config: EfficiencyConfig,
             curve[batch] = min(rates)
     if not curve:
         return {"status": "empty", "kernel_artifact": path}
-    factor, chips_note = _chips_factor(chips)
+    factor, chips_note = _chips_factor(config, backend, chips)
     return {"status": "pinned", "kernel_artifact": path,
             "recorded_backend": recorded, "runtime_backend": backend,
             "curve": curve, "chips_factor": factor,
             "chips": chips, "chips_note": chips_note}
 
 
-def _chips_factor(chips: int) -> Tuple[float, str]:
-    """Per-replica scaling of the 1-chip curve. The JAX package reads
-    it from the fleet placement planner's curve; placement arrives
-    with the fleet slice, so on more than one device the factor stays
-    1.0 and the note says why."""
+def _chips_factor(config: EfficiencyConfig, backend: Optional[str],
+                  chips: int) -> Tuple[float, str]:
+    """Per-replica scaling from the fleet-chips curve — the SAME
+    platform-matched reader the placement planner scores with (the
+    record's platform is placement's: ``gpu`` for ``cuda``). Absent or
+    refused record → factor 1.0 (the 1-chip curve stands)."""
     if chips <= 1:
         return 1.0, "single_chip"
-    return 1.0, "placement_not_ported"
+    from routest_tpu_torch.serve.fleet.placement import (_interp_rate,
+                                                         measured_rates)
+
+    platform = {"cuda": "gpu"}.get(backend, backend)
+    rates = measured_rates(config.chips_artifact, platform=platform)
+    if not rates or 1 not in rates:
+        return 1.0, "chips_artifact_unmatched"
+    return max(1.0, _interp_rate(chips, rates) / rates[1]), "scaled"
 
 
 def expected_rate(pin: dict, bucket: int) -> Optional[float]:

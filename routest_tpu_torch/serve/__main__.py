@@ -32,6 +32,14 @@ SIGUSR2), the SLO engine, the timeline and the goodput watchdog tick on
 their own threads, and ``RTPU_CHAOS_SPEC`` arms fault injection. An
 artifact written by ``python -m routest_tpu_torch.train.export`` serves
 its own program (kernel ``torch_export``).
+
+Under the fleet (``python -m routest_tpu_torch.serve.fleet``) each
+replica is this process, pinned to its placement slice by the
+supervisor's overlay. A slice of more than one device
+(``RTPU_FLEET_SLICE_CHIPS`` > 1, or ``ROUTEST_MESH=1``) is refused at
+boot with a ``mesh_slice_refused`` log line and exit code 2: the port
+serves on one device, and a replica the gateway weights as k devices
+must not quietly serve on one.
 """
 
 from __future__ import annotations
@@ -70,7 +78,29 @@ def ensure_model(path: str, device=None) -> None:
               eval_rmse_min=round(result.eval_rmse, 2))
 
 
+def mesh_slice_refusal(env=None):
+    """Why this process must not serve its placement slice, or None:
+    mesh serving is not ported, so a slice of more than one device is
+    refused."""
+    env = os.environ if env is None else env
+    if env.get("ROUTEST_MESH") == "1":
+        return "ROUTEST_MESH=1: mesh serving is not ported"
+    raw = env.get("RTPU_FLEET_SLICE_CHIPS") or "1"
+    try:
+        chips = int(raw)
+    except ValueError:
+        return f"RTPU_FLEET_SLICE_CHIPS={raw!r} is not a device count"
+    if chips > 1:
+        return (f"RTPU_FLEET_SLICE_CHIPS={chips}: a slice of more than "
+                f"one device needs mesh serving, which is not ported")
+    return None
+
+
 def main() -> None:
+    refusal = mesh_slice_refusal()
+    if refusal is not None:
+        _log.error("mesh_slice_refused", reason=refusal)
+        raise SystemExit(2)
     config = load_config()
     path = default_model_path(config.model)
     ensure_model(path, device=config.serve.device)
@@ -93,9 +123,10 @@ def main() -> None:
             max_frame_bytes=int(wire_cfg.max_frame_mb * 1024 * 1024))
         try:
             wire_server.start()   # logs wire_channel_listening itself
-        except OSError as e:
-            # A port collision must not kill the server: the HTTP
-            # negotiation path still serves wire frames.
+        except (OSError, OverflowError) as e:
+            # A port collision, or a derived port past 65535, must not
+            # kill the server: the HTTP negotiation path still serves
+            # wire frames, and a gateway falls back to it per request.
             _log.warning("wire_channel_bind_failed", port=wire_port,
                          error=str(e))
             wire_server = None

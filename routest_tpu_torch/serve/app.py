@@ -66,6 +66,7 @@ from routest_tpu_torch.data import geo
 from routest_tpu_torch.data.locations import locations_table
 from routest_tpu_torch.obs import build_info, get_registry, register_build_info
 from routest_tpu_torch.obs.ledger import record_change
+from routest_tpu_torch.ops.fused_mlp import fused_eta_forward
 from routest_tpu_torch.optimize import road_router
 from routest_tpu_torch.optimize.engine import (MAX_BATCH_PROBLEMS,
                                                _parse_problem,
@@ -894,11 +895,18 @@ def create_app(config: Optional[Config] = None,
             },
         }, 200
 
+    # The fused kernel's launches in this process, read at scrape time:
+    # a fleet gateway's /api/metrics?replicas=1 shows each replica's.
+    m_launches = get_registry().gauge(
+        "rtpu_fused_launches",
+        "Fused ETA kernel launches in this process (read at scrape).")
+
     @app.route("/api/metrics", methods=("GET",))
     def metrics(request):
         # Per-route latency percentiles + batcher gauges, plus the
         # process registry; ?format=prometheus renders the same data in
         # the exposition format.
+        m_launches.set(fused_eta_forward.launches)
         snapshot = {"http": app.request_stats.snapshot(),
                     "batcher": eta.stats}
         if request.args.get("format") == "prometheus":

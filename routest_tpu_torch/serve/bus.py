@@ -1,18 +1,21 @@
 """SSE event bus: per-channel pub/sub feeding ``GET /api/realtime_feed``.
 
-The counterpart of ``routest_tpu/serve/bus.py``'s single-process path.
-The reference publishes tracker updates through flask-sse → Redis
+The counterpart of ``routest_tpu/serve/bus.py``. The reference
+publishes tracker updates through flask-sse → Redis
 (``Flaskr/routes.py:86``, ``__init__.py:25-28``); a single-process
 server gets the same semantics from an in-memory bus with a replay ring,
 so an SSE client reconnecting with ``Last-Event-ID`` resumes where it
-left off. Neither the Redis client nor the cross-process broker is
-ported: :func:`make_bus` refuses a configured ``REDIS_URL`` rather than
-serve a single-process bus where a fleet-wide one was asked for.
+left off, and a fleet of replicas shares one through the TCP broker of
+``serve/netbus.py`` (``REDIS_URL=tcp://host:port``). The Redis client is
+not ported: :func:`make_bus` refuses a ``redis://`` URL, and a
+configured broker that does not answer fails the boot, rather than serve
+a single-process bus where a fleet-wide one was asked for.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import queue
 import threading
 import time
@@ -140,17 +143,38 @@ class Subscription:
         self.close()
 
 
-def make_bus(redis_url: Optional[str]) -> InMemoryBus:
-    """The in-memory bus. A configured ``REDIS_URL`` (``redis://`` or
-    the JAX package's ``tcp://`` broker) is refused: neither backend is
-    ported, and serving SSE from one process where a cross-process bus
-    was configured would silently split the fleet's streams."""
-    if redis_url:
+def make_bus(redis_url: Optional[str]):
+    """Bus from the ``REDIS_URL`` scheme: unset → the in-memory bus;
+    ``tcp://`` → :class:`~routest_tpu_torch.serve.netbus.NetBus` on the
+    cross-process broker, with subscriber auto-reconnect
+    (``RTPU_NETBUS_RECONNECT_S``, default 30 s of broker downtime before
+    an SSE stream gives up) and the bounded publish replay buffer.
+
+    Unlike the JAX package, which serves an in-memory bus when the
+    broker does not answer, a configured broker that does not answer
+    ``ping`` raises: a replica serving SSE from its own process would
+    split the fleet's streams silently, so the boot fails and the fleet
+    supervisor's backoff restarts it. ``redis://`` raises too (no Redis
+    client is ported)."""
+    if not redis_url:
+        return InMemoryBus()
+    if not redis_url.startswith("tcp://"):
         raise RuntimeError(
-            f"make_bus: REDIS_URL={redis_url!r} is configured, but the "
-            f"port has only the in-memory bus (unset REDIS_URL for a "
-            f"single-process bus)")
-    return InMemoryBus()
+            f"make_bus: REDIS_URL={redis_url!r}: only the tcp:// broker "
+            f"(serve/netbus.py) is ported, not Redis (unset REDIS_URL for "
+            f"a single-process bus)")
+    from routest_tpu_torch.serve.netbus import NetBus
+
+    try:
+        reconnect_s = float(os.environ.get("RTPU_NETBUS_RECONNECT_S") or 30.0)
+    except ValueError:
+        reconnect_s = 30.0
+    bus = NetBus(redis_url, reconnect_s=reconnect_s)
+    if not bus.ping():
+        raise RuntimeError(
+            f"make_bus: the broker at REDIS_URL={redis_url!r} does not "
+            f"answer")
+    return bus
 
 
 def sse_stream(subscription, keepalive_s: float = 15.0,

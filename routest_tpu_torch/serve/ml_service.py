@@ -1124,13 +1124,17 @@ class EtaService:
         return info
 
     def mesh_info(self) -> dict:
-        """The replica's device topology (health's ``checks.engine.mesh``)."""
+        """The replica's device topology (health's ``checks.engine.mesh``),
+        with the placement slice label the fleet supervisor stamped."""
         info: dict = {"platform": self.device.type, "sharded": False}
         if self.device.type == "cuda":
             info["devices"] = torch.cuda.device_count()
             info["device_name"] = torch.cuda.get_device_name(self.device)
         else:
             info["devices"] = 1
+        label = os.environ.get("RTPU_FLEET_PLACEMENT_LABEL")
+        if label:
+            info["placement"] = label
         return info
 
     def predict_batch(self, rows: np.ndarray) -> Optional[np.ndarray]:

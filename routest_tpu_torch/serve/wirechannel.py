@@ -33,8 +33,10 @@ Channel message layout (little-endian), both directions::
 The channel exists only when ``RTPU_WIRE=1`` (``python -m
 routest_tpu_torch.serve`` listens on ``RTPU_WIRE_PORT``, or ``PORT +
 RTPU_WIRE_PORT_OFFSET``). Deadlines propagate via ``deadline_ms``
-exactly like the ``X-Deadline-Ms`` header. The fleet gateway that rides
-the client in production arrives with the fleet slice.
+exactly like the ``X-Deadline-Ms`` header. The fleet gateway
+(``serve/fleet/gateway.py``) rides the client, one per replica, and
+counts every request that falls back to plain HTTP
+(:func:`fallback_http_count`).
 """
 
 from __future__ import annotations
@@ -73,7 +75,8 @@ _m_conns = _reg.counter(
     "rtpu_wire_conns_total",
     "Wire channel connection events at the client: reused = request "
     "rode an existing channel, fresh = new channel connect, dead = "
-    "channel failed mid-flight.", ("event",))
+    "channel failed mid-flight, fallback_http = request fell back to "
+    "a plain HTTP exchange.", ("event",))
 _m_server = _reg.counter(
     "rtpu_wire_server_requests_total",
     "Wire-channel requests served by this replica, by route and "
@@ -158,8 +161,10 @@ class WireChannelServer:
             srv.bind((self.host, self.port))
             self.port = srv.getsockname()[1]  # resolve port 0
             srv.listen(64)
-        except OSError:
-            srv.close()  # a taken port must not leak the socket
+        except (OSError, OverflowError):
+            # A taken port, or one past 65535 (a PORT near the top of
+            # the range plus the offset), must not leak the socket.
+            srv.close()
             raise
         self._listener = srv
         threading.Thread(target=self._accept_loop, daemon=True,
@@ -406,8 +411,11 @@ class WireChannelClient:
 
     def request(self, path: str, frame: bytes,
                 timeout: float = 10.0,
-                deadline_ms: Optional[float] = None) -> Tuple[int, bytes]:
-        """One multiplexed exchange → (status, response frame bytes)."""
+                deadline_ms: Optional[float] = None,
+                probe: Optional[str] = None) -> Tuple[int, bytes]:
+        """One multiplexed exchange → (status, response frame bytes).
+        ``probe`` (a gateway forwarding ``X-RTPU-Probe`` traffic) rides
+        in the request's meta."""
         sock = self._ensure_connected()
         waiter = _Waiter(sock)
         with self._state_lock:
@@ -417,6 +425,8 @@ class WireChannelClient:
         meta: dict = {"path": path}
         if deadline_ms is not None:
             meta["deadline_ms"] = deadline_ms
+        if probe:
+            meta["probe"] = probe
         try:
             _send_message(sock, self._wlock, rid, OP_REQUEST, meta, frame)
         except (OSError, ConnectionError) as e:
@@ -435,3 +445,8 @@ class WireChannelClient:
         _m_bytes.labels(direction="received").inc(len(waiter.frame))
         return waiter.status, waiter.frame
 
+
+def fallback_http_count() -> None:
+    """Record a wire request that fell back to a plain HTTP exchange
+    (gateway-side bookkeeping for the reuse ratio)."""
+    _m_conns.labels(event="fallback_http").inc()

@@ -7,8 +7,11 @@ port names ``cuda`` or ``cpu`` from torch). Curve pinning reads the
 port's own record keys (``kernel_mpreds_s`` / ``plain_mpreds_s``) on
 hand-written records: a ``cuda`` record pins on the card's backend, the
 JAX package's ``tpu`` record is refused as ``backend_mismatch``, a
-missing file is ``no_artifact``, and more than one device keeps factor
-1.0 with a note naming the unported placement. Armed on equivalent
+missing file is ``no_artifact``, and more than one device takes its
+factor from the placement planner's fleet-chips reader: 1.0 with
+``chips_artifact_unmatched`` when the port's record is absent or
+foreign (the JAX package's CPU curve), the JAX package's factor on a
+record measured on the card. Armed on equivalent
 curves, the two watchdogs give the same debounced verdicts and page the
 same way into a stub recorder. The watchdog ticks are driven by hand:
 no ticker thread runs."""
@@ -160,11 +163,40 @@ def test_pin_refusals(tmp_path, runtime, record, status):
 
 
 def test_more_than_one_device_keeps_factor_one(tmp_path):
+    # No fleet-chips record of the port's (the default path is absent).
     pin = teff.pin_expected_curve(
-        _cfg(_write(tmp_path, "k.json", _port_record("cuda"))), "cuda",
-        chips=4)
+        _cfg(_write(tmp_path, "k.json", _port_record("cuda")),
+             RTPU_EFF_CHIPS_ARTIFACT=str(tmp_path / "absent.json")),
+        "cuda", chips=4)
     assert pin["chips_factor"] == 1.0
-    assert pin["chips_note"] == "placement_not_ported"
+    assert pin["chips_note"] == "chips_artifact_unmatched"
+
+
+def test_the_jax_fleet_chips_record_is_refused_by_platform(tmp_path):
+    pin = teff.pin_expected_curve(
+        _cfg(_write(tmp_path, "k.json", _port_record("cuda")),
+             RTPU_EFF_CHIPS_ARTIFACT="artifacts/fleet_chips.json"),
+        "cuda", chips=4)
+    assert (pin["chips_factor"], pin["chips_note"]) == (
+        1.0, "chips_artifact_unmatched")
+    assert load_efficiency_config({}).chips_artifact == \
+        "artifacts/fleet_chips_cuda.json"
+
+
+@pytest.mark.parametrize("chips", [2, 3, 8])
+def test_a_card_fleet_chips_record_scales_as_jax(tmp_path, chips):
+    curve = _write(tmp_path, "chips.json", {
+        "host": {"backend": "gpu"},
+        "curve": [{"chips": 1, "preds_per_s": 1000.0},
+                  {"chips": 2, "preds_per_s": 1800.0},
+                  {"chips": 4, "preds_per_s": 3000.0}]})
+    kernel = _write(tmp_path, "k.json", _port_record("cuda"))
+    pin = teff.pin_expected_curve(
+        _cfg(kernel, RTPU_EFF_CHIPS_ARTIFACT=curve), "cuda", chips=chips)
+    jcfg = jload_efficiency_config({"RTPU_EFF_CHIPS_ARTIFACT": curve})
+    assert (pin["chips_factor"], pin["chips_note"]) == \
+        jeff._chips_factor(jcfg, "gpu", chips)
+    assert pin["chips_note"] == "scaled" and pin["chips_factor"] > 1.0
 
 
 def test_default_record_is_the_ports_own():
@@ -265,4 +297,8 @@ def test_config_loader_matches_but_the_record(env):
     want = jload_efficiency_config(env).__dict__
     assert got.pop("kernel_artifact") == "artifacts/serving_kernel_cuda.json"
     want.pop("kernel_artifact")
+    if "RTPU_EFF_CHIPS_ARTIFACT" not in env:
+        # the fleet-chips curve is the port's own record too
+        assert got.pop("chips_artifact") == "artifacts/fleet_chips_cuda.json"
+        want.pop("chips_artifact")
     assert got == want
