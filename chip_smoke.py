@@ -225,14 +225,38 @@ of which fails the run:
    >= 500, restarted and rejoined; a ``v2`` rollout canaried, baked and
    promoted; each replica's boot seconds, single-row p50/p95 direct and
    through the gateway, 4096-row preds/s with one and two replicas and
-   the restart seconds, each beside the card's name and power limit.
+   the restart seconds, each beside the card's name and power limit;
+17. two regions, run between phases 16 and 9: ``python -m
+   routest_tpu_torch.serve.fleet.geofront`` with ``RTPU_REGIONS=east,west``
+   (one replica per region on the card, fixed ports below the host's
+   ephemeral range, no autoscaler), ``RTPU_LIVE=1`` on the metro extract,
+   the front's and both gateways' probers (``RTPU_PROBER=1``,
+   ``RTPU_PROBER_REACH=1``, ``RTPU_REGION_PROBER=1``): both placement
+   plans ``gpu``/1/``1x1`` and both gateways ``cuda_fused``; (a) phase
+   5's 4096-row body (by query and by header) and 20 single rows to each
+   region through the front, bitwise the direct app and served by the
+   hinted region, the regions' fused launches before and after, and the
+   front's single-row hop over a gateway; (b) a corridor jam posted to
+   east only shows in both regions' ``/api/live?metric=1`` (corridor ≥
+   1.5× free flow, elsewhere ≤ 1.25×) within 60 s, with the bridges'
+   frame and drop counters; (c) three more front rounds across that flip:
+   every verdict a pass, no correctness page anywhere, fused launches on
+   both replicas under the probes alone, and each replica's served route
+   within 2e-3 of the scipy oracle on its own exported metric; (d) east's
+   fleet SIGKILLed under single-row traffic through the front (no answer
+   >= 500), 8 optimize writes taken by west and journaled, the reach
+   page naming east, east respawned on its broker, the journal drained
+   and every write read back from east; (e) west respawned under
+   ``device.compute:skew``: a prober over both replicas names
+   ``west-r0`` divergent with a ``correctness_page`` bundle; SIGTERM
+   drains the entry point to exit 0.
 
 The lines before the last are one ``{"optimize": {...}}``, one
 ``{"road": {...}}``, one ``{"overlay": {...}}``, one ``{"live": {...}}``,
 one ``{"selection": {...}}``, one ``{"dispatch": {...}}``, one
 ``{"serving_core": {...}}``, one
 ``{"train": {...}}``, one ``{"observability": {...}}``, one
-``{"fleet": {...}}`` and one
+``{"fleet": {...}}``, one ``{"regions": {...}}`` and one
 ``{"kernels": [...]}`` JSON object and the
 card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
@@ -4993,8 +5017,8 @@ class _FleetPump:
     supervisor spawns on that port fails to bind it (ROADMAP Queue C
     14)."""
 
-    def __init__(self, gw_port, first):
-        self.port, self.next = gw_port, first
+    def __init__(self, gw_port, first, path=lambda i: "/api/predict_eta"):
+        self.port, self.next, self.path = gw_port, first, path
         self.statuses, self.errors = [], []
         self._stop = threading.Event()
         self._lock = threading.Lock()
@@ -5011,7 +5035,7 @@ class _FleetPump:
                 if conn is None:
                     conn = http.client.HTTPConnection("127.0.0.1",
                                                       self.port, timeout=120)
-                conn.request("POST", "/api/predict_eta",
+                conn.request("POST", self.path(i),
                              json.dumps(_fleet_single(i)),
                              {"Content-Type": "application/json"})
                 resp = conn.getresponse()
@@ -5304,6 +5328,606 @@ def phase_fleet(smi_line):
     return record, record["two"]["launches"]
 
 
+REGIONS = ("east", "west")
+REGION_BOOT_S = 300.0        # bound on the entry point's (and a fleet's) boot
+REGION_SINGLES = 20          # seeded single rows to each region
+REGION_HOP_REPS = 50         # sequential single rows, front and gateway
+REGION_WRITES = 8            # optimize writes taken during the outage
+REGION_JAM_POSTS = 4         # /api/probe posts of the jammed corridor
+REGION_BOUND_S = 60.0        # convergence, page, drain and detection bounds
+REGION_JAM_RATIO = 1.5       # corridor metric / free flow once jammed
+REGION_CALM_RATIO = 1.25     # ... while off the corridor it stays under
+REGION_ROUTE_RTOL = 2e-3     # served route vs the scipy oracle
+REGION_SKEW_MIN = 60.0       # device.compute:skew magnitude, minutes
+REGION_TOL_MIN = 30.0        # the probers' golden tolerance, minutes
+
+
+def _region_ports():
+    """A block of fixed ports outside the host's ephemeral range (a
+    client socket never holds one in TIME_WAIT, ROADMAP Queue C 14),
+    below it where there is room, else above it: the front, one gateway
+    per region, and each region's replica at base + 100 × i.
+    → (front, first gateway, first replica base, the range read)."""
+    import socket
+
+    with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+        low, high = (int(v) for v in f.read().split()[:2])
+    below = range(min(low, 30000) - 300 - 1000 * (os.getpid() % 8),
+                  1100, -1000)
+    above = range(high + 100, 65535 - 1200, 1000)
+    for start in (*below, *above):
+        ports = [start, start + 1, start + 2, start + 10, start + 110]
+        try:
+            for p in ports:
+                with socket.socket() as s:
+                    s.bind(("127.0.0.1", p))
+        except OSError:
+            continue
+        return start, start + 1, start + 10, (low, high)
+    raise RuntimeError(f"regions: no free port block outside the "
+                       f"ephemeral range {low}-{high}")
+
+
+def _region_call(port, method, path, body=None, headers=None):
+    """A JSON exchange → (status, response headers, parsed body)."""
+    head = dict(headers or {})
+    raw = b""
+    if body is not None:
+        raw = json.dumps(body).encode()
+        head["Content-Type"] = "application/json"
+    status, head, data = _http(port, method, path, raw, head, timeout=120)
+    return status, head, json.loads(data or b"null")
+
+
+def _region_launches(gw_port):
+    """The region's replicas' summed fused launch count."""
+    _, metrics = _request(gw_port, "GET", "/api/metrics?replicas=1")
+    return sum(_fleet_launches(metrics).values())
+
+
+def _region_bundles(root, who):
+    """``correctness_page`` bundles in ``root`` whose evidence names
+    ``who`` → [(bundle, evidence)]."""
+    out = []
+    if not os.path.isdir(root):
+        return out
+    for d in sorted(os.listdir(root)):
+        path = os.path.join(root, d, "probe_evidence.json")
+        if "correctness_page" not in d or not os.path.exists(path):
+            continue
+        try:
+            with open(path) as f:
+                evidence = json.load(f)
+        except ValueError:      # still being written
+            continue
+        if who in (evidence.get("replicas") or []):
+            out.append((d, evidence))
+    return out
+
+
+def _region_env(pid):
+    """A fleet process's environment, from ``/proc``: what a respawn of
+    the same region must start from."""
+    with open(f"/proc/{pid}/environ", "rb") as f:
+        items = f.read().split(b"\0")
+    return dict(x.decode().split("=", 1) for x in items if b"=" in x)
+
+
+def _region_kill(pid, gw_port):
+    """SIGKILL a region's fleet process group (gateway, supervisor and
+    replica at once, no drain) and wait until its gateway refuses."""
+    import signal
+    import socket
+
+    os.killpg(pid, signal.SIGKILL)
+    t0 = time.perf_counter()
+    while True:
+        try:
+            with socket.create_connection(("127.0.0.1", gw_port), 0.2):
+                pass
+        except OSError:
+            return
+        check(time.perf_counter() - t0 < 30, "regions: the killed "
+                                             "gateway still answers")
+        time.sleep(0.05)
+
+
+def _region_live(front_port, region, metric=False):
+    q = f"/api/live?region={region}" + ("&metric=1" if metric else "")
+    status, _, live = _region_call(front_port, "GET", q)
+    check(status == 200, f"regions: {q} {status}")
+    return live
+
+
+def _region_routing(ctx, rec, smi_line):
+    """(a) routing by hint: 4096 rows and single rows bitwise the direct
+    app's, served by the hinted region; the front's single-row hop."""
+    import numpy as np
+
+    front = ctx["front"]
+    batch = _SERVING_ANSWER.get("batch") or _batch_body(
+        np.random.default_rng(5), 4096)
+    singles = [_fleet_single(70_000 + i) for i in range(REGION_SINGLES)]
+    direct = _fleet_direct_batches(singles + ([] if _SERVING_ANSWER.get(
+        "out") is not None else [batch]))
+    want_batch = _SERVING_ANSWER.get("out") or direct[-1]
+    before = {r: _region_launches(ctx["gw"][r]) for r in REGIONS}
+    for region in REGIONS:
+        for how in ("query", "header"):
+            path, head = "/api/predict_eta_batch", {}
+            if how == "query":
+                path += f"?region={region}"
+            else:
+                head = {"X-RTPU-Region": region}
+            status, h, got = _region_call(front, "POST", path, batch, head)
+            check(status == 200 and h.get("X-RTPU-Served-Region") == region,
+                  f"regions: 4096 rows to {region} by {how}: {status} "
+                  f"{h.get('X-RTPU-Served-Region')}")
+            check(got == want_batch, f"regions: 4096 rows through {region} "
+                                     f"are not bitwise phase 5's answer")
+        for i, body in enumerate(singles):
+            status, h, got = _region_call(
+                front, "POST", f"/api/predict_eta?region={region}", body)
+            check(status == 200 and h.get("X-RTPU-Served-Region") == region
+                  and got == direct[i],
+                  f"regions: single row {i} through {region}: {status}")
+    after = {r: _region_launches(ctx["gw"][r]) for r in REGIONS}
+    rec["launches_routing"] = {r: [before[r], after[r]] for r in REGIONS}
+    if CARD == "cuda":
+        check(all(after[r] > before[r] for r in REGIONS),
+              f"regions: fused launches per region {rec['launches_routing']}")
+    _fleet_latency(front, 80_000, 10)                  # warm both paths
+    _fleet_latency(ctx["gw"]["east"], 80_100, 10)
+    rec["single_front_ms"] = _fleet_latency(front, 81_000, REGION_HOP_REPS)
+    rec["single_gateway_ms"] = _fleet_latency(ctx["gw"]["east"], 82_000,
+                                              REGION_HOP_REPS)
+    (f50, f95), (g50, g95) = rec["single_front_ms"], rec["single_gateway_ms"]
+    print(f"[regions] (a) 4096 rows and {REGION_SINGLES} single rows per "
+          f"region by hint bitwise the direct app; fused launches "
+          f"before/after {rec['launches_routing']}; single-row ms p50/p95 "
+          f"through the front {f50:.3f}/{f95:.3f}, east's gateway "
+          f"{g50:.3f}/{g95:.3f} (hop +{f50 - g50:.3f} at p50) | {smi_line}")
+
+
+def _region_converge(ctx, rec, smi_line):
+    """(b) a corridor jam posted to east only reaches west's served
+    metric through the bridge."""
+    import numpy as np
+
+    from routest_tpu_torch.data.osm import load_osm
+    from routest_tpu_torch.optimize.road_router import RoadRouter
+
+    front = ctx["front"]
+    router = RoadRouter(graph=load_osm(os.path.join(ROOT, METRO_OSM)),
+                        use_gnn=False, use_transformer=False, device="cpu")
+    corridor = _live_corridor(router, width_m=600.0)
+    rng = np.random.default_rng(17)
+    off = rng.choice(np.setdiff1d(np.arange(len(router.senders)), corridor),
+                     size=2000, replace=False)
+    free = np.asarray(router.freeflow_time_s, np.float64)
+    for region in REGIONS:
+        live = _region_live(front, region)
+        check(live.get("enabled") and live.get("ready")
+              and live["ingest"]["edges"] == len(free),
+              f"regions: {region}'s live state {str(live)[:300]}")
+    _, _, regions0 = _region_call(front, "GET", "/api/regions")
+    fwd0 = {(b["src"], b["dst"], b["channel"]): b
+            for b in regions0.get("bridges", [])}
+    speed = np.asarray(router.length_m, np.float64)[corridor] / \
+        free[corridor] * 0.25
+    t0 = time.perf_counter()
+    for k in range(REGION_JAM_POSTS):
+        status, _, out = _region_call(
+            front, "POST", "/api/probe?region=east",
+            {"obs": [[int(e), round(float(v), 4)]
+                     for e, v in zip(corridor, speed)],
+             "t": time.time(), "hour": 8, "driver": f"jam{k}"})
+        check(status == 200 and out.get("status") == "published",
+              f"regions: /api/probe to east {status} {out}")
+    converged = {}
+
+    def ratios(region):
+        live = _region_live(front, region, metric=True)
+        if "edge_time_s" not in live or live.get("epoch", 0) < 1:
+            return None
+        metric = np.asarray(live["edge_time_s"], np.float64)
+        return (float(np.median(metric[corridor] / free[corridor])),
+                float(np.median(metric[off] / free[off])), live["epoch"])
+
+    while len(converged) < len(REGIONS):
+        for region in REGIONS:
+            if region in converged:
+                continue
+            r = ratios(region)
+            if r is not None and r[0] >= REGION_JAM_RATIO:
+                converged[region] = (time.perf_counter() - t0, r)
+        check(time.perf_counter() - t0 < REGION_BOUND_S,
+              f"regions: the jam did not converge in {REGION_BOUND_S} s "
+              f"({converged})")
+        time.sleep(0.2)
+    for region, (_, (cor, calm, _)) in converged.items():
+        check(calm <= REGION_CALM_RATIO,
+              f"regions: {region} off-corridor ratio {calm}")
+    _, _, regions1 = _region_call(front, "GET", "/api/regions")
+    bridges = {}
+    for b in regions1.get("bridges", []):
+        b0 = fwd0.get((b["src"], b["dst"], b["channel"]), {})
+        bridges[f"{b['src']}->{b['dst']}:{b['channel']}"] = {
+            "frames": b["forwarded"] - b0.get("forwarded", 0),
+            "dropped": b["dropped"] - b0.get("dropped", 0)}
+    check(bridges["east->west:rtpu.probes"]["frames"] >= REGION_JAM_POSTS,
+          f"regions: bridge counters {bridges}")
+    rec["converge_s"] = {r: v[0] for r, v in converged.items()}
+    rec["converge_ratio"] = {r: {"corridor": v[1][0], "off": v[1][1],
+                                 "epoch": v[1][2]}
+                             for r, v in converged.items()}
+    rec["bridges"] = bridges
+    rec["corridor_edges"] = int(len(corridor))
+    print(f"[regions] (b) a {len(corridor)}-edge jam posted to east only: "
+          f"east's metric at {converged['east'][0]:.3f} s, west's "
+          f"{converged['west'][0]:.3f} s (ratios {rec['converge_ratio']}); "
+          f"bridge frames/drops {bridges} | {smi_line}")
+    return router
+
+
+def _region_probes_state(port):
+    """(rounds, {objective: state}, {kind: verdict}) of the prober
+    behind ``port``'s ``/api/probes``."""
+    status, _, snap = _region_call(port, "GET", "/api/probes")
+    check(status == 200 and snap.get("kinds"),
+          f"regions: /api/probes on :{port}: {status} {str(snap)[:200]}")
+    return (snap["rounds"],
+            {k: o["state"] for k, o in snap["slo"]["objectives"].items()},
+            {k: v.get("verdict") for k, v in snap["probes"].items()},
+            snap)
+
+
+def _region_clean(ctx, rec, router, rounds0, launches0, smi_line):
+    """(c) the probers' rounds across the flip: no page anywhere, every
+    verdict a pass; fused launches under the probes alone; the served
+    route equal to the scipy oracle on each replica's exported metric."""
+    from routest_tpu_torch.obs.prober import SubgraphOracle
+
+    import numpy as np
+
+    front = ctx["front"]
+    ports = {"front": front, **ctx["gw"]}
+    _wait_for("three more front rounds", lambda: _region_probes_state(
+        front)[0] >= rounds0["front"] + 3, REGION_BOUND_S, ctx["proc"],
+        who="regions")
+    states = {who: _region_probes_state(p) for who, p in ports.items()}
+    for who, (_, objectives, verdicts, _) in states.items():
+        check(all(v == "pass" for v in verdicts.values())
+              and all(s != "page" for s in objectives.values()),
+              f"regions: {who}'s prober {verdicts} {objectives}")
+    check(not _region_bundles(ctx["rec_dir"], "east")
+          and not _region_bundles(ctx["rec_dir"], "west")
+          and not [d for d in (os.listdir(ctx["rec_dir"])
+                               if os.path.isdir(ctx["rec_dir"]) else ())
+                   if "correctness_page" in d],
+          "regions: a correctness page in the clean rounds")
+    launches1 = {r: _region_launches(ctx["gw"][r]) for r in REGIONS}
+    rounds1 = {who: s[0] for who, s in states.items()}
+    rec["probe_rounds"] = {who: rounds1[who] - rounds0[who] for who in ports}
+    rec["probe_launches"] = {r: launches1[r] - launches0[r] for r in REGIONS}
+    if CARD == "cuda":
+        check(all(v > 0 for v in rec["probe_launches"].values()),
+              f"regions: no fused launch under the probes "
+              f"{rec['probe_launches']}")
+    # The strict oracle: each replica's served duration against scipy's
+    # Dijkstra over the metric that replica exports, epoch-consistent.
+    i, j = int(np.argmin(router.coords[:, 1])), \
+        int(np.argmax(router.coords[:, 1]))
+    wps = [tuple(float(v) for v in router.coords[k]) for k in (i, j)]
+    body = {"source_point": {"lat": wps[0][0], "lon": wps[0][1]},
+            "destination_points": [{"lat": wps[1][0], "lon": wps[1][1],
+                                    "payload": 1}],
+            "driver_details": {"vehicle_type": "car",
+                               "vehicle_capacity": 1e9,
+                               "maximum_distance": 1e9},
+            "road_graph": True}
+    rec["oracle"] = {}
+    for region in REGIONS:
+        base = f"http://127.0.0.1:{ctx['replica'][region]}"
+        oracle = SubgraphOracle(wps, timeout_s=60.0)
+        check(oracle.arm(base), f"regions: {region}'s probe subgraph")
+        for _attempt in range(5):
+            epoch = oracle.refresh(base)
+            status, _, out = _region_call(ctx["replica"][region], "POST",
+                                          "/api/request_route", body)
+            check(status == 200, f"regions: route on {region}: {status}")
+            if epoch is not None and _region_call(
+                    ctx["replica"][region], "GET",
+                    "/api/live")[2]["epoch"] == epoch:
+                break
+        else:
+            check(False, f"regions: no epoch-stable window on {region}")
+        want = float(dict(oracle.candidates())[epoch][0, 1])
+        served = float(out["properties"]["summary"]["duration"])
+        rel = abs(served - want) / max(want, 1.0)
+        check(rel <= REGION_ROUTE_RTOL, f"regions: {region}'s route "
+                                        f"{served} s vs oracle {want} s")
+        rec["oracle"][region] = {"epoch": epoch, "served_s": served,
+                                 "oracle_s": want, "rel_err": rel}
+    print(f"[regions] (c) probe rounds {rec['probe_rounds']} across the "
+          f"flip, no page, all pass; fused launches under the probes "
+          f"alone {rec['probe_launches']}; route vs scipy oracle "
+          f"{rec['oracle']} | {smi_line}")
+
+
+def _region_outage(ctx, rec, smi_line):
+    """(d) ``region.kill`` east: west answers, writes journaled, the
+    reach page names east; east rejoins, the journal drains and every
+    write reads back."""
+    from routest_tpu_torch.serve.fleet.geofront import FleetProcess
+
+    front, proc = ctx["front"], ctx["proc"]
+    east_env = _region_env(ctx["pid"]["east"])
+    # single rows through the front, hinted west or (odd rows) east
+    with _FleetPump(front, 90_000, path=lambda i: "/api/predict_eta"
+                    + ("?region=west" if i % 2 else "")) as pump:
+        time.sleep(0.3)
+        t_kill = time.perf_counter()
+        _region_kill(ctx["pid"]["east"], ctx["gw"]["east"])
+        bodies = [_opt_body(3, 40 + k) for k in range(REGION_WRITES)]
+        served = []
+        for body in bodies:
+            status, h, out = _region_call(
+                front, "POST", "/api/optimize_route?region=east", body)
+            check(status == 200 and h.get("X-RTPU-Served-Region") == "west"
+                  and out["properties"].get("saved"),
+                  f"regions: outage write {status} "
+                  f"{h.get('X-RTPU-Served-Region')}")
+            served.append(out)
+
+        def depth():
+            return _region_call(front, "GET", "/api/regions")[2][
+                "regions"]["east"]["journal_depth"]
+
+        check(depth() == REGION_WRITES,
+              f"regions: east's journal depth {depth()}")
+
+        def paged():
+            bundles = _region_bundles(ctx["rec_dir"], "east")
+            return [b for b in bundles
+                    if any((f.get("dimensions") or {}).get("reach")
+                           for f in b[1]["failures"])]
+
+        bundles, _ = _wait_for("the reach page naming east", paged,
+                               REGION_BOUND_S, proc, who="regions")
+        rec["kill_to_page_s"] = time.perf_counter() - t_kill
+        time.sleep(0.5)
+    pump.check_clean("through the front while east is down")
+    rec["outage_answers"] = len(pump.statuses)
+    _, _, _, snap = _region_probes_state(front)
+    reach = snap["probes"]["fanout"].get("dimensions", {}).get("reach", {})
+    check(reach.get("replicas") == ["east"],
+          f"regions: the front's fan-out dimensions {snap['probes']}")
+    rec["journal_depth"] = depth()
+    # east rejoins at its address, on the broker the entry point kept
+    fleet = FleetProcess("east", gateway_port=ctx["gw"]["east"],
+                         base_port=ctx["replica"]["east"], replicas=1,
+                         env=east_env)
+    ctx["respawned"].append(fleet)
+    t0 = time.perf_counter()
+    fleet.start()
+    check(fleet.wait_ready(timeout=REGION_BOOT_S),
+          "regions: east did not come back")
+    rec["rejoin_boot_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    _wait_for("east's journal drained", lambda: depth() == 0,
+              REGION_BOUND_S, proc, who="regions")
+    rec["drain_s"] = time.perf_counter() - t1
+    _fleet_health(ctx["gw"]["east"], "east after its rejoin")
+    status, _, hist = _region_call(front, "GET",
+                                   "/api/history?region=east&limit=100")
+    check(status == 200, f"regions: east's history {status}")
+
+    def key(summary):
+        return (round(float(summary["distance"]), 1),
+                round(float(summary["duration"]), 1))
+
+    got = sorted((round(float(it["total_distance"]), 1),
+                  round(float(it["total_duration"]), 1))
+                 for it in hist["items"])
+    want = sorted(key(out["properties"]["summary"]) for out in served)
+    check(got == want, f"regions: east read back {got}, wrote {want}")
+    print(f"[regions] (d) east killed: {rec['outage_answers']} answers "
+          f"through the front, none >= 500; {REGION_WRITES} writes served "
+          f"by west and journaled (depth {rec['journal_depth']}); reach "
+          f"page naming east {rec['kill_to_page_s']:.3f} s after the kill "
+          f"({bundles[-1][0]}); east back in {rec['rejoin_boot_s']:.3f} s, "
+          f"journal drained {rec['drain_s']:.3f} s later, every write "
+          f"read back | {smi_line}")
+
+
+def _region_skew(ctx, rec, smi_line):
+    """(e) west's replica restarted under ``device.compute:skew``: a
+    prober over the two replicas names it, with a ``correctness_page``
+    bundle."""
+    import tempfile
+
+    from routest_tpu_torch.core.config import ProberConfig, RecorderConfig
+    from routest_tpu_torch.obs.prober import BlackboxProber
+    from routest_tpu_torch.obs.recorder import FlightRecorder
+    from routest_tpu_torch.serve.fleet.geofront import FleetProcess
+
+    front = ctx["front"]
+    root = tempfile.mkdtemp(prefix="regions-skew-", dir=ctx["tmp"])
+    targets = [(f"{r}-r0", f"http://127.0.0.1:{ctx['replica'][r]}")
+               for r in REGIONS]
+    prober = BlackboxProber(
+        ProberConfig(enabled=True, eta_tolerance=REGION_TOL_MIN,
+                     timeout_s=30.0, skew_after=2, epoch_gap=10 ** 6,
+                     fast_window_s=4.0, slow_window_s=8.0),
+        gateway_base=f"http://127.0.0.1:{front}",
+        targets_fn=lambda: targets,
+        recorder=FlightRecorder(RecorderConfig(dir=root,
+                                               min_interval_s=0.0)))
+    first = prober.probe_round()
+    check(all(v == "pass" for v in first.values()),
+          f"regions: the skew prober's first round {first}")
+    west_env = dict(_region_env(ctx["pid"]["west"]),
+                    RTPU_CHAOS_SPEC=f"device.compute:skew=1.0/"
+                                    f"{REGION_SKEW_MIN:g}",
+                    RTPU_CHAOS_SEED="7")
+    _region_kill(ctx["pid"]["west"], ctx["gw"]["west"])
+    fleet = FleetProcess("west", gateway_port=ctx["gw"]["west"],
+                         base_port=ctx["replica"]["west"], replicas=1,
+                         env=west_env)
+    ctx["respawned"].append(fleet)
+    t0 = time.perf_counter()
+    fleet.start()
+    check(fleet.wait_ready(timeout=REGION_BOOT_S),
+          "regions: west did not come back under skew")
+    rec["skew_boot_s"] = time.perf_counter() - t0
+    _fleet_health(ctx["gw"]["west"], "west under skew")
+    t1 = time.perf_counter()
+    verdicts = []
+    while True:
+        v = prober.probe_round()
+        verdicts.append(v["fanout"])
+        named = _region_bundles(root, "west-r0")
+        if named:
+            break
+        check(time.perf_counter() - t1 < REGION_BOUND_S,
+              f"regions: the skewed replica was not paged ({verdicts})")
+        time.sleep(0.5)
+    state = prober._state["fanout"]
+    check(state["verdict"] in ("divergent", "skew")
+          and state["replicas"] == ["west-r0"]
+          and state["divergence"] >= REGION_SKEW_MIN - REGION_TOL_MIN,
+          f"regions: the fan-out verdict {state.get('verdict')} "
+          f"{state.get('replicas')} {state.get('divergence')}")
+    rec["skew_detect_s"] = time.perf_counter() - t1
+    rec["skew_verdicts"] = verdicts
+    rec["skew_divergence_min"] = state["divergence"]
+    print(f"[regions] (e) west restarted under device.compute:skew="
+          f"{REGION_SKEW_MIN:g} in {rec['skew_boot_s']:.3f} s: fan-out "
+          f"verdicts {verdicts}, {state['divergence']} min, named "
+          f"west-r0 with a correctness_page bundle "
+          f"({named[-1][0]}) {rec['skew_detect_s']:.3f} s after it was "
+          f"up | {smi_line}")
+
+
+def phase_regions(smi_line):
+    """Phase 17, two regions on the card: ``python -m
+    routest_tpu_torch.serve.fleet.geofront`` over two one-replica fleets.
+    → (record, fused launches in the two regions' replicas over (a)–(c))."""
+    import shutil
+    import signal
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="regions-")
+    front, gw0, base0, ephemeral = _region_ports()
+    ctx = {"front": front, "tmp": tmp, "respawned": [],
+           "rec_dir": os.path.join(tmp, "postmortems"),
+           "gw": {r: gw0 + i for i, r in enumerate(REGIONS)},
+           "replica": {r: base0 + 100 * i for i, r in enumerate(REGIONS)}}
+    env = _fleet_env(
+        RTPU_REGIONS=",".join(REGIONS), RTPU_REGION_FRONT_PORT=str(front),
+        RTPU_GATEWAY_PORT=str(gw0), RTPU_FLEET_BASE_PORT=str(base0),
+        RTPU_FLEET_REPLICAS="1", RTPU_REGION_HEALTH_S="0.5",
+        RTPU_REGION_UNHEALTHY_AFTER="2", RTPU_REGION_REPLAY_S="0.25",
+        RTPU_REGION_PROBER="1", RTPU_PROBER="1", RTPU_PROBER_REACH="1",
+        RTPU_PROBER_INTERVAL_S="1", RTPU_PROBER_TIMEOUT_S="30",
+        RTPU_PROBER_SKEW_AFTER="2", RTPU_PROBER_EPOCH_GAP="1000000",
+        RTPU_PROBER_ETA_TOL_MIN=f"{REGION_TOL_MIN:g}",
+        RTPU_PROBER_FAST_S="6", RTPU_PROBER_SLOW_S="12",
+        RTPU_LIVE="1", RTPU_LIVE_CUSTOMIZE_S="1",
+        ROAD_GRAPH_OSM=os.path.join(ROOT, METRO_OSM),
+        ROUTEST_HIER_CACHE="0", RTPU_RECORDER_DIR=ctx["rec_dir"],
+        RTPU_RECORDER_MAX_BUNDLES="64")
+    rec = {"ports": {"front": front, "gateways": ctx["gw"],
+                     "replicas": ctx["replica"],
+                     "ephemeral_range": list(ephemeral)}}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "routest_tpu_torch.serve.fleet.geofront"],
+        cwd=ROOT, env=env, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True, start_new_session=True)
+    ctx["proc"] = proc
+    lines = []
+    reader = threading.Thread(target=lambda: lines.extend(proc.stderr),
+                              daemon=True)
+    reader.start()
+
+    def events(kind):
+        # The front and its fleets share one stderr: a line where two
+        # processes' writes interleave is skipped.
+        out = []
+        for x in list(lines):
+            try:
+                e = json.loads(x)
+            except ValueError:
+                continue
+            if isinstance(e, dict) and e.get("event") == kind:
+                out.append(e)
+        return out
+
+    try:
+        _wait_for("the front", lambda: events("geofront_listening")
+                  and _region_call(front, "GET", "/up")[2][
+                      "healthy_regions"] == list(REGIONS),
+                  REGION_BOOT_S, proc, who="regions")
+        rec["boot_s"] = time.perf_counter() - t0
+        ctx["pid"] = {e["region"]: e["pid"]
+                      for e in events("region_fleet_spawned")}
+        plans = events("placement_plan")
+        check(len(plans) == 2 and all(
+            (p["platform"], p["chips"], p["layout"]) == ("gpu", 1, "1x1")
+            for p in plans), f"regions: placement plans {plans}")
+        for region in REGIONS:
+            _fleet_health(ctx["gw"][region], f"{region}'s gateway")
+            _, h, _ = _region_call(front, "GET",
+                                   f"/api/health?region={region}")
+            check(h.get("X-RTPU-Served-Region") == region,
+                  f"regions: health through the front for {region}")
+        _, _, regions = _region_call(front, "GET", "/api/regions")
+        check(regions["prober"] == {"armed": True}
+              and len(regions["bridges"]) == 4,
+              f"regions: /api/regions {regions}")
+        print(f"[regions] boot: the entry point's front and both regions "
+              f"up in {rec['boot_s']:.3f} s (plans gpu/1/1x1 each, "
+              f"{_fleet_kernel()}) | {smi_line}")
+        _region_routing(ctx, rec, smi_line)
+        rounds0 = {who: _region_probes_state(p)[0]
+                   for who, p in (("front", front), *ctx["gw"].items())}
+        launches0 = {r: _region_launches(ctx["gw"][r]) for r in REGIONS}
+        router = _region_converge(ctx, rec, smi_line)
+        _region_clean(ctx, rec, router, rounds0, launches0, smi_line)
+        rec["launches"] = sum(
+            rec["launches_routing"][r][1] - rec["launches_routing"][r][0]
+            for r in REGIONS) + sum(rec["probe_launches"].values())
+        _region_outage(ctx, rec, smi_line)
+        _region_skew(ctx, rec, smi_line)
+        for fleet in ctx["respawned"]:
+            fleet.terminate(timeout=60)
+        proc.send_signal(signal.SIGTERM)
+        rec["exit_code"] = proc.wait(timeout=120)
+        check(rec["exit_code"] == 0,
+              f"regions: SIGTERM gave exit {rec['exit_code']}")
+        check(events("geofront_stopped"), "regions: no geofront_stopped")
+    finally:
+        for fleet in ctx["respawned"]:
+            if fleet.alive():
+                fleet.kill()
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(timeout=30)
+        for pid in ctx.get("pid", {}).values():
+            try:
+                os.killpg(pid, signal.SIGKILL)
+            except (ProcessLookupError, PermissionError):
+                pass
+        reader.join(timeout=30)
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["wall_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"regions": rec}))
+    return rec, rec["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -5351,6 +5975,8 @@ def main() -> int:
         _, obs_launches = phase_obs(smi_line)
         phase = "fleet"
         _, fleet_launches = phase_fleet(smi_line)
+        phase = "regions"
+        _, regions_launches = phase_regions(smi_line)
         phase = "times"
         table = phase_times(rng)
     except Exception as e:
@@ -5395,6 +6021,9 @@ def main() -> int:
     # processes), read from their /api/metrics before and after its
     # requests through the gateway
     kernels[0]["launches_fleet"] = fleet_launches
+    # ... and over phase 17 (a)–(c)'s: the two regions' replicas (other
+    # processes) under (a)'s requests and the probers' rounds
+    kernels[0]["launches_regions"] = regions_launches
     print(json.dumps({"kernels": kernels}))
     print(f"{smi_line}")
     print(json.dumps({"ok": True, "device": {

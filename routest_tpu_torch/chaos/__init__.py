@@ -299,6 +299,12 @@ class ChaosEngine:
 
 _engine: Optional[ChaosEngine] = None
 _engine_lock = threading.Lock()
+# Set on the thread building the env engine: the engine's ``chaos.arm``
+# record may publish through a bus whose own fault point calls back
+# into ``get_chaos`` (ROADMAP Queue C 15). That nested call gets an
+# inert engine instead of waiting on the lock its own thread holds.
+_building = threading.local()
+_INERT = ChaosEngine(enabled=False)
 
 
 def get_chaos() -> ChaosEngine:
@@ -306,13 +312,19 @@ def get_chaos() -> ChaosEngine:
     (disabled when no spec is set)."""
     global _engine
     if _engine is None:
+        if getattr(_building, "active", False):
+            return _INERT
         with _engine_lock:
             if _engine is None:
                 from routest_tpu_torch.core.config import load_chaos_config
 
                 cfg = load_chaos_config()
-                _engine = ChaosEngine(spec=cfg.spec, seed=cfg.seed,
-                                      enabled=cfg.enabled)
+                _building.active = True
+                try:
+                    _engine = ChaosEngine(spec=cfg.spec, seed=cfg.seed,
+                                          enabled=cfg.enabled)
+                finally:
+                    _building.active = False
     return _engine
 
 

@@ -303,6 +303,53 @@ class DispatchConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class RegionConfig:
+    """Multi-region geo-front (``serve/fleet/geofront.py``): two (or
+    more) full fleets — each its own supervisor + gateway + broker —
+    behind one thin front that routes by a client ``region`` hint,
+    fails over to a healthy region, replicates live probe state
+    through the probe-bus bridge (``live/bridge.py``), and journals
+    store-mutating writes for any region that cannot take them right
+    now. All knobs are ``RTPU_REGION_*`` env vars, with the JAX
+    package's names and defaults; disabled unless ``RTPU_REGIONS``
+    names at least two regions."""
+
+    enabled: bool = False
+    # Comma list of region names (``RTPU_REGIONS``, e.g. "mnl,ceb");
+    # order matters: the first region is the default route when a
+    # request carries no hint and no ``default`` override is set.
+    regions: Tuple[str, ...] = ()
+    default: str = ""
+    front_host: str = "127.0.0.1"
+    front_port: int = 8090
+    # Probe-bus bridge between the regions' brokers (origin-region
+    # tagging + loop suppression). ``bridge_channel`` empty = the live
+    # channel (``RTPU_LIVE_CHANNEL``).
+    bridge: bool = True
+    bridge_channel: str = ""
+    # Health polling: /up through each region gateway every
+    # ``health_s``; ``unhealthy_after`` consecutive failures mark the
+    # region down (requests fail over until it answers again).
+    health_s: float = 1.0
+    unhealthy_after: int = 3
+    failover: bool = True
+    # Survivor live-metric staleness bound: how long the bridged
+    # congestion feed may go without new observations before the
+    # region is considered stale (metered as
+    # ``rtpu_region_live_staleness_seconds``).
+    stale_bound_s: float = 120.0
+    # Cross-region store reconciliation: store-mutating writes are
+    # journaled per peer region (bounded FIFO) and replayed when the
+    # region is healthy.
+    journal_limit: int = 4096
+    replay_s: float = 0.5
+    # Cross-region fan-out prober: the fan-out probe pointed at region
+    # gateways instead of replicas, so a stale-epoch or divergent-model
+    # REGION is named the way a replica would be.
+    prober: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
 class WireConfig:
     """Binary wire serving path (``serve/wirecodec.py`` +
     ``serve/wirechannel.py``): the length-prefixed columnar format
@@ -628,6 +675,7 @@ class Config:
     fleet: FleetConfig = FleetConfig()
     autoscale: AutoscaleConfig = AutoscaleConfig()
     rollout: RolloutConfig = RolloutConfig()
+    region: RegionConfig = RegionConfig()
 
 
 def resolve_device(device=None, who: str = "routest_tpu_torch"):
@@ -751,6 +799,7 @@ def load_config(env: Optional[Mapping[str, str]] = None) -> Config:
                   rollout=load_rollout_config(env),
                   live=load_live_config(env),
                   dispatch=load_dispatch_config(env),
+                  region=load_region_config(env),
                   obs=load_obs_config(env),
                   chaos=load_chaos_config(env),
                   slo=load_slo_config(env),
@@ -884,6 +933,40 @@ def load_dispatch_config(
                                1.2, float),
         max_active=_env_num(env, "RTPU_DISPATCH_MAX_ACTIVE", 256, int),
         speed_mps=_env_num(env, "RTPU_DISPATCH_SPEED_MPS", 0.0, float),
+    )
+
+
+def load_region_config(
+        env: Optional[Mapping[str, str]] = None) -> RegionConfig:
+    """Just the multi-region geo-front knobs (read by
+    ``serve/fleet/geofront.py`` without paying for a full Config
+    build). Enabled only when ``RTPU_REGIONS`` names at least two
+    distinct regions."""
+    env = dict(env if env is not None else os.environ)
+    raw = env.get("RTPU_REGIONS", "")
+    regions = tuple(dict.fromkeys(
+        tok.strip() for tok in raw.split(",") if tok.strip()))
+    default = env.get("RTPU_REGION_DEFAULT", "")
+    if default not in regions:
+        default = regions[0] if regions else ""
+    return RegionConfig(
+        enabled=len(regions) >= 2,
+        regions=regions,
+        default=default,
+        front_host=env.get("RTPU_REGION_FRONT_HOST", "127.0.0.1"),
+        front_port=_env_num(env, "RTPU_REGION_FRONT_PORT", 8090, int),
+        bridge=env.get("RTPU_REGION_BRIDGE", "1") != "0",
+        bridge_channel=env.get("RTPU_REGION_BRIDGE_CHANNEL", ""),
+        health_s=_env_num(env, "RTPU_REGION_HEALTH_S", 1.0, float),
+        unhealthy_after=_env_num(env, "RTPU_REGION_UNHEALTHY_AFTER",
+                                 3, int),
+        failover=env.get("RTPU_REGION_FAILOVER", "1") != "0",
+        stale_bound_s=_env_num(env, "RTPU_REGION_STALE_BOUND_S",
+                               120.0, float),
+        journal_limit=_env_num(env, "RTPU_REGION_JOURNAL_LIMIT",
+                               4096, int),
+        replay_s=_env_num(env, "RTPU_REGION_REPLAY_S", 0.5, float),
+        prober=env.get("RTPU_REGION_PROBER", "0") == "1",
     )
 
 

@@ -13,10 +13,11 @@ The counterpart of ``routest_tpu/live``:
   overlay against the live metric and flipping the router;
 - ``trainer``   — the continuous GNN re-fit on the observation window,
   landed through the router's verified GNN swap;
-- ``service``   — the serving-side wiring (``RTPU_LIVE=1``).
+- ``service``   — the serving-side wiring (``RTPU_LIVE=1``);
+- ``bridge``    — the cross-region probe-bus bridge (origin-region
+  stamping, loop suppression) behind the geo-front.
 
-The cross-region bridge is not ported. This
-module stays import-light: the metric-epoch global lives here so the
+This module stays import-light: the metric-epoch global lives here so the
 serving fast lane can key its prediction cache on ``(model generation,
 metric epoch)`` without importing the rest.
 """

@@ -30,6 +30,11 @@ This package is that tier, process-level and stdlib-only:
   (``RTPU_ROLLOUT_*`` env knobs; ``GET/POST /api/rollout``);
 - ``placement`` — device inventory → replica slices, each pinned by
   its env overlay (``CUDA_VISIBLE_DEVICES`` on a card);
+- ``geofront`` — several full fleets behind one door: routing by
+  region hint, failover, a per-peer write journal, merged rollups and
+  the cross-region prober (``python -m
+  routest_tpu_torch.serve.fleet.geofront``; not imported here, as in
+  the JAX package);
 - ``python -m routest_tpu_torch.serve.fleet`` — wires everything up from
   ``core.config.FleetConfig`` (``RTPU_FLEET_*`` env knobs;
   ``RTPU_AUTOSCALE=1`` arms the autoscaler).

@@ -31,10 +31,11 @@ per-replica latency quantiles + supervisor restart counts) in JSON or
 Prometheus text, same ``?format=prometheus`` convention as the worker
 metrics endpoint.
 
-The blackbox prober (``obs/prober.py``) is not ported yet (ROADMAP
-Queue A item 10, part b): ``/api/probes`` answers ``{"enabled":
-false}`` as the JAX gateway does without one, and :meth:`Gateway.serve`
-refuses ``RTPU_PROBER=1``.
+``RTPU_PROBER=1`` arms the blackbox prober (``obs/prober.py``) in
+:meth:`Gateway.serve`: synthetic correctness probes through the
+gateway's own listen address plus a direct fan-out to every replica;
+``/api/probes`` answers its snapshot (``{"enabled": false}`` without
+one, as the JAX gateway does).
 """
 
 from __future__ import annotations
@@ -344,6 +345,10 @@ class Gateway:
         self.timeline = None
         self.fleet_timeline = None
         self.watcher = None
+        # Blackbox prober (docs/OBSERVABILITY.md "Synthetic probing &
+        # correctness SLOs"): armed in serve() when RTPU_PROBER=1 —
+        # it needs the gateway's own listen address to probe through.
+        self.prober = None
         # Binary wire channel (docs/API.md "Binary wire format"): when
         # RTPU_WIRE=1 + RTPU_WIRE_CHANNEL, wire-content-type requests
         # to the wire paths ride a persistent multiplexed channel per
@@ -1087,6 +1092,14 @@ class Gateway:
         instead of failing the whole endpoint."""
         return self._fetch_replica_json("/api/metrics")
 
+    def _probe_targets(self) -> List[Tuple[str, str]]:
+        """The fan-out probe's target set: every non-draining replica
+        (sick replicas included — an ejected replica is exactly what
+        the prober must keep interrogating)."""
+        with self._lock:
+            return [(r.id, r.base) for r in self.replicas
+                    if not r.draining]
+
     def _fetch_replica_json(self, path: str) -> dict:
         """GET ``path`` from every replica → {replica_id: parsed JSON};
         unreachable replicas report the error in place."""
@@ -1110,14 +1123,8 @@ class Gateway:
 
     def serve(self, host: str, port: int):
         """Start the gateway's HTTP server (returns the bound server;
-        runs in a daemon thread). ``RTPU_PROBER=1`` raises: the prober
-        is not ported yet."""
-        from routest_tpu_torch.core.config import load_prober_config
-
-        if load_prober_config().enabled:
-            raise RuntimeError(
-                "RTPU_PROBER=1: the blackbox prober (obs/prober.py) is not "
-                "ported yet (ROADMAP Queue A item 10, part b)")
+        runs in a daemon thread). ``RTPU_PROBER=1`` arms the blackbox
+        prober against the bound address."""
         gw = self
 
         class Handler(http.server.BaseHTTPRequestHandler):
@@ -1216,11 +1223,14 @@ class Gateway:
                               json.dumps(payload, default=str).encode())
 
             def _probes(self):
-                """Blackbox-prober state: no prober is ported yet, so
-                the JAX gateway's answer without one."""
+                """Blackbox-prober state (docs/OBSERVABILITY.md
+                "Synthetic probing"): verdicts per probe kind, the
+                correctness SLO, recent failures."""
+                payload = {"enabled": False} if gw.prober is None \
+                    else gw.prober.snapshot()
                 self._respond(200,
                               [("Content-Type", "application/json")],
-                              json.dumps({"enabled": False}).encode())
+                              json.dumps(payload, default=str).encode())
 
             def _efficiency(self):
                 """Fleet device-goodput snapshot (docs/OBSERVABILITY.md
@@ -1578,6 +1588,23 @@ class Gateway:
                     rid: v or "unversioned"
                     for rid, v in self._version_by_rid.items()})
             self.fleet_timeline.start()
+        # Blackbox prober: synthetic correctness checks through this
+        # gateway's OWN listen address (the real client path) plus
+        # direct per-replica fan-out. RTPU_PROBER=1 arms.
+        from routest_tpu_torch.core.config import load_prober_config
+
+        prober_cfg = load_prober_config()
+        if prober_cfg.enabled and self.prober is None:
+            from routest_tpu_torch.obs.prober import BlackboxProber
+
+            probe_host = "127.0.0.1" if host in ("", "0.0.0.0") else host
+            self.prober = BlackboxProber(
+                prober_cfg,
+                gateway_base=(f"http://{probe_host}:"
+                              f"{httpd.server_address[1]}"),
+                targets_fn=self._probe_targets,
+                recorder=self._recorder)
+            self.prober.start()
         thread = threading.Thread(target=httpd.serve_forever, daemon=True,
                                   name="fleet-gateway")
         thread.start()
@@ -1599,6 +1626,8 @@ class Gateway:
             time.sleep(0.05)
         if self.slo is not None:
             self.slo.stop()
+        if self.prober is not None:
+            self.prober.stop()
         if self.timeline is not None:
             self.timeline.stop()
         if self.fleet_timeline is not None:

@@ -11,6 +11,10 @@ the service like a corrupt file with the JAX service's error text, and
 ``store.http`` drives the resilient store through the same outcomes as
 the JAX store. Latency rules carry 0 ms, so nothing here sleeps."""
 
+import json
+import os
+import subprocess
+import sys
 import threading
 import time
 
@@ -163,6 +167,46 @@ def test_change_ledger_records_arm_and_first_fires():
     assert kinds[1] == kinds[0]
     assert [k for k, _ in kinds[1]] == ["chaos.arm", "chaos.fire",
                                         "chaos.fire", "chaos.fire"]
+
+
+def test_env_engine_arms_through_an_instrumented_bus():
+    """An env spec in a process whose change ledger publishes on a bus
+    with its own fault point (a fleet or replica on a ``NetBus``): the
+    first ``inject`` builds the engine, whose ``chaos.arm`` record
+    publishes, whose publish injects again. The port arms once and
+    returns; the JAX package's ``get_chaos`` waits on its own lock there
+    (ROADMAP Queue C 15), so only the port runs this case, in a child
+    process that a regression would hang rather than this one."""
+    script = """
+import json
+from routest_tpu_torch import chaos
+from routest_tpu_torch.obs import ledger
+
+published = []
+
+class Bus:
+    def publish(self, channel, data):
+        published.append(chaos.inject("netbus.publish"))
+        return 1
+
+ledger.configure_change_ledger(ledger.ChangeLedger(
+    ledger.LedgerConfig(publish=True)))
+ledger.get_change_ledger()._bus = Bus()
+out = chaos.inject("device.compute")
+print(json.dumps({"out": out, "published": published,
+                  "kinds": [e["kind"]
+                            for e in ledger.get_change_ledger().events()],
+                  "spec": chaos.get_chaos().spec}))
+"""
+    env = dict(os.environ, RTPU_CHAOS_SPEC="device.compute:skew=1.0/60",
+               RTPU_CHAOS_SEED="7")
+    done = subprocess.run([sys.executable, "-c", script], env=env,
+                          capture_output=True, text=True, timeout=60)
+    assert done.returncode == 0, done.stderr[-2000:]
+    assert json.loads(done.stdout.strip().splitlines()[-1]) == {
+        "out": 60.0, "published": [0.0, 0.0],
+        "kinds": ["chaos.arm", "chaos.fire"],
+        "spec": "device.compute:skew=1.0/60"}
 
 
 def test_current_engine_is_none_until_live():

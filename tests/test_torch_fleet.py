@@ -9,9 +9,10 @@ package with one set of expectations: the gateway in-process against
 ``http.server`` stub replicas, the supervisor over stub worker
 processes. The gateway's own routes that the port answers without a
 prober or controller (``/api/probes``, ``/api/rollout``,
-``/api/autoscale``) answer as the JAX gateway's, and ``RTPU_PROBER=1``
-is refused until the prober is ported. Every gateway, stub and worker a
-test starts is stopped."""
+``/api/autoscale``) answer as the JAX gateway's, and under
+``RTPU_PROBER=1`` both gateways arm the prober and answer
+``/api/probes`` with snapshots of one shape and the same verdicts.
+Every gateway, stub and worker a test starts is stopped."""
 
 import http.server
 import json
@@ -502,12 +503,36 @@ def test_gateway_routes_answer_as_jax(stubs, path, monkeypatch):
     assert answers["port"][0] == 200
 
 
-def test_port_gateway_refuses_the_prober(stubs, monkeypatch):
+def test_port_gateway_arms_the_prober_from_env(stubs, monkeypatch):
+    """``RTPU_PROBER=1``: each package's gateway arms its prober on its
+    own listen address, ``/api/probes`` answers a snapshot of the same
+    keys and kinds with the same golden verdict, and drain stops it."""
     monkeypatch.setenv("RTPU_PROBER", "1")
-    gw = tgw.Gateway(_targets(stubs.start()),
-                     TFleetConfig(hedge=False))
-    with pytest.raises(RuntimeError, match="Queue A item 10, part b"):
-        gw.serve("127.0.0.1", 0)
+    monkeypatch.setenv("RTPU_PROBER_INTERVAL_S", "0.3")
+    monkeypatch.setenv("RTPU_PROBER_ETA_TOL_MIN", "5")
+    monkeypatch.setenv("RTPU_TIMELINE", "0")
+    monkeypatch.setenv("RTPU_SLO", "0")
+    stub = stubs.start()
+    snaps = {}
+    for name in ("jax", "port"):
+        gw, base = _gateway(PKGS[name], _targets(stub))
+        try:
+            assert gw.prober is not None
+            assert gw.prober.gateway_base == base
+            deadline = time.monotonic() + 10
+            while time.monotonic() < deadline and gw.prober._rounds == 0:
+                time.sleep(0.05)
+            status, raw = _get(base, "/api/probes")
+            assert status == 200
+            snaps[name] = json.loads(raw)
+        finally:
+            _stop_gateway(gw)
+        assert gw.prober._stop is None
+    assert sorted(snaps["port"]) == sorted(snaps["jax"])
+    assert snaps["port"]["kinds"] == snaps["jax"]["kinds"]
+    assert snaps["port"]["rounds"] >= 1
+    assert snaps["port"]["probes"]["golden"]["verdict"] == \
+        snaps["jax"]["probes"]["golden"]["verdict"]
 
 
 # ── gateway: graceful drain ──────────────────────────────────────────
