@@ -249,14 +249,33 @@ of which fails the run:
    and every write read back from east; (e) west respawned under
    ``device.compute:skew``: a prober over both replicas names
    ``west-r0`` divergent with a ``correctness_page`` bundle; SIGTERM
-   drains the entry point to exit 0.
+   drains the entry point to exit 0;
+18. the open-loop load generator (``routest_tpu_torch/loadgen``), run
+   between phases 17 and 9, from this process against servers in their
+   own processes: (a) ``python -m routest_tpu_torch.serve`` on the card
+   (``RTPU_WIRE=1``, a port outside the host's ephemeral range): the
+   closed-loop single-row ``/api/predict_eta`` capacity ``C`` (5 s, 32
+   workers), then paced Zipf single rows (s 1.1, seed 42) open loop at
+   0.5 ``C`` for 10 s (64 senders, as every open-loop run here) —
+   latency p50/p95/p99 from the intended send time, ``send_delay`` p99
+   (above the p50 fails: the generator, not the server, set the pace),
+   sheds, no answer >= 500 — and the same schedule at 2 ``C`` closed
+   loop (8 workers) and open loop, both p99s; (b) the default mix plus
+   4096-row RTW1 ``/api/predict_eta_batch`` bodies and tracker ticks
+   open loop at 0.25 ``C`` for 10 s with 4 SSE
+   subscribers (no answer >= 500, events delivered); (c) two replicas on
+   the card behind the gateway (phase 16's wiring) driven at 0.5 ``C``
+   by the mix with region hints and a dispatch share; one seed must give
+   one schedule and one request sequence, and the servers' fused
+   launches (``rtpu_fused_launches``, before and after) must be > 0.
 
 The lines before the last are one ``{"optimize": {...}}``, one
 ``{"road": {...}}``, one ``{"overlay": {...}}``, one ``{"live": {...}}``,
 one ``{"selection": {...}}``, one ``{"dispatch": {...}}``, one
 ``{"serving_core": {...}}``, one
 ``{"train": {...}}``, one ``{"observability": {...}}``, one
-``{"fleet": {...}}``, one ``{"regions": {...}}`` and one
+``{"fleet": {...}}``, one ``{"regions": {...}}``, one
+``{"loadgen": {...}}`` and one
 ``{"kernels": [...]}`` JSON object and the
 card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
@@ -5928,6 +5947,396 @@ def phase_regions(smi_line):
     return rec, rec["launches"]
 
 
+LOADGEN_SEED = 42
+LOADGEN_ZIPF_S = 1.1
+LOADGEN_CALIBRATE_S = 5.0    # closed-loop calibration of C
+LOADGEN_RUN_S = 10.0         # each open-loop (and the closed-loop) run
+LOADGEN_WORKERS = 64         # open-loop sender threads
+LOADGEN_SETTLE_S = 2.0       # the calibration's burst drains first
+LOADGEN_CAL_WORKERS = 32     # closed-loop workers of the calibration
+LOADGEN_CLOSED_WORKERS = 8   # ... and of the closed arm at 2 C
+LOADGEN_SSE = 4              # SSE subscribers held through (b)
+LOADGEN_BATCH_ROWS = 4096
+LOADGEN_MIX_EXTRA = {"predict_eta_batch": 0.02, "update_tracker": 0.05}
+LOADGEN_MIX_RATE = 0.25      # (b)'s offered rate, in C
+LOADGEN_FLEET_MIX = {"predict_eta": 0.8, "history": 0.05,
+                     "request_route": 0.05, "dispatch": 0.1}
+LOADGEN_FLEET_RATE = 0.5     # (c)'s offered rate through the gateway, in C
+LOADGEN_REGIONS = ("east", "west")
+LOADGEN_BOOT_S = 240.0
+# The generator's threads hand the interpreter lock over within this
+# (the default 5 ms let one sender's quick socket calls keep the lock
+# from a sender woken at its arrival: send_delay p99 5.62 ms on the card)
+LOADGEN_SWITCH_S = 2e-4
+
+
+def _loadgen_launches(port):
+    """One server's fused launch count (``rtpu_fused_launches``)."""
+    status, metrics = _request(port, "GET", "/api/metrics")
+    check(status == 200, f"loadgen: /api/metrics {status}")
+    return int(metrics["registry"]["rtpu_fused_launches"]["series"][0]
+               ["value"])
+
+
+def _loadgen_clean(rep, what):
+    """No answer >= 500, no transport failure, no 4xx, every arrival
+    sent."""
+    check(rep["errors"] == 0 and rep["other_4xx"] == 0
+          and rep["sent"] == rep["offered"],
+          f"loadgen: {what}: {rep['errors']} errors, {rep['other_4xx']} "
+          f"other 4xx, {rep['sent']} of {rep['offered']} sent; routes "
+          f"{json.dumps(rep['routes'])[:600]}")
+
+
+def _loadgen_brief(rep):
+    """The figures of one summarized run that the record keeps."""
+    out = {k: rep[k] for k in ("loop", "offered", "sent", "ok", "shed",
+                               "errors", "offered_rps", "achieved_rps")}
+    out["latency_ms"] = rep["latency"]
+    if "send_delay" in rep:
+        out["send_delay_ms"] = rep["send_delay"]
+        out["service_ms"] = rep["service_latency"]
+    out["routes"] = {r: {"sent": v["sent"], "ok": v["ok"],
+                         "p99_ms": v["latency"].get("p99_ms")}
+                     for r, v in rep["routes"].items()}
+    return out
+
+
+def _loadgen_single(smi_line):
+    """(a) and (b): one ``python -m routest_tpu_torch.serve`` on the
+    card (``RTPU_WIRE=1``) on a port outside the ephemeral range.
+    → record."""
+    import signal
+    import tempfile
+
+    import numpy as np
+
+    from routest_tpu_torch.loadgen import (DEFAULT_MIX, KeepAliveClient,
+                                           MixedWorkload, RateCurve,
+                                           SseClients, ZipfODWorkload,
+                                           cache_delta, fetch_metrics,
+                                           paced_schedule, run_closed_loop,
+                                           run_open_loop, summarize)
+    from routest_tpu_torch.serve.fleet.supervisor import free_port
+
+    record = {}
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    log = tempfile.TemporaryFile(mode="w+")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "routest_tpu_torch.serve"], cwd=ROOT,
+        env=_fleet_env(PORT=str(port), RTPU_WIRE="1"), stdout=log,
+        stderr=subprocess.STDOUT)
+    try:
+        _wait_for("ping", lambda: _request(port, "GET", "/api/ping")[0]
+                  == 200, LOADGEN_BOOT_S, proc, who="loadgen")
+        record["boot_s"] = time.perf_counter() - t0
+        _fleet_health(port, "the loadgen server")
+        zipf = ZipfODWorkload(s=LOADGEN_ZIPF_S, seed=LOADGEN_SEED)
+        warm = KeepAliveClient(base)
+        try:
+            for req in zipf.sequence(16):
+                check(warm.send(req)[0] == 200, "loadgen: warm-up")
+        finally:
+            warm.close()
+        launches0 = _loadgen_launches(port)
+        # 1. C: single-row capacity, closed loop
+        cal = summarize(run_closed_loop(
+            [base], zipf.sequence(50_000), workers=LOADGEN_CAL_WORKERS,
+            duration_s=LOADGEN_CALIBRATE_S), LOADGEN_CALIBRATE_S, 0,
+            loop="closed")
+        check(cal["errors"] == 0 and cal["ok"] > 0,
+              f"loadgen: calibration {cal['errors']} errors")
+        cap = cal["achieved_rps"]
+        record["capacity_rps"] = cap
+        record["calibration"] = _loadgen_brief(cal)
+        time.sleep(LOADGEN_SETTLE_S)
+        # 2. open loop at 0.5 C, paced, Zipf single rows
+        curve = RateCurve.constant(0.5 * cap)
+        offsets = paced_schedule(curve, LOADGEN_RUN_S)
+        requests = zipf.sequence(len(offsets))
+        again = ZipfODWorkload(s=LOADGEN_ZIPF_S, seed=LOADGEN_SEED)
+        check(offsets.tobytes() == paced_schedule(
+            curve, LOADGEN_RUN_S).tobytes()
+            and requests == again.sequence(len(offsets)),
+            "loadgen: one seed gave two Zipf sequences")
+        before = fetch_metrics(base)
+        half = summarize(run_open_loop([base], offsets, requests,
+                                       workers=LOADGEN_WORKERS,
+                                       timeout=30.0),
+                         LOADGEN_RUN_S, len(offsets))
+        record["cache_half"] = cache_delta(before, fetch_metrics(base))
+        _loadgen_clean(half, "open loop at 0.5 C")
+        record["open_half"] = _loadgen_brief(half)
+        p50 = half["latency"]["p50_ms"]
+        delay99 = half["send_delay"]["p99_ms"]
+        print(f"[loadgen] (a) C {cap:.2f} rps; open loop at 0.5 C "
+              f"({len(offsets)} arrivals): p50/p95/p99 "
+              f"{p50}/{half['latency']['p95_ms']}/"
+              f"{half['latency']['p99_ms']} ms, send_delay p99 "
+              f"{delay99} ms, shed {half['shed']}, errors "
+              f"{half['errors']} | {smi_line}")
+        check(delay99 <= p50, f"loadgen: at 0.5 C the generator set the "
+                              f"pace: send_delay p99 {delay99} ms above "
+                              f"the latency p50 {p50} ms")
+        # 3. the same schedule at 2 C, closed loop then open loop
+        curve2 = RateCurve.constant(2.0 * cap)
+        offsets2 = paced_schedule(curve2, LOADGEN_RUN_S)
+        requests2 = zipf.sequence(len(offsets2))
+        closed = summarize(run_closed_loop(
+            [base], requests2, workers=LOADGEN_CLOSED_WORKERS,
+            duration_s=LOADGEN_RUN_S, timeout=60.0), LOADGEN_RUN_S,
+            len(offsets2), loop="closed")
+        time.sleep(1.0)
+        over = summarize(run_open_loop([base], offsets2, requests2,
+                                       workers=LOADGEN_WORKERS,
+                                       timeout=60.0),
+                         LOADGEN_RUN_S, len(offsets2))
+        check(closed["errors"] == 0 and over["errors"] == 0,
+              f"loadgen: at 2 C {closed['errors']} closed-loop and "
+              f"{over['errors']} open-loop errors")
+        record["closed_2c"] = _loadgen_brief(closed)
+        record["open_2c"] = _loadgen_brief(over)
+        c99, o99 = closed["latency"]["p99_ms"], over["latency"]["p99_ms"]
+        record["co_gap_x"] = o99 / c99
+        print(f"[loadgen] (a) at 2 C ({len(offsets2)} arrivals): closed "
+              f"loop p99 {c99} ms ({closed['achieved_rps']} rps), open "
+              f"loop p99 {o99} ms ({over['achieved_rps']} rps), gap "
+              f"{o99 / c99:.2f}x | {smi_line}")
+        # (b) the default mix, 4096-row RTW1 batches, tracker ticks and
+        # SSE subscribers
+        mix = {**DEFAULT_MIX, **LOADGEN_MIX_EXTRA}
+
+        def mixed():
+            return MixedWorkload(mix=mix, s=LOADGEN_ZIPF_S,
+                                 seed=LOADGEN_SEED,
+                                 batch_rows=LOADGEN_BATCH_ROWS,
+                                 wire_format="binary")
+
+        wl = mixed()
+        offsets_b = paced_schedule(RateCurve.constant(LOADGEN_MIX_RATE
+                                                      * cap),
+                                   LOADGEN_RUN_S)
+        requests_b = wl.sequence(len(offsets_b))
+        check([_planned_row(r) for r in wl.sequence(256)]
+              == [_planned_row(r) for r in mixed().sequence(256)],
+              "loadgen: one seed gave two mixed sequences")
+        tick = next(r for r in requests_b
+                    if r.route == "/api/update_tracker")
+        with SseClients(base, n=LOADGEN_SSE, channel=wl.sse_channel) as sse:
+            client = KeepAliveClient(base)
+            try:
+                t1 = time.perf_counter()
+                while sse.snapshot()["connected"] < LOADGEN_SSE:
+                    check(client.send(tick)[0] == 200, "loadgen: tick")
+                    check(time.perf_counter() - t1 < 30,
+                          f"loadgen: SSE {sse.snapshot()}")
+                    time.sleep(0.1)
+            finally:
+                client.close()
+            events0 = sse.snapshot()["events"]
+            mixed_rep = summarize(run_open_loop(
+                [base], offsets_b, requests_b,
+                workers=LOADGEN_WORKERS, timeout=60.0),
+                LOADGEN_RUN_S, len(offsets_b))
+            time.sleep(0.5)
+            snap = sse.snapshot()
+        _loadgen_clean(mixed_rep, "the mixed run")
+        batch = mixed_rep["routes"].get("/api/predict_eta_batch", {})
+        check(batch.get("ok", 0) > 0, "loadgen: no 4096-row wire batch "
+                                      "was answered")
+        check(snap["connected"] == LOADGEN_SSE and snap["errors"] == 0
+              and snap["events"] > events0,
+              f"loadgen: SSE during the mixed run {snap}")
+        record["mixed"] = _loadgen_brief(mixed_rep)
+        record["sse"] = dict(snap, events_during_run=snap["events"]
+                             - events0)
+        # one answer read back: finite, banded
+        status, body = _request(port, "POST", "/api/predict_eta",
+                                requests[0].body)
+        check(status == 200 and np.isfinite(body["eta_minutes_ml"])
+              and body["eta_minutes_ml_p10"] <= body["eta_minutes_ml"]
+              <= body["eta_minutes_ml_p90"],
+              f"loadgen: answer {status} {body}")
+        record["launches"] = _loadgen_launches(port) - launches0
+        print(f"[loadgen] (b) mixed ({len(offsets_b)} arrivals, "
+              f"{batch.get('ok')} x {LOADGEN_BATCH_ROWS}-row RTW1 "
+              f"batches): p50/p99 {mixed_rep['latency']['p50_ms']}/"
+              f"{mixed_rep['latency']['p99_ms']} ms, send_delay p99 "
+              f"{mixed_rep['send_delay']['p99_ms']} ms, errors "
+              f"{mixed_rep['errors']}; SSE {LOADGEN_SSE} connected, "
+              f"{record['sse']['events_during_run']} events; launches "
+              f"{record['launches']} | {smi_line}")
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+        try:
+            code = proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            code = proc.wait()
+        log.seek(0)
+        tail = log.read()[-2000:]
+        log.close()
+    check(code in (0, -signal.SIGTERM),
+          f"loadgen: the server exited {code}: {tail}")
+    return record
+
+
+def _planned_row(req):
+    """A planned request as a comparable tuple (bodies as JSON or
+    bytes)."""
+    body = req.body
+    if body is not None and not isinstance(body, bytes):
+        body = json.dumps(body)
+    return (req.method, req.path, req.route, req.content_type, body)
+
+
+def _loadgen_fleet(smi_line, cap):
+    """(c): two replicas on the card behind the gateway (phase 16's
+    wiring: broker, plan, supervisor grown to 2), driven through the
+    gateway by the mixed workload with region hints and a dispatch
+    share. → record."""
+    from routest_tpu_torch.core.config import FleetConfig
+    from routest_tpu_torch.loadgen import (MixedWorkload, RateCurve,
+                                           paced_schedule, run_open_loop,
+                                           summarize)
+    from routest_tpu_torch.serve.fleet.gateway import Gateway
+    from routest_tpu_torch.serve.fleet.placement import plan_from_env
+    from routest_tpu_torch.serve.fleet.supervisor import (ReplicaSupervisor,
+                                                          free_port)
+    from routest_tpu_torch.serve.netbus import start_broker
+
+    record = {}
+    broker, _ = start_broker()
+    env = _fleet_env(REDIS_URL=f"tcp://127.0.0.1:{broker.port}")
+    plan = plan_from_env(env, replicas=1)
+    port0 = free_port()
+    sup = ReplicaSupervisor([port0], env=env, cwd=ROOT, quiet=True,
+                            probe_interval_s=0.5, backoff_base_s=0.5,
+                            backoff_cap_s=5.0, placement=plan)
+    gw = None
+    try:
+        t0 = time.perf_counter()
+        sup.start()
+        grown = sup.scale_to(2)          # both boot at once
+        port1 = grown["added"][0][1]
+        check(sup.ready(timeout=LOADGEN_BOOT_S)
+              and sup.wait_port_ready(port1, timeout=LOADGEN_BOOT_S),
+              "loadgen: the fleet never answered")
+        record["boot_s"] = time.perf_counter() - t0
+        gw = Gateway([("127.0.0.1", port0)],
+                     FleetConfig(hedge=False, eject_after=2,
+                                 cooldown_s=0.5), supervisor=sup)
+        s0 = plan.slices[0]
+        gw.set_topology("r0", chips=s0.chips, capacity=s0.capacity)
+        status1 = sup.replica_status(1)
+        gw.add_replica("127.0.0.1", port1, rid="r1",
+                       chips=status1["chips"], capacity=status1["capacity"])
+        httpd = gw.serve("127.0.0.1", 0)
+        gw_port = httpd.server_address[1]
+        for rid, port in (("r0", port0), ("r1", port1)):
+            _fleet_health(port, rid)
+        wl = MixedWorkload(mix=LOADGEN_FLEET_MIX, s=LOADGEN_ZIPF_S,
+                           seed=LOADGEN_SEED, regions=LOADGEN_REGIONS)
+        offsets = paced_schedule(RateCurve.constant(LOADGEN_FLEET_RATE
+                                                    * cap), LOADGEN_RUN_S)
+        requests = wl.sequence(len(offsets))
+        for req in requests[:8]:             # warm both replicas' paths
+            _request(gw_port, req.method, req.path, req.body)
+        _, m0 = _request(gw_port, "GET", "/api/metrics?replicas=1")
+        rep = summarize(run_open_loop(
+            [f"http://127.0.0.1:{gw_port}"], offsets, requests,
+            workers=LOADGEN_WORKERS, timeout=60.0), LOADGEN_RUN_S,
+            len(offsets))
+        _, m1 = _request(gw_port, "GET", "/api/metrics?replicas=1")
+        before, after = _fleet_launches(m0), _fleet_launches(m1)
+        per = {rid: after[rid] - before.get(rid, 0) for rid in after}
+        _loadgen_clean(rep, "the fleet run")
+        dispatch = rep["routes"].get("/api/dispatch", {})
+        check(dispatch.get("ok", 0) > 0, "loadgen: no dispatch answered")
+        if CARD == "cuda":
+            check(set(per) == {"r0", "r1"} and all(
+                v > 0 for v in per.values()),
+                f"loadgen: fused launches per replica {per}")
+        with gw._lock:
+            record["requests_per_replica"] = {
+                r.id: r.requests for r in gw.replicas}
+        record["run"] = _loadgen_brief(rep)
+        record["launches_per_replica"] = per
+        record["launches"] = sum(per.values())
+    finally:
+        if gw is not None:
+            gw.drain(timeout=30)
+            with gw._lock:
+                for r in gw.replicas:
+                    r.drop_conns()
+        sup.drain(timeout=60)
+        broker.shutdown()
+        broker.server_close()
+    print(f"[loadgen] (c) two replicas through the gateway, "
+          f"{len(offsets)} arrivals at {LOADGEN_FLEET_RATE} C with region "
+          f"hints and a dispatch share: p50/p99 "
+          f"{rep['latency']['p50_ms']}/{rep['latency']['p99_ms']} ms, "
+          f"send_delay p99 {rep['send_delay']['p99_ms']} ms, errors "
+          f"{rep['errors']}, dispatch ok {dispatch.get('ok')}; launches "
+          f"{per}; boot {record['boot_s']:.3f} s | {smi_line}")
+    return record
+
+
+def phase_loadgen(smi_line):
+    """Phase 18, the open-loop load generator driving the port on the
+    card. → (record, fused launches in the servers over (a)–(c))."""
+    import gc
+
+    t0 = time.perf_counter()
+    others = sorted(t.name for t in threading.enumerate()
+                    if t is not threading.main_thread() and t.is_alive())
+    # the generator's sender threads share this process: no collection
+    # pauses them (the heap of earlier phases frozen, the collector off
+    # while they run)
+    gc.collect()
+    gc.freeze()
+    gc.disable()
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(LOADGEN_SWITCH_S)
+    try:
+        single = _loadgen_single(smi_line)
+        fleet = _loadgen_fleet(smi_line, single["capacity_rps"])
+    finally:
+        sys.setswitchinterval(switch)
+        gc.enable()
+        gc.unfreeze()
+    launches = single["launches"] + fleet["launches"]
+    if CARD == "cuda":
+        check(launches > 0, "loadgen: no fused launch in the servers")
+    half = single["open_half"]
+    record = {
+        "capacity_rps": single["capacity_rps"],
+        "open_half_c": {"p50_ms": half["latency_ms"]["p50_ms"],
+                        "p95_ms": half["latency_ms"]["p95_ms"],
+                        "p99_ms": half["latency_ms"]["p99_ms"],
+                        "send_delay_p99_ms":
+                            half["send_delay_ms"]["p99_ms"],
+                        "shed": half["shed"], "errors": half["errors"]},
+        "two_c": {"closed_p99_ms": single["closed_2c"]["latency_ms"]
+                  ["p99_ms"],
+                  "open_p99_ms": single["open_2c"]["latency_ms"]["p99_ms"],
+                  "gap_x": single["co_gap_x"]},
+        "sse_events": single["sse"]["events_during_run"],
+        # answers >= 500 and transport failures over every run
+        "errors": sum(run["errors"] for run in (
+            single["calibration"], half, single["closed_2c"],
+            single["open_2c"], single["mixed"], fleet["run"])),
+        "launches": launches,
+        "single": single, "fleet": fleet,
+        "threads_beside_the_generator": others,
+        "wall_s": time.perf_counter() - t0}
+    print(json.dumps({"loadgen": record}))
+    return record, launches
+
+
 def main() -> int:
     import torch
 
@@ -5977,6 +6386,8 @@ def main() -> int:
         _, fleet_launches = phase_fleet(smi_line)
         phase = "regions"
         _, regions_launches = phase_regions(smi_line)
+        phase = "loadgen"
+        _, loadgen_launches = phase_loadgen(smi_line)
         phase = "times"
         table = phase_times(rng)
     except Exception as e:
@@ -6024,6 +6435,10 @@ def main() -> int:
     # ... and over phase 17 (a)–(c)'s: the two regions' replicas (other
     # processes) under (a)'s requests and the probers' rounds
     kernels[0]["launches_regions"] = regions_launches
+    # ... and over phase 18's: the open-loop generator's runs against
+    # one server and a two-replica fleet (other processes), read from
+    # their /api/metrics before and after
+    kernels[0]["launches_loadgen"] = loadgen_launches
     print(json.dumps({"kernels": kernels}))
     print(f"{smi_line}")
     print(json.dumps({"ok": True, "device": {

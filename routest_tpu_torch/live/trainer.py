@@ -19,8 +19,9 @@ AdamW steps (learning rate 1e-3, weight decay 1e-4) per cycle track a
 drifting world. Unlike the JAX trainer, it refuses to save over an
 artifact the JAX package ships (``artifacts/road_gnn*.msgpack``, the
 default router's): a server that arms it (``RTPU_LIVE_RETRAIN_S > 0``)
-points ``ROAD_GNN_PATH`` at a copy. The JAX trainer's chaos points and
-trace spans wait for Queue A item 11.
+points ``ROAD_GNN_PATH`` at a copy. Like the JAX trainer it has no
+chaos points and no trace spans: it reports through the obs registry
+(``rtpu_live_retrain_*``) and its logger.
 """
 
 from __future__ import annotations

@@ -24,6 +24,7 @@ metrics, and the gateway stays unambiguous across scale events.
 from __future__ import annotations
 
 import os
+import random
 import signal
 import socket
 import subprocess
@@ -40,6 +41,56 @@ _log = get_logger("routest_tpu_torch.fleet.supervisor")
 _m_restarts = get_registry().counter(
     "rtpu_supervisor_restarts_total",
     "Worker restarts (crash or failed liveness).", ("replica",))
+
+
+# Fresh replica ports are drawn from [_LOWEST_PORT, the ephemeral
+# range's low end) when that pool holds at least _MIN_POOL ports.
+_LOWEST_PORT = 10000
+_MIN_POOL = 1000
+
+
+def ephemeral_port_range() -> Optional[Tuple[int, int]]:
+    """``/proc/sys/net/ipv4/ip_local_port_range`` → (low, high), or None
+    where it cannot be read."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            low, high = (int(v) for v in f.read().split()[:2])
+    except (OSError, ValueError):
+        return None
+    return low, high
+
+
+def free_port() -> int:
+    """A free loopback port outside the host's ephemeral range, below
+    it where there is room, else above it. A closed client connection
+    (a probe, a ``urllib`` scrape, a load generator's reset) leaves its
+    TIME_WAIT on an ephemeral port, and a replica spawned on such a
+    port cannot bind it and exits 1 (ROADMAP Queue C 14): a port outside
+    the range is never one. Deliberate divergence: the JAX supervisor
+    takes the OS's ephemeral pick. Where the range cannot be read, the
+    OS picks as before."""
+    span = ephemeral_port_range()
+    if span is None:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+    low, high = span
+    rng = random.Random()
+    below = range(_LOWEST_PORT, low)
+    above = range(high + 1, 65536)
+    for pool in (below, above):
+        if len(pool) < _MIN_POOL:
+            continue
+        for _ in range(64):
+            port = rng.choice(pool)
+            try:
+                with socket.socket() as s:
+                    s.bind(("127.0.0.1", port))
+                return port
+            except OSError:
+                continue
+    raise RuntimeError(f"supervisor: no free port outside the "
+                       f"ephemeral range {low}-{high}")
 
 
 def default_worker_command(port: int) -> List[str]:
@@ -239,12 +290,6 @@ class ReplicaSupervisor:
 
     # ── elastic membership ─────────────────────────────────────────────
 
-    @staticmethod
-    def _free_port() -> int:
-        with socket.socket() as s:
-            s.bind(("127.0.0.1", 0))
-            return s.getsockname()[1]
-
     def add_replica(self, port: Optional[int] = None, *,
                     env: Optional[Dict[str, str]] = None,
                     version: Optional[str] = None,
@@ -254,8 +299,9 @@ class ReplicaSupervisor:
                     label: Optional[str] = None) -> Tuple[int, int]:
         """Spawn one more worker → ``(index, port)``. The index comes
         from the monotonic counter (never reused); the port defaults to
-        a fresh OS-assigned one — deterministic ``base_port + i``
-        schemes collide with retired ports still in TIME_WAIT. The
+        a fresh one outside the ephemeral range (``free_port``) —
+        deterministic ``base_port + i`` schemes collide with retired
+        ports still in TIME_WAIT. The
         caller owns readiness (``wait_port_ready`` is the startup
         probe); the monitor babysits the new worker like any other.
 
@@ -268,7 +314,7 @@ class ReplicaSupervisor:
         plan's growth slice is used — autoscaler growth spawns the next
         slice of the plan, never an unpinned 1-chip default."""
         if port is None:
-            port = self._free_port()
+            port = free_port()
         with self._lock:
             if env is None:
                 env = self._default_overlay

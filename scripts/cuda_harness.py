@@ -1,0 +1,399 @@
+"""Shared harness of the port's load scripts (``*_cuda.py``).
+
+- the card: :func:`require_card` refuses to run without a CUDA device
+  unless the CPU was asked for (``--cpu``), and :func:`card_identity`
+  names the card and its power limit (``nvidia-smi``) for a record;
+- ports: :func:`free_port` is the supervisor's pick, outside the host's
+  ephemeral range, so no client TIME_WAIT can hold a server's port;
+- a fleet of the port for one scenario (:class:`Fleet`: supervisor,
+  replicas of ``python -m routest_tpu_torch.serve``, the in-process
+  gateway, optionally the broker, live traffic and the blackbox
+  prober), the synthetic street extract it routes on
+  (:func:`build_extract`), a blocking open-loop ``/api/predict_eta``
+  load (:func:`open_loop`) and the flight recorder's correctness
+  bundles (:func:`correctness_bundles`, :func:`judge_fault_bundle`).
+
+The harness of ``scripts/bench_probing.py`` on the port's modules:
+it imports no JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if REPO not in sys.path:
+    sys.path.insert(0, REPO)
+
+MODEL = os.path.join(REPO, "artifacts", "eta_mlp.msgpack")
+
+# The swap gate's margin for a bench fleet — the prober derives its
+# golden tolerance from it (a model the gate would accept never trips
+# the prober; one past the gate always does).
+SWAP_MAX_DIV_MIN = 30.0
+PROBE_INTERVAL_S = 1.0
+# Probe-scale SLO windows: pages after ~5 consecutive failing rounds.
+PROBE_FAST_S, PROBE_SLOW_S = 10.0, 30.0
+
+
+# ── the card ─────────────────────────────────────────────────────────
+
+
+def require_card(cpu: bool, who: str) -> str:
+    """The device the script's servers use: ``"cpu"`` when asked for,
+    else ``"cuda"`` — and without a card, a named line on stderr and
+    exit code 2 (no fallback to the CPU)."""
+    if cpu:
+        return "cpu"
+    import torch
+
+    if not torch.cuda.is_available():
+        print(f"{who}: no CUDA device (torch.cuda.is_available() is "
+              f"false); pass --cpu to run on the CPU", file=sys.stderr)
+        sys.exit(2)
+    return "cuda"
+
+
+def smi_line() -> str:
+    """``nvidia-smi --query-gpu=name,power.limit`` for card 0, or ""."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout
+    except (OSError, subprocess.SubprocessError):
+        return ""
+    return out.strip().splitlines()[0].strip() if out.strip() else ""
+
+
+def card_identity(device: str) -> dict:
+    """What a record says about where it was measured."""
+    import torch
+
+    out = {"device": device, "torch": torch.__version__,
+           "cuda": torch.version.cuda, "cpu_count": _cores()}
+    if device == "cuda":
+        line = smi_line()
+        out["nvidia_smi"] = line
+        out["name"] = torch.cuda.get_device_name(0)
+        out["power_limit"] = (line.rsplit(",", 1)[-1].strip()
+                              if "," in line else None)
+    return out
+
+
+def _cores() -> int:
+    if hasattr(os, "sched_getaffinity"):
+        return len(os.sched_getaffinity(0))
+    return os.cpu_count() or 1
+
+
+def server_env(device: str, **extra) -> dict:
+    """This process's environment for a spawned server, on ``device``
+    (the CPU only when asked for: ``ROUTEST_DEVICE=cpu``)."""
+    env = dict(os.environ)
+    env.pop("ROUTEST_DEVICE", None)
+    if device == "cpu":
+        env["ROUTEST_DEVICE"] = "cpu"
+    env.update(extra)
+    return env
+
+
+def free_port() -> int:
+    from routest_tpu_torch.serve.fleet.supervisor import free_port as pick
+
+    return pick()
+
+
+def write_record(path: str, record: dict) -> None:
+    out_dir = os.path.dirname(path)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(record, f, indent=2)
+
+
+# ── HTTP ─────────────────────────────────────────────────────────────
+
+
+def fetch(url: str, timeout: float = 30.0):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def post(url: str, body: dict, timeout: float = 120.0):
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+# ── the street extract ───────────────────────────────────────────────
+
+
+def build_extract(n_nodes: int, cache_dir: str) -> str:
+    """Synthetic street extract, cached across scenarios and runs; the
+    overlay is prebuilt (on the CPU) into ``ROUTEST_HIER_CACHE`` so
+    every replica loads it instead of building it."""
+    path = os.path.join(cache_dir, f"probing_{n_nodes}.osm.gz")
+    if os.path.exists(path):
+        return path
+    from routest_tpu_torch.data.osm import load_osm, save_osm
+    from routest_tpu_torch.data.road_graph import (generate_road_graph,
+                                                   subdivide_graph)
+    from routest_tpu_torch.optimize.road_router import RoadRouter
+
+    n_int = max(512, int(n_nodes / 5.86))
+    base = generate_road_graph(n_nodes=n_int, k=4, seed=0)
+    streets = subdivide_graph(base, bends_per_edge=2, oneway_frac=0.1,
+                              seed=0)
+    save_osm(path, streets)
+    t0 = time.perf_counter()
+    RoadRouter(graph=load_osm(path), use_gnn=False, use_transformer=False,
+               device="cpu")
+    print(f"  overlay prebuilt in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    return path
+
+
+# ── a fleet of the port ──────────────────────────────────────────────
+
+
+class Fleet:
+    """One scenario's fleet: supervisor + replicas on ``device`` +
+    in-process gateway + (optionally) broker, probe drivers, and the
+    armed prober. Replicas are device-blind: on one card every replica
+    serves on it."""
+
+    def __init__(self, *, live: bool, extract: str, cache_dir: str,
+                 work_dir: str, device: str, replicas: int = 2,
+                 drivers: int = 48, customize_s: float = 3.0,
+                 probe_interval: float = PROBE_INTERVAL_S) -> None:
+        from routest_tpu_torch.core.config import (FleetConfig,
+                                                   ProberConfig,
+                                                   RecorderConfig)
+        from routest_tpu_torch.data.locations import SEED_LOCATIONS
+        from routest_tpu_torch.obs.recorder import (FlightRecorder,
+                                                    configure_recorder)
+        from routest_tpu_torch.serve.fleet.gateway import Gateway
+        from routest_tpu_torch.serve.fleet.supervisor import \
+            ReplicaSupervisor
+
+        self.live = live
+        self.work_dir = work_dir
+        self.recorder_dir = os.path.join(work_dir, "postmortems")
+        self.recorder = FlightRecorder(RecorderConfig(
+            dir=self.recorder_dir, min_interval_s=0.0))
+        configure_recorder(self.recorder)
+        self.model_path = os.path.join(work_dir, "eta_serving.msgpack")
+        shutil.copy(MODEL, self.model_path)
+        self.broker = None
+        self.probe_fleet = None
+        self.prober = None
+        env = server_env(
+            device, ROUTEST_WARM_BUCKETS="0", ROUTEST_MESH="0",
+            ETA_MODEL_PATH=self.model_path, ROUTEST_RELOAD_SEC="0.5",
+            RTPU_SWAP_MAX_DIV=f"{SWAP_MAX_DIV_MIN:g}",
+            RTPU_RECORDER_DIR=os.path.join(work_dir, "workers"))
+        if live:
+            from routest_tpu_torch.serve.netbus import start_broker
+
+            self.broker, _ = start_broker()
+            env.update({
+                "ROAD_GRAPH_OSM": extract,
+                "ROUTEST_HIER_CACHE": os.path.join(cache_dir, "hier"),
+                "REDIS_URL": f"tcp://127.0.0.1:{self.broker.port}",
+                "RTPU_LIVE": "1",
+                "RTPU_LIVE_CUSTOMIZE_S": f"{customize_s:g}",
+                "RTPU_LIVE_HALF_LIFE_S": "10",
+                "RTPU_LIVE_MIN_OBS_EDGES": "10",
+            })
+        self.env = env
+        self.ports = [free_port() for _ in range(replicas)]
+        self.sup = ReplicaSupervisor(self.ports, env=env, cwd=REPO,
+                                     probe_interval_s=0.5,
+                                     backoff_base_s=0.2,
+                                     backoff_cap_s=2.0)
+        self.sup.start()
+        if not self.sup.ready(timeout=600):
+            self.sup.drain(timeout=10)
+            if self.broker is not None:
+                self.broker.shutdown()
+            raise RuntimeError("fleet workers never became ready")
+        self.gw = Gateway([("127.0.0.1", p) for p in self.ports],
+                          FleetConfig(hedge=False, max_inflight=64,
+                                      queue_depth=256), supervisor=self.sup)
+        self.httpd = self.gw.serve("127.0.0.1", 0)
+        self.base = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+        a, b = SEED_LOCATIONS[2], SEED_LOCATIONS[11]
+        self.prober_cfg = ProberConfig(
+            enabled=True, interval_s=probe_interval, timeout_s=20.0,
+            eta_tolerance=SWAP_MAX_DIV_MIN,
+            route_tolerance_rel=0.02,   # cross-replica EWMA drift
+            routes=(f"{a[1]},{a[2]}|{b[1]},{b[2]}" if live else ""),
+            skew_after=3, epoch_gap=2,
+            fast_window_s=PROBE_FAST_S, slow_window_s=PROBE_SLOW_S)
+        self._driver_count = drivers
+        if live:
+            self._wait_live_ready()
+
+    def _wait_live_ready(self, timeout: float = 300.0) -> None:
+        deadline = time.time() + timeout
+        for port in self.ports:
+            while time.time() < deadline:
+                try:
+                    if fetch(f"http://127.0.0.1:{port}/api/live",
+                             timeout=10).get("ready"):
+                        break
+                except OSError:
+                    pass
+                time.sleep(0.5)
+            else:
+                raise RuntimeError(f"replica :{port} live never armed")
+
+    def arm_prober(self):
+        from routest_tpu_torch.obs.prober import BlackboxProber
+
+        self.prober = BlackboxProber(
+            self.prober_cfg, gateway_base=self.base,
+            targets_fn=self.gw._probe_targets, recorder=self.recorder)
+        self.gw.prober = self.prober     # /api/probes surfaces it
+        self.prober.start()
+        return self.prober
+
+    def replica_rids(self):
+        with self.gw._lock:
+            return sorted((r.id for r in self.gw.replicas
+                           if not r.draining),
+                          key=lambda rid: int(rid[1:]))
+
+    def inject_replacement(self, rid: str, overlay: dict,
+                           version: str) -> str:
+        """Roll ONE replica onto (version, overlay); returns the
+        successor's rid — the replica the prober must name."""
+        from routest_tpu_torch.serve.fleet.rollout import replace_replica
+
+        old_port = self.ports[int(rid[1:])]
+        result = replace_replica(self.sup, self.gw, rid,
+                                 version=version, env=overlay,
+                                 boot_timeout_s=300.0,
+                                 health_timeout_s=60.0)
+        if not result.get("ok"):
+            raise RuntimeError(f"fault injection rollout failed: "
+                               f"{result}")
+        self.ports = [p for p in self.ports if p != old_port] \
+            + [result["port"]]
+        if self.live:
+            self._wait_live_ready()
+        return result["new_rid"]
+
+    def metrics(self) -> dict:
+        """The gateway's ``/api/metrics?replicas=1``."""
+        return fetch(f"{self.base}/api/metrics?replicas=1")
+
+    def stop(self) -> None:
+        from routest_tpu_torch.obs.recorder import configure_recorder
+
+        if self.prober is not None:
+            self.prober.stop()
+        if self.probe_fleet is not None:
+            self.probe_fleet.stop()
+        try:
+            self.gw.drain(timeout=5)
+        finally:
+            self.sup.drain(timeout=15)
+            if self.broker is not None:
+                self.broker.shutdown()
+                self.broker.server_close()
+            configure_recorder(None)
+
+
+def launch_delta(before: dict, after: dict) -> dict:
+    """{replica: fused launches between two ``?replicas=1`` scrapes}, for
+    the replicas that answered the second (a replica scaled away took
+    its count with it)."""
+    b, a = replica_launches(before), replica_launches(after)
+    return {rid: a[rid] - b.get(rid, 0) for rid in sorted(a)}
+
+
+def replica_launches(metrics: dict) -> dict:
+    """``/api/metrics?replicas=1`` → {replica id: fused launches}; a
+    replica that did not answer is left out."""
+    out = {}
+    for rid, snap in (metrics.get("replica_metrics") or {}).items():
+        fam = ((snap or {}).get("registry") or {}).get(
+            "rtpu_fused_launches") if isinstance(snap, dict) else None
+        if fam and fam.get("series"):
+            out[rid] = int(fam["series"][0]["value"])
+    return out
+
+
+def open_loop(base: str, rate: float, duration_s: float, stop=None):
+    """Blocking open-loop predict_eta load (unique bodies) → records."""
+    from routest_tpu_torch.loadgen import (PlannedRequest, RateCurve,
+                                           paced_schedule, run_open_loop)
+
+    offsets = paced_schedule(RateCurve.constant(rate), duration_s)
+    requests = [PlannedRequest(
+        method="POST", path="/api/predict_eta",
+        body={"summary": {"distance": 7000 + i}, "weather": "Sunny",
+              "traffic": "Medium", "driver_age": 33,
+              "pickup_time": "2026-08-05T18:00:00"},
+        route="predict_eta") for i in range(len(offsets))]
+    return run_open_loop([base], offsets, requests, workers=8,
+                         timeout=30.0, stop=stop)
+
+
+def correctness_bundles(recorder_dir: str):
+    out = []
+    if not os.path.isdir(recorder_dir):
+        return out
+    for name in sorted(os.listdir(recorder_dir)):
+        if not name.startswith("pm_") or "correctness" not in name:
+            continue
+        bundle = os.path.join(recorder_dir, name)
+        try:
+            with open(os.path.join(bundle, "probe_evidence.json")) as f:
+                evidence = json.load(f)
+            with open(os.path.join(bundle, "manifest.json")) as f:
+                manifest = json.load(f)
+        except (OSError, ValueError):
+            continue
+        out.append({"name": name, "evidence": evidence,
+                    "manifest_reason": manifest.get("reason"),
+                    "detail": manifest.get("detail")})
+    return out
+
+
+def judge_fault_bundle(bundles, faulty_rid: str) -> dict:
+    """A correctness bundle must name the faulty replica and embed the
+    probe request, served answer, oracle/pinned answer, divergence."""
+    for b in bundles:
+        ev = b["evidence"]
+        if faulty_rid not in (ev.get("replicas") or []):
+            continue
+        for f in reversed(ev.get("failures") or []):
+            named = faulty_rid in (f.get("replicas") or [])
+            embedded = (f.get("request") is not None
+                        and f.get("served") is not None
+                        and (f.get("expected") is not None
+                             or f.get("oracle") is not None
+                             or f.get("dimensions") is not None))
+            has_div = (f.get("divergence") is not None
+                       or f.get("dimensions") is not None)
+            if named and embedded and has_div:
+                return {"ok": True, "bundle": b["name"],
+                        "verdict": f.get("verdict"),
+                        "divergence": f.get("divergence"),
+                        "dimensions": sorted(f.get("dimensions") or ())}
+    return {"ok": False,
+            "bundles_seen": [b["name"] for b in bundles]}

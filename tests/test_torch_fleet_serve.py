@@ -15,8 +15,10 @@ routest_tpu_torch.serve.fleet`` itself boots one CPU replica, answers
 through its gateway and drains to exit 0 on SIGTERM, and a replica
 whose wire-channel port (``PORT + RTPU_WIRE_PORT_OFFSET``) lies past
 65535 still serves HTTP; one spawned on a port a client connection of
-this host left in TIME_WAIT cannot bind it (a fault the port shares
-with the reference). Every wait is
+this host left in TIME_WAIT cannot bind it (the reference's fault), so
+the supervisor's ``add_replica`` picks a port outside the host's
+ephemeral range, where no client TIME_WAIT sits, and a replica spawned
+there binds while such TIME_WAITs stand. Every wait is
 bounded; every process, socket and thread is reaped at module end."""
 
 import datetime as dt
@@ -45,6 +47,7 @@ from routest_tpu_torch.data.features import encode_requests
 from routest_tpu_torch.obs import get_registry
 from routest_tpu_torch.serve import netbus, wirecodec
 from routest_tpu_torch.serve.fleet.gateway import Gateway
+from routest_tpu_torch.serve.fleet import supervisor
 from routest_tpu_torch.serve.fleet.supervisor import ReplicaSupervisor
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -458,3 +461,51 @@ def test_a_fresh_port_in_client_time_wait_fails_the_replica_bind():
         timeout=120)
     assert out.returncode == 1
     assert "Address already in use" in out.stderr
+
+
+@pytest.mark.parametrize("span,where", [
+    ((20000, 60999), "below"), ((10500, 60999), "above"),
+    ((1024, 65000), "none"), (None, "os")])
+def test_free_port_lies_outside_the_ephemeral_range(monkeypatch, span,
+                                                    where):
+    monkeypatch.setattr(supervisor, "ephemeral_port_range", lambda: span)
+    if where == "none":
+        with pytest.raises(RuntimeError, match="ephemeral range"):
+            supervisor.free_port()
+        return
+    ports = {supervisor.free_port() for _ in range(20)}
+    for port in ports:
+        if where == "below":
+            assert 10000 <= port < span[0]
+        elif where == "above":
+            assert span[1] < port <= 65535
+        else:
+            assert 0 < port <= 65535
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", port))      # free when picked
+
+
+def test_add_replica_binds_outside_the_range_past_client_time_waits():
+    # ROADMAP Queue C 14, repaired in the port: the ports client
+    # connections left in TIME_WAIT are ephemeral, and a replica that
+    # add_replica() spawns without a port lands outside that range.
+    span = supervisor.ephemeral_port_range()
+    assert span is not None
+    low, high = span
+    waits = [_client_time_wait_port() for _ in range(4)]
+    assert all(low <= p <= high for p in waits)
+    sup = ReplicaSupervisor([], env=_replica_env(ROUTEST_WARM_BUCKETS="0"),
+                            cwd=REPO, probe_interval_s=0.25,
+                            backoff_base_s=0.2, backoff_cap_s=2.0)
+    try:
+        sup.start()
+        index, port = sup.add_replica()
+        assert not low <= port <= high and port not in waits
+        assert sup.wait_port_ready(port, timeout=120)
+        status = sup.replica_status(index)
+        assert status["alive"] and status["restarts"] == 0
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/api/ping",
+                                    timeout=10) as resp:
+            assert json.loads(resp.read())["ok"]
+    finally:
+        sup.drain(timeout=30)
