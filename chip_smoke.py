@@ -256,7 +256,8 @@ of which fails the run:
    (``RTPU_WIRE=1``, a port outside the host's ephemeral range): the
    closed-loop single-row ``/api/predict_eta`` capacity ``C`` (5 s, 32
    workers), then paced Zipf single rows (s 1.1, seed 42) open loop at
-   0.5 ``C`` for 10 s (64 senders, as every open-loop run here) —
+   0.5 ``C`` for 10 s (64 senders, as every open-loop run here, from a
+   process of their own: ``scripts/cuda_harness.py``) —
    latency p50/p95/p99 from the intended send time, ``send_delay`` p99
    (above the p50 fails: the generator, not the server, set the pace),
    sheds, no answer >= 500 — and the same schedule at 2 ``C`` closed
@@ -267,7 +268,31 @@ of which fails the run:
    the card behind the gateway (phase 16's wiring) driven at 0.5 ``C``
    by the mix with region hints and a dispatch share; one seed must give
    one schedule and one request sequence, and the servers' fused
-   launches (``rtpu_fused_launches``, before and after) must be > 0.
+   launches (``rtpu_fused_launches``, before and after) must be > 0; the
+   summary names the pace limit ``scripts/cuda_harness.py`` holds every
+   open-loop run to;
+19. the parallel layer (``core/{mesh,smap,distributed}.py``,
+   ``parallel/``), run between phases 18 and 9, its shards sharing the
+   card (``[cuda:0] * n``): (a) a 2-shard data mesh serving the shipped
+   artifact through the app — ``/api/predict_eta`` and
+   ``/api/predict_eta_batch`` at 1, 100, 4095 and 4096 rows held to the
+   single-device service within the bf16 class, health's mesh block
+   (``sharded``, ``axis_shapes``), and no fused launch over its requests
+   (the JAX package serves a mesh without its kernel); (b) tensor-
+   parallel serving on 1×2 and 2×2 meshes held to the single-device
+   service, and one ``make_tp_train_step`` at the default widths held to
+   the dense step (f32); (c) ring and Ulysses at 2 and 4 shards on the
+   route transformer at its default widths over 16 routes of 256 legs
+   with masked legs from the generated 2048-node graph, held to full
+   attention, and one sequence-parallel train step per flavour held to
+   the dense step; (d) at 2 shards: the GNN's edge-sharded loss and
+   step on the 2048-node graph, ``fit`` with a runtime against ``fit``
+   without one, ``rank_routes`` with a runtime (the same orders), the
+   pipeline against ``sequential_apply`` and the experts against
+   ``moe_apply_dense``; (e) ``core/distributed.py`` at world size 1
+   over nccl; (f) 4096-row scoring ms at 1, 2 and 4 shards, TP scoring
+   ms, and ring, Ulysses and full attention ms, beside the card's name
+   and power limit (shards sharing one card: no speed claim).
 
 The lines before the last are one ``{"optimize": {...}}``, one
 ``{"road": {...}}``, one ``{"overlay": {...}}``, one ``{"live": {...}}``,
@@ -275,7 +300,7 @@ one ``{"selection": {...}}``, one ``{"dispatch": {...}}``, one
 ``{"serving_core": {...}}``, one
 ``{"train": {...}}``, one ``{"observability": {...}}``, one
 ``{"fleet": {...}}``, one ``{"regions": {...}}``, one
-``{"loadgen": {...}}`` and one
+``{"loadgen": {...}}``, one ``{"mesh": {...}}`` and one
 ``{"kernels": [...]}`` JSON object and the
 card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
@@ -6019,6 +6044,13 @@ def _loadgen_single(smi_line):
                                            run_open_loop, summarize)
     from routest_tpu_torch.serve.fleet.supervisor import free_port
 
+    # (a)'s open-loop runs send from a process of their own, as the load
+    # scripts' do (scripts/cuda_harness.py): in this process, 17 phases'
+    # heap and threads shared the senders' interpreter, and a run's
+    # send_delay p99 reached its p50 (3.35 vs 3.26 ms)
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    from cuda_harness import run_open_loop_process as sender
+
     record = {}
     port = free_port()
     base = f"http://127.0.0.1:{port}"
@@ -6062,9 +6094,8 @@ def _loadgen_single(smi_line):
             and requests == again.sequence(len(offsets)),
             "loadgen: one seed gave two Zipf sequences")
         before = fetch_metrics(base)
-        half = summarize(run_open_loop([base], offsets, requests,
-                                       workers=LOADGEN_WORKERS,
-                                       timeout=30.0),
+        half = summarize(sender([base], offsets, requests,
+                                workers=LOADGEN_WORKERS, timeout=30.0)[0],
                          LOADGEN_RUN_S, len(offsets))
         record["cache_half"] = cache_delta(before, fetch_metrics(base))
         _loadgen_clean(half, "open loop at 0.5 C")
@@ -6089,9 +6120,8 @@ def _loadgen_single(smi_line):
             duration_s=LOADGEN_RUN_S, timeout=60.0), LOADGEN_RUN_S,
             len(offsets2), loop="closed")
         time.sleep(1.0)
-        over = summarize(run_open_loop([base], offsets2, requests2,
-                                       workers=LOADGEN_WORKERS,
-                                       timeout=60.0),
+        over = summarize(sender([base], offsets2, requests2,
+                                workers=LOADGEN_WORKERS, timeout=60.0)[0],
                          LOADGEN_RUN_S, len(offsets2))
         check(closed["errors"] == 0 and over["errors"] == 0,
               f"loadgen: at 2 C {closed['errors']} closed-loop and "
@@ -6313,6 +6343,12 @@ def phase_loadgen(smi_line):
         check(launches > 0, "loadgen: no fused launch in the servers")
     half = single["open_half"]
     record = {
+        # the limit every open-loop run of scripts/cuda_harness.py keeps
+        "pace_limit": {"rule": "send_delay p99 <= latency p50 of the "
+                               "same open-loop run (scripts/"
+                               "cuda_harness.py PACE_LIMIT)",
+                       "limit_ms": half["latency_ms"]["p50_ms"],
+                       "switch_interval_s": LOADGEN_SWITCH_S},
         "capacity_rps": single["capacity_rps"],
         "open_half_c": {"p50_ms": half["latency_ms"]["p50_ms"],
                         "p95_ms": half["latency_ms"]["p95_ms"],
@@ -6334,6 +6370,477 @@ def phase_loadgen(smi_line):
         "threads_beside_the_generator": others,
         "wall_s": time.perf_counter() - t0}
     print(json.dumps({"loadgen": record}))
+    return record, launches
+
+
+# ── phase 19: the parallel layer on one card ─────────────────────────
+
+MESH_SERVE_ROWS = (1, 100, 4095, 4096)
+MESH_TIME_SHARDS = (1, 2, 4)
+MESH_TIME_REPS = 20
+MESH_SP_SHARDS = (2, 4)
+MESH_SP_ROUTES, MESH_SP_LEGS = 16, 256
+MESH_FIT_ROWS, MESH_FIT_BATCH, MESH_FIT_EPOCHS = 8192, 2048, 2
+# f32 on the card with TF32 off: the JAX tests' classes (forward 1e-5
+# for the MLPs, 2e-4 for the transformer's longer chain; one SGD step's
+# parameters 2e-4 / 5e-4)
+MESH_TP_STEP_TOL = (2e-4, 2e-4)
+MESH_SP_TOL = (2e-4, 2e-4)
+MESH_SP_STEP_TOL = (5e-4, 1e-5)
+
+
+class _Sgd:
+    """optax's ``sgd`` with the port optimizer's interface: a step linear
+    in the gradient, so two programs' f32 gradient noise stays noise in
+    the parameters they are compared by."""
+
+    def __init__(self, params, lr):
+        self.params, self.lr = list(params), lr
+
+    def step(self, grads):
+        import torch
+
+        with torch.no_grad():
+            for p, g in zip(self.params, grads):
+                p.sub_(self.lr * g)
+
+
+def _mesh_rt(data, model=1):
+    import torch
+
+    from routest_tpu_torch.core.config import MeshConfig
+    from routest_tpu_torch.core.mesh import MeshRuntime
+
+    return MeshRuntime.create(MeshConfig(data=data, model=model),
+                              devices=[torch.device(CARD)] * (data * model))
+
+
+def _seq_mesh(n, name="seq"):
+    import numpy as np
+    import torch
+
+    from routest_tpu_torch.core.mesh import Mesh
+
+    grid = np.empty(n, dtype=object)
+    grid[:] = [torch.device(CARD)] * n
+    return Mesh(grid, (name,))
+
+
+def _close_max(got, want, tol, what):
+    """max |got - want| after checking ``got`` within (rtol, atol)."""
+    import numpy as np
+
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    check(got.shape == want.shape, f"{what}: shape {got.shape} vs "
+                                   f"{want.shape}")
+    check(np.isfinite(got).all(), f"{what}: non-finite values")
+    err = np.abs(got - want)
+    bad = err > tol[1] + tol[0] * np.abs(want)
+    check(not bad.any(), f"{what}: {int(bad.sum())} values outside "
+                         f"rtol {tol[0]} / atol {tol[1]} (max abs "
+                         f"{float(err.max()):.3g})")
+    return float(err.max()) if err.size else 0.0
+
+
+def _wall_ms(fn, reps=MESH_TIME_REPS):
+    """Median host ms of ``fn`` ending in a synchronize (the shard
+    programs run on host threads)."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        if CARD == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        if CARD == "cuda":
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return _median(times)
+
+
+def _mesh_serving(rng, record):
+    """(a) a 2-shard data mesh serving the shipped artifact through the
+    app, held to the single-device service; (b)'s TP services; the
+    scoring times of (f)."""
+    import numpy as np
+    import torch
+
+    from routest_tpu_torch.core.config import ServeConfig
+    from routest_tpu_torch.ops.fused_mlp import fused_eta_forward
+    from routest_tpu_torch.serve.ml_service import EtaService
+
+    artifact = os.path.join(ROOT, "artifacts", "eta_mlp.msgpack")
+    single = EtaService(ServeConfig(), model_path=artifact, device=CARD)
+    check(single.available, f"mesh: single service: {single.load_error}")
+    fused_eta_forward.launches = 0
+    mesh_svc = EtaService(ServeConfig(), model_path=artifact,
+                          runtime=_mesh_rt(2))
+    check(mesh_svc.available and mesh_svc.kernel == "torch_mesh",
+          f"mesh: 2-shard service {mesh_svc.kernel} {mesh_svc.load_error}")
+    err = 0.0
+    with _Server(mesh_svc) as msrv, _Server(single) as ssrv:
+        status, health = _request(msrv.port, "GET", "/api/health")
+        mesh = health["checks"]["engine"]["mesh"]
+        want_devices = torch.cuda.device_count() if CARD == "cuda" else 1
+        check(status == 200 and mesh["sharded"] is True
+              and mesh["axis_shapes"] == {"data": 2, "model": 1}
+              and mesh["devices"] == want_devices
+              and mesh["platform"] == CARD, f"mesh: health {mesh}")
+        check(health["checks"]["model"]["scoring"]["kernel"] == "torch_mesh",
+              f"mesh: scoring {health['checks']['model']['scoring']}")
+        one = {"summary": {"distance": 12_500}, "weather": "Stormy",
+               "traffic": "Jam", "pickup_time": "2026-10-16T08:30:00+08:00",
+               "driver_age": 41}
+        launches0 = fused_eta_forward.launches
+        s1, a = _request(msrv.port, "POST", "/api/predict_eta", one)
+        mesh_launches = fused_eta_forward.launches - launches0
+        s2, b = _request(ssrv.port, "POST", "/api/predict_eta", one)
+        check(s1 == s2 == 200 and set(a) == set(b), f"mesh: predict_eta "
+                                                    f"{s1} {s2}")
+        err = max(err, _close_max(
+            [a[k] for k in sorted(a) if k.startswith("eta_minutes")],
+            [b[k] for k in sorted(b) if k.startswith("eta_minutes")],
+            TOL["bfloat16"], "mesh: predict_eta"))
+        for n in MESH_SERVE_ROWS:
+            body = _batch_body(rng, n)
+            launches0 = fused_eta_forward.launches
+            s1, a = _request(msrv.port, "POST", "/api/predict_eta_batch",
+                             body)
+            mesh_launches += fused_eta_forward.launches - launches0
+            s2, b = _request(ssrv.port, "POST", "/api/predict_eta_batch",
+                             body)
+            check(s1 == s2 == 200 and a.get("count") == n,
+                  f"mesh: predict_eta_batch({n}) {s1} {s2}")
+            for key in ("eta_minutes_ml", "eta_minutes_ml_p10",
+                        "eta_minutes_ml_p90"):
+                err = max(err, _close_max(a[key], b[key], TOL["bfloat16"],
+                                          f"mesh: batch({n}) {key}"))
+            check(len(a["eta_completion_time_ml"]) == n,
+                  f"mesh: batch({n}) completion stamps")
+    check(mesh_launches == 0, f"mesh: the mesh service launched the fused "
+                              f"kernel {mesh_launches} times")
+    record["serving"] = {"rows": list(MESH_SERVE_ROWS), "max_abs_err": err,
+                         "fused_launches": mesh_launches,
+                         "health_mesh": mesh}
+    print(f"[mesh] (a) 2-shard data mesh served predict_eta and "
+          f"predict_eta_batch at {list(MESH_SERVE_ROWS)} rows: max abs "
+          f"{err:.3g} vs the single-device service, fused launches "
+          f"{mesh_launches}; health {mesh}")
+
+    # (b) tensor-parallel serving, and (f)'s scoring times
+    x = _batch_rows(_batch_body(rng, 4096))
+    want = single.predict_batch(x)
+    tp_err, times = {}, {}
+    for data, model in ((1, 2), (2, 2)):
+        svc = EtaService(ServeConfig(), model_path=artifact,
+                         runtime=_mesh_rt(data, model))
+        check(svc.available and svc.kernel == "torch_tp",
+              f"mesh: TP {data}x{model}: {svc.kernel} {svc.load_error}")
+        label = f"{data}x{model}"
+        tp_err[label] = _close_max(svc.predict_batch(x), want,
+                                   TOL["bfloat16"], f"mesh: TP {label}")
+        times[f"tp_{label}_ms"] = _wall_ms(lambda: svc._score(x))
+    for n in MESH_TIME_SHARDS:
+        svc = EtaService(ServeConfig(), model_path=artifact,
+                         runtime=_mesh_rt(n))
+        check(svc.kernel == "torch_mesh", f"mesh: {n} shards {svc.kernel}")
+        _close_max(svc.predict_batch(x), want, TOL["bfloat16"],
+                   f"mesh: {n}-shard scoring")
+        times[f"mesh_{n}_shards_ms"] = _wall_ms(lambda: svc._score(x))
+    times["single_device_fused_ms"] = _wall_ms(lambda: single._score(x))
+    record["tp_serving_max_abs_err"] = tp_err
+    record["scoring_4096_rows"] = times
+    print(f"[mesh] (b) TP serving (1x2, 2x2) vs the single-device "
+          f"service: max abs {tp_err}")
+    return mesh_launches
+
+
+def _mesh_tp_step(rng, record):
+    """(b) one TP train step at full width against the dense step."""
+    import numpy as np
+    import torch
+
+    from routest_tpu_torch.core import prng
+    from routest_tpu_torch.core.dtypes import F32_POLICY
+    from routest_tpu_torch.models.eta_mlp import EtaMLP
+    from routest_tpu_torch.parallel import tensor as ttp
+
+    dense = EtaMLP(policy=F32_POLICY).init(prng.prng_key(2)).to(CARD)
+    x = torch.from_numpy(_batch_rows(_batch_body(rng, 4096))).to(CARD)
+    y = torch.linspace(5.0, 60.0, 4096, device=CARD)
+    params = ttp.tp_params_from_module(dense)
+    out = {}
+    for data, model in ((1, 2), (2, 2)):
+        rt = _mesh_rt(data, model)
+        sharded = ttp.shard_tp_params(params, dense, rt.mesh)
+        with torch.no_grad():
+            fwd = ttp.make_tp_apply(dense, rt.mesh)(sharded, x)
+            _close_max(fwd.cpu(), dense(x).cpu(), (1e-5, 1e-5),
+                       f"mesh: TP {data}x{model} forward")
+        step = ttp.make_tp_train_step(
+            dense, _Sgd(ttp.tp_trainable(sharded)[0], 1e-3), rt.mesh)
+        _, loss = step(sharded, x, y)
+        ref = EtaMLP(policy=F32_POLICY).init(prng.prng_key(2)).to(CARD)
+        opt = _Sgd(ref.parameters(), 1e-3)
+        d_loss = torch.mean((ref(x) - y) ** 2)
+        opt.step(torch.autograd.grad(d_loss, opt.params))
+        d_loss = float(d_loss.detach())
+        check(abs(float(loss) - d_loss) <= 1e-5 * abs(d_loss),
+              f"mesh: TP loss {float(loss)} vs dense {d_loss}")
+        got = ttp.tp_params_to_numpy(sharded)
+        want = ttp.tp_params_to_numpy(ttp.tp_params_from_module(ref))
+        err = max(_close_max(g[k], w[k], MESH_TP_STEP_TOL,
+                             f"mesh: TP step layer {i} {k}")
+                  for i, (g, w) in enumerate(zip(got["layers"],
+                                                 want["layers"]))
+                  for k in ("b", "w"))
+        out[f"{data}x{model}"] = {"loss": float(loss),
+                                  "params_max_abs_err": err}
+    record["tp_train_step"] = out
+    print(f"[mesh] (b) TP train step (1x2, 2x2) vs the dense step: {out}")
+
+
+def _mesh_sp(rng, record):
+    """(c) ring and Ulysses at 2 and 4 shards on the route transformer
+    at its default widths, held to full attention; one SP train step
+    held to the dense step; (f)'s attention times."""
+    import numpy as np
+    import torch
+
+    from routest_tpu_torch.core import prng
+    from routest_tpu_torch.data.road_graph import generate_road_graph
+    from routest_tpu_torch.models import route_transformer as ttf
+    from routest_tpu_torch.parallel.ring import (full_attention,
+                                                 ring_attention_sharded)
+    from routest_tpu_torch.parallel.ulysses import ulysses_attention_sharded
+
+    graph = generate_road_graph(n_nodes=2048, k=4, seed=0)
+    feats, freeflow, targets, mask = (
+        torch.from_numpy(a).to(CARD) for a in ttf.sample_route_sequences(
+            graph, MESH_SP_ROUTES, MESH_SP_LEGS, seed=3))
+    check(float(mask.sum()) < mask.numel(), "mesh: no masked legs")
+    model = ttf.RouteTransformer().init(prng.prng_key(0)).to(CARD)
+    positions = torch.arange(MESH_SP_LEGS, device=CARD)
+    with torch.no_grad():
+        want = model.predict(feats, freeflow, positions, key_mask=mask)
+    fwd_err = {}
+    for flavor in ("ring", "ulysses"):
+        for n in MESH_SP_SHARDS:
+            with torch.no_grad():
+                got = ttf.make_sp_apply(model, _seq_mesh(n), flavor=flavor)(
+                    feats, freeflow, mask)
+            fwd_err[f"{flavor}_{n}"] = _close_max(
+                got.cpu(), want.cpu(), MESH_SP_TOL,
+                f"mesh: SP {flavor} at {n} shards")
+    step_err = {}
+    for flavor in ("ring", "ulysses"):
+        sp_model = ttf.RouteTransformer().init(prng.prng_key(0)).to(CARD)
+        step = ttf.make_sp_train_step(
+            sp_model, _Sgd(sp_model.parameters(), 1e-4),
+            _seq_mesh(MESH_SP_SHARDS[-1]), flavor=flavor)
+        loss = float(step(feats, freeflow, targets, mask))
+        ref = ttf.RouteTransformer().init(prng.prng_key(0)).to(CARD)
+        opt = _Sgd(ref.parameters(), 1e-4)
+        d_loss = ref.loss(feats, freeflow, positions, targets, mask)
+        opt.step(torch.autograd.grad(d_loss, opt.params))
+        d_loss = float(d_loss.detach())
+        check(abs(loss - d_loss) <= 1e-4 * abs(d_loss),
+              f"mesh: SP {flavor} loss {loss} vs dense {d_loss}")
+        step_err[flavor] = max(
+            _close_max(a.detach().cpu(), b.detach().cpu(), MESH_SP_STEP_TOL,
+                       f"mesh: SP {flavor} step")
+            for a, b in zip(sp_model.parameters(), ref.parameters()))
+    # attention alone at phase (c)'s longest shape
+    b, s, h = MESH_SP_ROUTES, MESH_SP_LEGS, model.n_heads
+    d = model.d_model // h
+    g = torch.Generator(device=CARD).manual_seed(0)
+    q, k, v = (torch.randn((b, s, h, d), generator=g, device=CARD)
+               for _ in range(3))
+    n = MESH_SP_SHARDS[-1]
+    mesh = _seq_mesh(n)
+    with torch.no_grad():
+        times = {"shape_bshd": [b, s, h, d], "shards": n,
+                 "full_ms": _wall_ms(lambda: full_attention(q, k, v, mask)),
+                 "ring_ms": _wall_ms(lambda: ring_attention_sharded(
+                     q, k, v, mesh, key_mask=mask)),
+                 "ulysses_ms": _wall_ms(lambda: ulysses_attention_sharded(
+                     q, k, v, mesh, key_mask=mask))}
+        full = full_attention(q, k, v, mask)
+        for name, fn in (("ring", ring_attention_sharded),
+                         ("ulysses", ulysses_attention_sharded)):
+            _close_max(fn(q, k, v, mesh, key_mask=mask).cpu(), full.cpu(),
+                       (1e-5, 1e-5), f"mesh: {name} attention")
+    record["sp"] = {"forward_max_abs_err": fwd_err,
+                    "train_step_max_abs_err": step_err,
+                    "routes": MESH_SP_ROUTES, "legs": MESH_SP_LEGS}
+    record["attention_times"] = times
+    print(f"[mesh] (c) SP forward vs full attention {fwd_err}; one SP "
+          f"train step vs dense {step_err}")
+
+
+def _mesh_programs(rng, record):
+    """(d) the GNN's edge-sharded loss and step, ``fit`` with a runtime,
+    ``rank_routes`` with a runtime, the pipeline and the experts, each
+    at 2 shards against its dense counterpart."""
+    import numpy as np
+    import torch
+
+    from routest_tpu_torch.core import prng
+    from routest_tpu_torch.core.config import TrainConfig
+    from routest_tpu_torch.core.dtypes import F32_POLICY
+    from routest_tpu_torch.data.road_graph import generate_road_graph
+    from routest_tpu_torch.data.synthetic import generate_dataset
+    from routest_tpu_torch.models import gnn as tgnn
+    from routest_tpu_torch.models.eta_mlp import EtaMLP
+    from routest_tpu_torch.optimize.ranking import rank_routes
+    from routest_tpu_torch.parallel import expert as tex
+    from routest_tpu_torch.parallel import pipeline as tpp
+    from routest_tpu_torch.train.loop import fit
+
+    out = {}
+    rt = _mesh_rt(2)
+    # the GNN on the generated 2048-node graph
+    graph = generate_road_graph(n_nodes=2048, k=4, seed=0)
+    coords = torch.from_numpy(graph["node_coords"]).to(CARD)
+    gnn = tgnn.RoadGNN(2048, policy=F32_POLICY).init(prng.prng_key(1))
+    gnn = gnn.to(CARD)
+    dense_batch = tgnn.graph_batch(graph, device=CARD)
+    padded = tgnn.graph_batch(graph, pad_to=rt.n_data, device=CARD)
+    with torch.no_grad():
+        dense = float(gnn.loss(coords, dense_batch))
+        sharded = float(gnn.make_sharded_loss(rt.mesh)(coords, padded))
+    check(abs(dense - sharded) < 1e-2 * max(1.0, dense),
+          f"mesh: GNN sharded loss {sharded} vs dense {dense}")
+    ref = tgnn.RoadGNN(2048, policy=F32_POLICY).init(prng.prng_key(1))
+    ref = ref.to(CARD)
+    step = gnn.make_sharded_train_step(rt.mesh,
+                                       _Sgd(gnn.parameters(), 1e-3))
+    step(coords, padded)
+    opt = _Sgd(ref.parameters(), 1e-3)
+    opt.step(torch.autograd.grad(ref.loss(coords, dense_batch), opt.params))
+    gnn_err = max(_close_max(a.detach().cpu(), b.detach().cpu(),
+                             (5e-4, 1e-5), "mesh: GNN sharded step")
+                  for a, b in zip(gnn.parameters(), ref.parameters()))
+    out["gnn"] = {"dense_loss": dense, "sharded_loss": sharded,
+                  "step_max_abs_err": gnn_err}
+    # fit, full width, f32
+    data = generate_dataset(MESH_FIT_ROWS, seed=0)
+    ev = generate_dataset(2048, seed=1)
+    cfg = TrainConfig(batch_size=MESH_FIT_BATCH, epochs=MESH_FIT_EPOCHS)
+    a = fit(EtaMLP(policy=F32_POLICY), data, ev, cfg, runtime=rt)
+    b = fit(EtaMLP(policy=F32_POLICY), data, ev, cfg, device=CARD)
+    _close_max(a.train_losses, b.train_losses, (1e-4, 0.0),
+               "mesh: fit losses")
+    _close_max([a.eval_rmse], [b.eval_rmse], (1e-4, 0.0), "mesh: fit rmse")
+    out["fit"] = {"losses_mesh": a.train_losses,
+                  "losses_single": b.train_losses,
+                  "eval_rmse_mesh": a.eval_rmse,
+                  "eval_rmse_single": b.eval_rmse}
+    # ranking: the same orders
+    pts = rng.uniform(0, 10, size=(10, 2))
+    dist = (np.sqrt(((pts[:, None] - pts[None]) ** 2).sum(-1))
+            * 1000.0).astype(np.float32)
+    ranked = rank_routes(dist, k=5, device=CARD, runtime=rt)
+    single = rank_routes(dist, k=5, device=CARD)
+    check(np.array_equal(ranked.orders, single.orders)
+          and np.array_equal(ranked.distances_m, single.distances_m),
+          "mesh: sharded ranking differs")
+    out["ranking"] = {"orders_equal": True, "stops": 9}
+    # pipeline: 2 stages of a 256-wide block, 8 microbatches
+    d = 256
+    stages = [{"w": torch.from_numpy((rng.standard_normal((d, d)) * 0.05)
+                                     .astype(np.float32)),
+               "b": torch.zeros(d)} for _ in range(2)]
+    x = torch.from_numpy(rng.standard_normal((64, d)).astype(np.float32))
+
+    def stage_fn(p, x):
+        return torch.nn.functional.gelu(x @ p["w"] + p["b"],
+                                        approximate="tanh")
+
+    pmesh = _seq_mesh(2, "stage")
+    with torch.no_grad():
+        got = tpp.make_pipeline_apply(stage_fn, pmesh)(
+            tpp.shard_stage_params(tpp.stack_stage_params(stages), pmesh),
+            tpp.microbatch(x, 8)).reshape(64, d)
+        want = tpp.sequential_apply(
+            stage_fn, [{k: v.to(CARD) for k, v in st.items()}
+                       for st in stages], x.to(CARD))
+    out["pipeline_max_abs_err"] = _close_max(
+        got.cpu(), want.cpu(), (1e-5, 1e-5), "mesh: pipeline")
+    # experts: 2 experts, capacity for every token
+    emesh = _seq_mesh(2, "expert")
+    params = tex.init_moe_params(prng.prng_key(0), 2, 64, 256)
+    tokens = torch.from_numpy(rng.standard_normal((512, 64))
+                              .astype(np.float32))
+    with torch.no_grad():
+        y, aux = tex.make_moe_apply(emesh, capacity_factor=2.0)(
+            tex.shard_moe_params(params, emesh), tokens)
+        want = tex.moe_apply_dense({k: v.to(CARD) for k, v in
+                                    params.items()}, tokens.to(CARD))
+    check(float(aux["dropped_frac"]) == 0.0, f"mesh: experts dropped "
+                                             f"{float(aux['dropped_frac'])}")
+    out["expert_max_abs_err"] = _close_max(y.cpu(), want.cpu(),
+                                           (1e-4, 1e-5), "mesh: experts")
+    out["expert_load_balance_loss"] = float(aux["load_balance_loss"])
+    record["programs"] = out
+    print(f"[mesh] (d) GNN loss {sharded:.6g} vs {dense:.6g}, step max "
+          f"abs {gnn_err:.3g}; fit losses {a.train_losses} vs "
+          f"{b.train_losses}; ranking orders equal; pipeline max abs "
+          f"{out['pipeline_max_abs_err']:.3g}; experts max abs "
+          f"{out['expert_max_abs_err']:.3g}")
+
+
+def _mesh_distributed(record):
+    """(e) ``core/distributed.py`` at world size 1: initialize, one
+    all-reduce, ``multihost_runtime``, shutdown."""
+    import torch
+    import torch.distributed as dist
+
+    from routest_tpu_torch.core import distributed
+    from routest_tpu_torch.serve.fleet.supervisor import free_port
+
+    backend = "nccl" if CARD == "cuda" else "gloo"
+    distributed.initialize(f"127.0.0.1:{free_port()}", num_processes=1,
+                           process_id=0, backend=backend)
+    try:
+        t = torch.arange(4.0, device=CARD)
+        dist.all_reduce(t)
+        check(t.tolist() == [0.0, 1.0, 2.0, 3.0], f"mesh: all_reduce {t}")
+        runtime = distributed.multihost_runtime()
+        check(runtime.mesh.processes == 1 and runtime.device.type == CARD,
+              f"mesh: multihost runtime {runtime.mesh}")
+        shape = dict(runtime.mesh.shape)
+        got_backend = dist.get_backend()
+    finally:
+        distributed.shutdown()
+    check(not distributed.is_initialized(), "mesh: still initialized")
+    record["distributed"] = {"backend": got_backend, "mesh": shape}
+    print(f"[mesh] (e) distributed at world size 1 over {got_backend}: "
+          f"all_reduce ok, multihost mesh {shape}, shut down")
+
+
+def phase_mesh(smi_line):
+    """Phase 19, the parallel layer on the card. → (record, fused
+    launches over the mesh service's requests, which must be 0)."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(19)
+    record = {}
+    launches = _mesh_serving(rng, record)
+    _mesh_tp_step(rng, record)
+    _mesh_sp(rng, record)
+    _mesh_programs(rng, record)
+    _mesh_distributed(record)
+    record["card"] = smi_line
+    record["wall_s"] = time.perf_counter() - t0
+    print(f"[mesh] (f) 4096-row scoring ms {record['scoring_4096_rows']}; "
+          f"attention ms {record['attention_times']} | {smi_line} (shards "
+          f"share one card: no speed claim)")
+    print(json.dumps({"mesh": record}))
     return record, launches
 
 
@@ -6388,6 +6895,8 @@ def main() -> int:
         _, regions_launches = phase_regions(smi_line)
         phase = "loadgen"
         _, loadgen_launches = phase_loadgen(smi_line)
+        phase = "mesh"
+        _, mesh_launches = phase_mesh(smi_line)
         phase = "times"
         table = phase_times(rng)
     except Exception as e:
@@ -6439,6 +6948,9 @@ def main() -> int:
     # one server and a two-replica fleet (other processes), read from
     # their /api/metrics before and after
     kernels[0]["launches_loadgen"] = loadgen_launches
+    # ... and over phase 19's mesh service: none, as the JAX package
+    # serves a mesh without its fused kernel
+    kernels[0]["launches_mesh"] = mesh_launches
     print(json.dumps({"kernels": kernels}))
     print(f"{smi_line}")
     print(json.dumps({"ok": True, "device": {

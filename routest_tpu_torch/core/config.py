@@ -11,7 +11,8 @@ and defaults (``ETA_MODEL_PATH``, ``PORT``, ``RTPU_*``, ``RTPU_LIVE_*``,
 ``RTPU_PROBER_*``, ``RTPU_EFF*``, ``RTPU_LEDGER*``, ``RTPU_SLO*``,
 ``RTPU_RECORDER*``, ``RTPU_CHAOS*``, and the fleet's ``RTPU_FLEET_*``,
 ``RTPU_GATEWAY_*``, ``RTPU_REGION``, ``RTPU_AUTOSCALE*`` and
-``RTPU_ROLLOUT_*``), plus the port's own ``ROUTEST_DEVICE``. Three
+``RTPU_ROLLOUT_*``, and the mesh's ``RTPU_MESH_DATA`` and
+``RTPU_MESH_MODEL``), plus the port's own ``ROUTEST_DEVICE``. Three
 defaults differ, each naming the port's own record:
 ``RTPU_EFF_KERNEL_ARTIFACT`` falls back to
 ``artifacts/serving_kernel_cuda.json``, and ``RTPU_EFF_CHIPS_ARTIFACT``
@@ -33,6 +34,18 @@ def _env(env: Mapping[str, str], *names: str,
         if value:
             return value
     return default
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Logical device mesh. ``data`` is the primary throughput axis
+    (OD-pair batches); ``model`` carries tensor-parallel weights.
+    ``-1`` means "all remaining devices".
+    """
+
+    data: int = -1
+    model: int = 1
+    axis_names: Tuple[str, str] = ("data", "model")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -661,6 +674,7 @@ class ChaosConfig:
 
 @dataclasses.dataclass(frozen=True)
 class Config:
+    mesh: MeshConfig = MeshConfig()
     model: ModelConfig = ModelConfig()
     train: TrainConfig = TrainConfig()
     serve: ServeConfig = ServeConfig()
@@ -735,6 +749,10 @@ def load_config(env: Optional[Mapping[str, str]] = None) -> Config:
                           f"using {default}")
             return default
 
+    mesh = MeshConfig(
+        data=_int("RTPU_MESH_DATA", -1),
+        model=_int("RTPU_MESH_MODEL", 1),
+    )
     model = ModelConfig(
         model_path=_env(env, "ETA_MODEL_PATH", "RTPU_MODEL_PATH"),
     )
@@ -794,7 +812,7 @@ def load_config(env: Optional[Mapping[str, str]] = None) -> Config:
         or FLEET_CHIPS_RECORD,
         region=env.get("RTPU_REGION", ""),
     )
-    return Config(model=model, train=train, serve=serve,
+    return Config(mesh=mesh, model=model, train=train, serve=serve,
                   fleet=fleet, autoscale=load_autoscale_config(env),
                   rollout=load_rollout_config(env),
                   live=load_live_config(env),

@@ -72,6 +72,33 @@ def quantile_heads_unfused(out: torch.Tensor, dist_km: torch.Tensor,
     return pace * dist_km[..., None] + overhead
 
 
+def expand_features(x: torch.Tensor, norm_mean: torch.Tensor,
+                    norm_std: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ABI features (B,12) → internal bases (B,42) + distance_km (B,),
+    with the normalizer's (12,) mean and std."""
+    cat = x[..., 0:8]
+    weekday = x[..., 8].to(torch.int32)   # truncation, like astype(int32)
+    hour = x[..., 9].to(torch.int32)
+    # Clamp distance once: a negative distance from a malformed request
+    # must not produce a negative ETA downstream.
+    dist_km = torch.clamp_min(x[..., 10], 0.0)
+    age = x[..., 11]
+    # index outside [0, n) → all-zero group, like jax.nn.one_hot
+    wd_oh = (weekday[..., None] == torch.arange(
+        _N_WEEKDAYS, device=x.device)).to(x.dtype)
+    hr_oh = (hour[..., None] == torch.arange(
+        _N_HOURS, device=x.device)).to(x.dtype)
+    dist_n = (dist_km - norm_mean[10]) / norm_std[10]
+    age_n = (age - norm_mean[11]) / norm_std[11]
+    log_dist = torch.log1p(dist_km)
+    feats = torch.cat(
+        [cat, wd_oh, hr_oh,
+         dist_n[..., None], log_dist[..., None], age_n[..., None]],
+        dim=-1)
+    return feats, dist_km
+
+
 def host_array(t: torch.Tensor) -> np.ndarray:
     """A float32 host copy of a parameter or buffer."""
     return t.detach().to("cpu", torch.float32).numpy().copy()
@@ -188,26 +215,7 @@ class EtaMLP(nn.Module):
 
     def _expand(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """ABI features (B,12) → internal bases (B,42) + distance_km (B,)."""
-        cat = x[..., 0:8]
-        weekday = x[..., 8].to(torch.int32)   # truncation, like astype(int32)
-        hour = x[..., 9].to(torch.int32)
-        # Clamp distance once: a negative distance from a malformed
-        # request must not produce a negative ETA downstream.
-        dist_km = torch.clamp_min(x[..., 10], 0.0)
-        age = x[..., 11]
-        # index outside [0, n) → all-zero group, like jax.nn.one_hot
-        wd_oh = (weekday[..., None] == torch.arange(
-            _N_WEEKDAYS, device=x.device)).to(x.dtype)
-        hr_oh = (hour[..., None] == torch.arange(
-            _N_HOURS, device=x.device)).to(x.dtype)
-        dist_n = (dist_km - self.norm_mean[10]) / self.norm_std[10]
-        age_n = (age - self.norm_mean[11]) / self.norm_std[11]
-        log_dist = torch.log1p(dist_km)
-        feats = torch.cat(
-            [cat, wd_oh, hr_oh,
-             dist_n[..., None], log_dist[..., None], age_n[..., None]],
-            dim=-1)
-        return feats, dist_km
+        return expand_features(x, self.norm_mean, self.norm_std)
 
     def _trunk(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Shared forward: raw head outputs (B, n_heads) + distance."""

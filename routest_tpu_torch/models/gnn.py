@@ -20,13 +20,16 @@ Training keeps the JAX split between messages and loss: the batch's
 reads — the live trainer labels only probed edges while every real
 edge still carries messages. Autograd differentiates the same forward
 the router serves; :meth:`RoadGNN.init` draws the JAX ``init``'s weights
-from the port's threefry. The edge-sharded loss and train step
-(``make_sharded_loss``, ``make_sharded_train_step``) wait for Queue A
-item 9.
+from the port's threefry. :meth:`RoadGNN.make_sharded_loss` and
+:meth:`RoadGNN.make_sharded_train_step` split the edges over a mesh's
+``data`` axis (``core/smap.py``): node states stay whole on every shard,
+and one ``psum`` per round (and one for the degrees) combines the
+shards' neighbourhood aggregations, as the JAX package's do.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
@@ -126,6 +129,10 @@ def copy_layers(linears, layers: List[Dict]) -> None:
                                                         np.float32)))
 
 
+def _identity(x):
+    return x
+
+
 def mlp(linears: nn.ModuleList, x: torch.Tensor,
         compute: torch.dtype) -> torch.Tensor:
     """The JAX ``_mlp``: tanh-gelu between layers, none after the last,
@@ -195,9 +202,12 @@ class RoadGNN(nn.Module):
     def predict(self, node_coords: torch.Tensor, senders: torch.Tensor,
                 receivers: torch.Tensor, edge_feats: torch.Tensor,
                 length_m: torch.Tensor, speed_limit: torch.Tensor,
-                weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+                weights: Optional[torch.Tensor] = None,
+                combine=_identity) -> torch.Tensor:
         """The differentiable forward: (E,) predicted seconds. Edges of
-        weight 0 (padding) send no message and count in no degree."""
+        weight 0 (padding) send no message and count in no degree.
+        ``combine`` merges per-shard node aggregations (the identity on
+        one device; a ``psum`` in a sharded program)."""
         c = self.policy.compute_dtype
         center = torch.tensor([14.54, 121.03], dtype=node_coords.dtype,
                               device=node_coords.device)
@@ -206,8 +216,8 @@ class RoadGNN(nn.Module):
         ef = edge_feats.to(c)
         w = (torch.ones(senders.shape[0], dtype=c, device=ef.device)
              if weights is None else weights.to(c))
-        degree = torch.zeros(self.n_nodes, dtype=c, device=ef.device
-                             ).index_add(0, receivers, w)
+        degree = combine(torch.zeros(self.n_nodes, dtype=c, device=ef.device
+                                     ).index_add(0, receivers, w))
         inv_deg = (1.0 / torch.clamp(degree, min=1.0))[:, None]
         for _ in range(self.n_rounds):
             m_in = torch.cat([h[senders], h[receivers], ef], dim=-1)
@@ -217,7 +227,7 @@ class RoadGNN(nn.Module):
             agg = torch.zeros((self.n_nodes, messages.shape[1]), dtype=c,
                               device=ef.device).index_add(0, receivers,
                                                           messages)
-            agg = agg * inv_deg
+            agg = combine(agg) * inv_deg
             h = h + F.gelu(self._mlp("upd", torch.cat([h, agg], dim=-1)),
                            approximate="tanh")
             h = ((h - h.mean(-1, keepdim=True))
@@ -228,12 +238,52 @@ class RoadGNN(nn.Module):
         return freeflow * softplus(out[..., 0]) + softplus(out[..., 1])
 
     def loss(self, node_coords: torch.Tensor, batch: GraphBatch,
-             loss_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+             loss_weights: Optional[torch.Tensor] = None,
+             combine=_identity, reduce=_identity) -> torch.Tensor:
         """Weighted MSE over the edges ``loss_weights`` selects (default:
-        the batch's message mask)."""
+        the batch's message mask); ``combine`` as in :meth:`predict`,
+        ``reduce`` sums the per-shard error and count."""
         pred = self.predict(node_coords, batch.senders, batch.receivers,
                             batch.edge_feats, batch.length_m,
-                            batch.speed_limit, weights=batch.weights)
+                            batch.speed_limit, weights=batch.weights,
+                            combine=combine)
         lw = batch.weights if loss_weights is None else loss_weights
         err = (pred - batch.targets) ** 2 * lw
-        return err.sum() / torch.clamp_min(lw.sum(), 1.0)
+        return reduce(err.sum()) / torch.clamp_min(reduce(lw.sum()), 1.0)
+
+    # ── mesh-parallel build ────────────────────────────────────────────
+
+    def make_sharded_loss(self, mesh, data_axis: str = "data"):
+        """(node_coords, batch) → the loss with the batch's edges split
+        over ``data_axis`` (their count must divide by it: pad with
+        ``graph_batch(pad_to=...)``), node states whole on every shard,
+        one ``psum`` per round combining the aggregations. The model's
+        parameters reach every shard (``core/smap.replica_on``)."""
+        from routest_tpu_torch.core import smap
+        from routest_tpu_torch.core.smap import P, shard_map
+
+        combine = functools.partial(smap.psum, axis_name=data_axis)
+
+        def sharded_loss(node_coords, batch):
+            model = smap.replica_on(self, node_coords.device)
+            return model.loss(node_coords, batch, combine=combine,
+                              reduce=combine)
+
+        return shard_map(sharded_loss, mesh,
+                         (P(), GraphBatch(*([P(data_axis)] * 7))), P())
+
+    def make_sharded_train_step(self, mesh, optimizer,
+                                data_axis: str = "data"):
+        """(node_coords, batch) → loss: one edge-sharded training step.
+        ``optimizer`` holds this module's parameters (the port's AdamW,
+        or anything with its ``params``/``step(grads)`` interface) and
+        steps them in place."""
+        loss_fn = self.make_sharded_loss(mesh, data_axis)
+
+        def step(node_coords, batch):
+            loss = loss_fn(node_coords, batch)
+            grads = torch.autograd.grad(loss, optimizer.params)
+            optimizer.step(grads)
+            return loss.detach()
+
+        return step

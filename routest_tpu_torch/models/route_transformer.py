@@ -7,20 +7,21 @@ a sinusoidal position encoding, ``n_layers`` pre-LN encoder blocks
 (multi-head self-attention, tanh-gelu MLP), and a head that scales the
 free-flow time by ``softplus(w·h + b + 1)``.
 
-Attention is a private copy of the JAX package's single-device
-``full_attention`` (``routest_tpu/parallel/ring.py:36-58``), op for op:
-masked scores filled with a finite ``-1e30``, softmax, re-masked,
-renormalized with a ``1e-30`` floor, and fully masked rows zeroed.
-``scaled_dot_product_attention`` would treat a fully masked row
-differently. Training differentiates the same forward with autograd;
-:func:`sample_route_sequences` is host numpy, bitwise the JAX package's.
-The sequence-parallel flavours (ring, Ulysses: ``make_sp_apply``,
-``make_sp_train_step``) wait for Queue A item 9.
+Attention is ``parallel/ring.py``'s ``full_attention``, the JAX
+package's op for op: masked scores filled with a finite ``-1e30``,
+softmax, re-masked, renormalized with a ``1e-30`` floor, and fully
+masked rows zeroed (``scaled_dot_product_attention`` would treat a fully
+masked row differently). Training differentiates the same forward with
+autograd; :func:`sample_route_sequences` is host numpy, bitwise the JAX
+package's. :func:`make_sp_apply` and :func:`make_sp_train_step` split
+the leg axis over a mesh axis, with ring or Ulysses attention and
+global positions per shard.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import functools
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,8 +33,8 @@ from routest_tpu_torch.models.eta_mlp import (host_array, layers_to_numpy,
                                               softplus)
 from routest_tpu_torch.models.gnn import (N_EDGE_FEATURES, copy_layers,
                                           edge_feature_array)
-
-_NEG = -1e30
+from routest_tpu_torch.parallel.ring import full_attention, ring_attention
+from routest_tpu_torch.parallel.ulysses import ulysses_attention
 
 
 def positional_encoding(positions: torch.Tensor, d_model: int) -> torch.Tensor:
@@ -44,23 +45,6 @@ def positional_encoding(positions: torch.Tensor, d_model: int) -> torch.Tensor:
                       * step.to(positions.device))
     ang = positions.to(torch.float32)[:, None] * freqs[None, :]
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
-
-
-def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(B, S, H, D) → (B, S, H, D), masked by ``key_mask`` (B, S) with
-    1.0 = a real token."""
-    scale = q.shape[-1] ** -0.5
-    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
-    mask = torch.ones(s.shape[-1], dtype=torch.bool,
-                      device=s.device)[None, None, None, :]
-    if key_mask is not None:
-        mask = mask & (key_mask[:, None, None, :] > 0)
-    s = torch.where(mask, s, torch.full_like(s, _NEG))
-    p = torch.softmax(s, dim=-1) * mask
-    denom = torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
-    p = p / denom * torch.clamp(mask.sum(-1, keepdim=True), 0, 1)
-    return torch.einsum("bhqk,bkhd->bqhd", p, v)
 
 
 def _ln(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
@@ -182,8 +166,13 @@ class RouteTransformer(nn.Module):
 
     def predict(self, feats: torch.Tensor, freeflow_s: torch.Tensor,
                 positions: torch.Tensor,
-                key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """The differentiable forward: (B, S) predicted leg seconds."""
+                key_mask: Optional[torch.Tensor] = None,
+                attn_impl: Optional[Callable] = None) -> torch.Tensor:
+        """The differentiable forward: (B, S) predicted leg seconds.
+        ``attn_impl(q, k, v, key_mask=...)`` defaults to
+        ``full_attention``; sequence-parallel callers pass the ring or
+        Ulysses per-shard program."""
+        attn = attn_impl if attn_impl is not None else full_attention
         b, s, _ = feats.shape
         dh = self.d_model // self.n_heads
         h = _dense(self.embed, feats)
@@ -193,7 +182,7 @@ class RouteTransformer(nn.Module):
             q, k, v = (_dense(block.proj[n], z).reshape(b, s, self.n_heads,
                                                         dh)
                        for n in ("q", "k", "v"))
-            out = full_attention(q, k, v, key_mask=key_mask)
+            out = attn(q, k, v, key_mask=key_mask)
             h = h + out.reshape(b, s, self.d_model) @ block.proj["o"].weight.T \
                 + block.proj["o"].bias
             z = _ln(block.ln2, h)
@@ -225,6 +214,77 @@ class RouteTransformer(nn.Module):
         sq, cnt = self.squared_residual(pred, targets, freeflow_s, mask,
                                         relative)
         return sq / torch.clamp_min(cnt, 1.0)
+
+
+_SP_FLAVORS = {"ring": ring_attention, "ulysses": ulysses_attention}
+
+
+def _sp_program(model: RouteTransformer, seq_axis: str, n: int,
+                flavor: str):
+    """Per-shard forward: this shard's leg block with GLOBAL positions
+    (shard i encodes offsets i·s_local … (i+1)·s_local) and the flavour's
+    attention talking to the other shards mid-forward."""
+    from routest_tpu_torch.core import smap
+
+    per_shard = _SP_FLAVORS[flavor]
+
+    def forward(feats, freeflow_s, mask):
+        s_local = feats.shape[1]
+        positions = smap.axis_index(seq_axis) * s_local \
+            + torch.arange(s_local, device=feats.device)
+        attn = functools.partial(per_shard, axis_name=seq_axis, axis_size=n)
+        replica = smap.replica_on(model, feats.device)
+        return replica, replica.predict(feats, freeflow_s, positions,
+                                        key_mask=mask, attn_impl=attn)
+
+    return forward
+
+
+def make_sp_apply(model: RouteTransformer, mesh, seq_axis: str = "seq",
+                  flavor: str = "ring"):
+    """(feats, freeflow_s, mask) → (B, S) with the LEG axis split over
+    ``seq_axis`` — the sequence-parallel forward. ``flavor``: "ring"
+    (K/V rotation) or "ulysses" (seq↔head all-to-all; needs ``n_heads %
+    axis_size == 0``)."""
+    from routest_tpu_torch.core.smap import P, shard_map
+
+    forward = _sp_program(model, seq_axis, mesh.shape[seq_axis], flavor)
+    seq_spec = P(None, seq_axis)
+    return shard_map(lambda f, ff, m: forward(f, ff, m)[1], mesh,
+                     (seq_spec, seq_spec, seq_spec), seq_spec)
+
+
+def make_sp_train_step(model: RouteTransformer, optimizer, mesh,
+                       seq_axis: str = "seq", flavor: str = "ring"):
+    """(feats, freeflow_s, targets, mask) → loss: a SEQUENCE-PARALLEL
+    training step on the masked mean relative residual. Gradients flow
+    back through the ring's hops (or Ulysses' all-to-alls), so no shard
+    materializes the full attention matrix while training.
+    ``optimizer`` holds the model's parameters (the port's AdamW, or
+    anything with its ``params``/``step(grads)`` interface)."""
+    from routest_tpu_torch.core import smap
+    from routest_tpu_torch.core.smap import P, shard_map
+
+    forward = _sp_program(model, seq_axis, mesh.shape[seq_axis], flavor)
+    seq_spec = P(None, seq_axis)
+
+    def local_loss(feats, freeflow_s, targets, mask):
+        replica, pred = forward(feats, freeflow_s, mask)
+        sq, cnt = replica.squared_residual(pred, targets, freeflow_s, mask)
+        # the global mean: every shard's residual sum over every
+        # shard's count
+        total_cnt = torch.clamp_min(smap.psum(cnt, seq_axis), 1.0)
+        return smap.psum(sq, seq_axis) / total_cnt
+
+    loss_fn = shard_map(local_loss, mesh, (seq_spec,) * 4, P())
+
+    def step(feats, freeflow_s, targets, mask):
+        loss = loss_fn(feats, freeflow_s, targets, mask)
+        grads = torch.autograd.grad(loss, optimizer.params)
+        optimizer.step(grads)
+        return loss.detach()
+
+    return step
 
 
 # ── training data: routes sampled from the road graph ────────────────────

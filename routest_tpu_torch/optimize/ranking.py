@@ -18,8 +18,10 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from routest_tpu_torch.core import prng
+from routest_tpu_torch.core import prng, smap
 from routest_tpu_torch.core.config import resolve_device
+from routest_tpu_torch.core.mesh import pad_to_multiple
+from routest_tpu_torch.core.smap import P, shard_map
 from routest_tpu_torch.data.features import encode_features
 from routest_tpu_torch.models.eta_mlp import EtaMLP
 
@@ -141,6 +143,7 @@ def rank_routes(
     greedy_order: Optional[np.ndarray] = None,
     return_to_origin: bool = True,
     device=None,
+    runtime=None,
 ) -> RankedRoutes:
     """Score candidates and return the k best.
 
@@ -149,19 +152,30 @@ def rank_routes(
     argument) is given, else path
     duration at profile speed. ``context`` carries the weather/traffic/
     weekday/hour/driver_age the 12-feature encoding needs. Ties go to the
-    lower candidate index, as with ``lax.top_k``. The JAX function's
-    ``runtime`` (candidate axis sharded over a mesh) waits for the
-    parallelism slice.
+    lower candidate index, as with ``lax.top_k``.
+
+    With a ``MeshRuntime`` the candidate axis is split over the mesh's
+    ``data`` axis (``core/smap.py``): each shard gathers its candidates'
+    distances and scores them; the candidate count is padded to a
+    multiple of the shards with copies of the first candidate whose
+    scores carry +3.4e38, so a padded candidate never surfaces. The
+    matrix then lives on the mesh's first device.
     """
+    if runtime is not None:
+        device = runtime.device
     dist_t = _on_device(dist, device)
     n = dist_t.shape[0] - 1
     perms = candidate_permutations(n, max_candidates,
                                    greedy_order=greedy_order, dist=dist_t)
-    d = path_distances(dist_t, torch.from_numpy(perms).to(dist_t.device),
-                       return_to_origin)
-    if model is not None:
+    n_real = perms.shape[0]
+
+    def score_fn(dist_s, perms_s, penalty_s):
+        d = path_distances(dist_s, perms_s, return_to_origin)
+        if model is None:
+            etas = torch.full_like(d, float("nan"))
+            return d, etas, d / speed_mps + penalty_s
         ctx = context or {}
-        kk = perms.shape[0]
+        kk = perms_s.shape[0]
 
         def col(value, dtype):
             return torch.full((kk,), value, dtype=dtype, device=d.device)
@@ -175,12 +189,26 @@ def rank_routes(
             col(float(ctx.get("driver_age", 30.0)), torch.float32),
         )
         with torch.no_grad():
-            etas = model(feats).float()
-        score = etas
-    else:
-        etas = torch.full_like(d, float("nan"))
-        score = d / speed_mps
-    k = min(k, perms.shape[0])
+            scorer = model if runtime is None \
+                else smap.replica_on(model, d.device)
+            etas = scorer(feats).float()
+        return d, etas, etas + penalty_s
+
+    penalty = np.zeros(n_real, np.float32)
+    if runtime is not None:
+        padded = pad_to_multiple(n_real, runtime.n_data)
+        if padded != n_real:
+            perms = np.concatenate(
+                [perms, np.repeat(perms[:1], padded - n_real, axis=0)])
+            penalty = np.zeros(padded, np.float32)
+            penalty[n_real:] = np.float32(3.4e38)
+        rows = P(runtime.data_axis)
+        score_fn = shard_map(score_fn, runtime.mesh, (P(), rows, rows),
+                             (rows, rows, rows))
+    d, etas, score = score_fn(
+        dist_t, torch.from_numpy(perms).to(dist_t.device),
+        torch.from_numpy(penalty).to(dist_t.device))
+    k = min(k, n_real)
     best = torch.argsort(score, stable=True)[:k]
     # one device→host copy: indices, distances and ETAs (all exact in
     # float64)

@@ -33,18 +33,23 @@ their own threads, and ``RTPU_CHAOS_SPEC`` arms fault injection. An
 artifact written by ``python -m routest_tpu_torch.train.export`` serves
 its own program (kernel ``torch_export``).
 
-Under the fleet (``python -m routest_tpu_torch.serve.fleet``) each
-replica is this process, pinned to its placement slice by the
-supervisor's overlay. A slice of more than one device
-(``RTPU_FLEET_SLICE_CHIPS`` > 1, or ``ROUTEST_MESH=1``) is refused at
-boot with a ``mesh_slice_refused`` log line and exit code 2: the port
-serves on one device, and a replica the gateway weights as k devices
-must not quietly serve on one.
+``ROUTEST_MESH`` arms mesh serving as in the JAX entry point: ``auto``
+(the default) splits each batch over every visible card when there is
+more than one (``core/mesh.py``; ``RTPU_MESH_DATA``/``RTPU_MESH_MODEL``
+shape it, a ``model`` axis above 1 serves tensor-parallel), ``1`` asks
+for the mesh on any backend with more than one device, ``0`` serves on
+one device. With one device the process serves on it, and health's
+``checks.engine.mesh`` says so (``devices: 1, sharded: false``). Under
+the fleet (``python -m routest_tpu_torch.serve.fleet``) each replica is
+this process, pinned to its placement slice by the supervisor's
+overlay; a slice of several cards sets ``ROUTEST_MESH=1``.
 """
 
 from __future__ import annotations
 
 import os
+
+import torch
 
 from routest_tpu_torch.core.config import load_config
 from routest_tpu_torch.ops.fused_mlp import fused_eta_forward
@@ -78,33 +83,34 @@ def ensure_model(path: str, device=None) -> None:
               eval_rmse_min=round(result.eval_rmse, 2))
 
 
-def mesh_slice_refusal(env=None):
-    """Why this process must not serve its placement slice, or None:
-    mesh serving is not ported, so a slice of more than one device is
-    refused."""
+def mesh_runtime(config, env=None):
+    """The serving mesh ``ROUTEST_MESH`` asks for (the module
+    docstring), or None to serve on one device: ``auto`` wants it off
+    the CPU, ``1`` anywhere, ``0`` never, and it is built only over
+    more than one visible device of the serving backend."""
     env = os.environ if env is None else env
-    if env.get("ROUTEST_MESH") == "1":
-        return "ROUTEST_MESH=1: mesh serving is not ported"
-    raw = env.get("RTPU_FLEET_SLICE_CHIPS") or "1"
-    try:
-        chips = int(raw)
-    except ValueError:
-        return f"RTPU_FLEET_SLICE_CHIPS={raw!r} is not a device count"
-    if chips > 1:
-        return (f"RTPU_FLEET_SLICE_CHIPS={chips}: a slice of more than "
-                f"one device needs mesh serving, which is not ported")
-    return None
+    pref = env.get("ROUTEST_MESH", "auto")
+    if pref == "0":
+        return None
+    from routest_tpu_torch.core.mesh import MeshRuntime, default_devices
+
+    backend = torch.device(config.serve.device).type
+    devices = default_devices(backend)
+    want = pref == "1" or backend != "cpu"
+    if not (want and len(devices) > 1):
+        return None
+    runtime = MeshRuntime.create(config.mesh, devices)
+    _log.info("mesh_serving", data_shards=runtime.n_data,
+              devices=len(devices))
+    return runtime
 
 
 def main() -> None:
-    refusal = mesh_slice_refusal()
-    if refusal is not None:
-        _log.error("mesh_slice_refused", reason=refusal)
-        raise SystemExit(2)
     config = load_config()
     path = default_model_path(config.model)
     ensure_model(path, device=config.serve.device)
-    eta = EtaService(config.serve, model_path=path)
+    eta = EtaService(config.serve, model_path=path,
+                     runtime=mesh_runtime(config))
     _log.info("model_loaded", path=path, available=eta.available,
               scoring=eta.scoring_info(), error=eta.load_error)
     if config.serve.reload_sec > 0:

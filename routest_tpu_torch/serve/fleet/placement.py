@@ -29,8 +29,8 @@ Each slice carries the per-replica env overlay that pins its devices
 (``CUDA_VISIBLE_DEVICES`` on a card, ``ROUTEST_DEVICE=cpu`` on the CPU),
 so a monitor respawn or a rolling restart reuses the SAME overlay and a
 replica never wanders onto another replica's device. A slice of more
-than one device sets ``ROUTEST_MESH=1``, which a replica of the port
-refuses until mesh serving is ported (``serve/__main__.py``). Capacity
+than one device sets ``ROUTEST_MESH=1``: the replica splits its
+batches over the slice's cards (``serve/__main__.py``). Capacity
 units (predicted throughput normalized to one chip) ride along to the
 gateway's weighted router and the autoscaler's pressure signals.
 
@@ -188,8 +188,7 @@ def slice_env(platform: str, chips: int, device_ids: Sequence[int],
     slice: GPU slices mask with ``CUDA_VISIBLE_DEVICES``, CPU slices
     serve with ``ROUTEST_DEVICE=cpu``. Multi-device slices set
     ``ROUTEST_MESH=1`` with ``RTPU_MESH_DATA`` = the slice width, as the
-    JAX planner does; a replica of the port refuses to boot on such a
-    slice until mesh serving is ported."""
+    JAX planner does: the replica serves a mesh over its slice."""
     if platform not in PLATFORMS:
         raise ValueError(f"unknown placement platform {platform!r}")
     env: Dict[str, str] = {PLACEMENT_LABEL_ENV: label,

@@ -23,6 +23,19 @@ build or launch fails the self-check and health reports the model
 degraded. On an explicit CPU run (``device="cpu"``) the same wrapper
 runs the kernel's plain version.
 
+With a ``MeshRuntime`` (``runtime=``, ``core/mesh.py``) the service
+scores as the JAX mesh branch does: the batch split over the mesh's
+``data`` axis (buckets rounded up to multiples of it, padded rows
+stripped before any response) through a per-shard program
+(``core/smap.py``) — the ``EtaMLP`` forward with replicated weights
+(``torch_mesh``), the tensor-parallel trunk when the ``model`` axis is
+larger than 1 and the widths divide it (``torch_tp``; otherwise a
+``tp_serving_unavailable`` warning and the replicated path), an
+exported program per shard (``torch_export_sharded``) or the tree
+ensemble's gathers (``gbdt_gather_sharded``). The fused kernel is
+single-device: under a mesh ``ROUTEST_FUSED=1`` logs
+``fused_kernel_ignored``, as in the JAX package.
+
 Failure semantics mirror the reference: a missing/broken model artifact
 makes ``predict`` return ``(None, None)`` and the caller degrades
 gracefully (``/predict_eta`` surfaces 503).
@@ -56,6 +69,7 @@ from routest_tpu_torch.chaos import ChaosError
 from routest_tpu_torch.chaos import inject as chaos_inject
 from routest_tpu_torch.core.config import ServeConfig, resolve_device
 from routest_tpu_torch.core.dtypes import backend_compute_policy
+from routest_tpu_torch.core.mesh import pad_rows
 from routest_tpu_torch.data.features import encode_requests
 from routest_tpu_torch.live import metric_epoch
 from routest_tpu_torch.obs import get_registry
@@ -132,17 +146,6 @@ def _artifact_fingerprint(path: str) -> Optional[str]:
         return digest.hexdigest()[:16]
     except OSError:
         return None
-
-
-def pad_rows(array: np.ndarray, target_rows: int) -> np.ndarray:
-    """Zero-pad axis 0 up to target_rows (the batch's bucket)."""
-    n = array.shape[0]
-    if n == target_rows:
-        return array
-    if n > target_rows:
-        raise ValueError(f"cannot pad {n} rows down to {target_rows}")
-    pad_widths = [(0, target_rows - n)] + [(0, 0)] * (array.ndim - 1)
-    return np.pad(array, pad_widths)
 
 
 _GOLDEN_BATCH: Optional[np.ndarray] = None
@@ -284,7 +287,7 @@ class DynamicBatcher:
     """
 
     def __init__(self, score_fn, buckets: Sequence[int], max_batch: int,
-                 max_wait_ms: float, hard_cap_s: float = 60.0,
+                 max_wait_ms: float, align: int = 1, hard_cap_s: float = 60.0,
                  adaptive: bool = False, min_wait_ms: float = 0.0,
                  device="cpu") -> None:
         self._score = score_fn
@@ -295,7 +298,13 @@ class DynamicBatcher:
         # cannot wait past this — a wedged flush (device hang) must
         # surface as DeadlineExceeded, not pin the waiter forever.
         self._hard_cap_s = hard_cap_s
-        self._buckets = sorted(set(buckets))
+        # ``align`` = the mesh's data-shard count: every device batch
+        # must split evenly over the data axis, so bucket sizes round up
+        # to multiples of it.
+        self._align = max(1, align)
+        self._buckets = sorted(
+            {((b + self._align - 1) // self._align) * self._align
+             for b in buckets})
         self._max_batch = max_batch
         # Drain cap: flush shapes stay bucketed even when max_batch is
         # set above the largest bucket.
@@ -358,7 +367,8 @@ class DynamicBatcher:
         for b in self._buckets:
             if n <= b:
                 return b
-        return n  # oversized: exact shape
+        # oversized: exact shape, rounded up to the shard multiple
+        return ((n + self._align - 1) // self._align) * self._align
 
     def _stage_locked(self, rows: np.ndarray, deadline) -> _Pending:
         """Lock held: place the rows. Fast path writes them straight
@@ -641,15 +651,21 @@ class EtaService:
 
     ``device``: "cuda" (default: ``cfg.device``) serves through the
     hand kernel and raises at construction when there is no card;
-    "cpu" serves through the kernel's plain version."""
+    "cpu" serves through the kernel's plain version. ``runtime``: a
+    ``MeshRuntime`` to serve over (the module docstring); the service
+    then lives on the mesh's first device."""
 
     def __init__(self, cfg: Optional[ServeConfig] = None,
                  model_path: Optional[str] = None,
-                 device: Optional[str] = None) -> None:
+                 device: Optional[str] = None, runtime=None) -> None:
         cfg = cfg or ServeConfig()
         self._t_construct = time.perf_counter()
         self._cfg = cfg
-        self.device = resolve_device(device or cfg.device, "EtaService")
+        # under a mesh the service lives on the mesh's first device
+        self._runtime = runtime
+        self.device = (runtime.device if runtime is not None
+                       else resolve_device(device or cfg.device,
+                                           "EtaService"))
         self._model = None
         self._params = None
         self._packed = None
@@ -761,6 +777,8 @@ class EtaService:
         the model, so a batcher keeps scoring its own model after a hot
         swap replaces the service's fields."""
         device = self.device
+        if self._runtime is not None:
+            return self._mesh_scorer()
         if self.kernel == "torch_export":
             program = self._model
 
@@ -779,6 +797,90 @@ class EtaService:
 
             return score
         return self._select_scorer()
+
+    def _mesh_scorer(self):
+        """The scorer under a mesh (the module docstring): rows padded to
+        a multiple of the data axis, split over it, scored per shard,
+        the padding stripped. Sets ``kernel``."""
+        from routest_tpu_torch.core import smap
+        from routest_tpu_torch.core.smap import P, shard_map
+
+        runtime, device = self._runtime, self.device
+        mesh, rows = runtime.mesh, P(runtime.data_axis)
+        log = get_logger("routest_tpu_torch.serve")
+        if os.environ.get("ROUTEST_FUSED") == "1":
+            log.warning("fused_kernel_ignored",
+                        reason="ROUTEST_FUSED=1 is single-device only; "
+                               "mesh serving uses the sharded torch path")
+        if self.kernel == "torch_export":
+            # one loaded program per device of the mesh
+            programs = {d: self._model if d == device
+                        else load_exported_serving_fn(self._path, d)
+                        for d in set(mesh.devices.flat)}
+            forward = shard_map(lambda x: programs[x.device](x), mesh,
+                                (rows,), rows)
+            self.kernel = "torch_export_sharded"
+        elif self._packed is None:
+            ensemble = self._model
+            sharded = shard_map(ensemble.apply, mesh, (P(), rows), rows)
+            params = self._params
+
+            def forward(x):
+                return sharded(params, x)
+
+            self.kernel = "gbdt_gather_sharded"
+        else:
+            forward = self._maybe_tp_score()
+            if forward is None:  # replicated weights, batch-sharded
+                module = self._model.to(device).eval()
+                quantiles = bool(self.quantiles)
+
+                def per_shard(x):
+                    replica = smap.replica_on(module, x.device)
+                    return replica.apply_quantiles(x) if quantiles \
+                        else replica(x)
+
+                forward = shard_map(per_shard, mesh, (rows,), rows)
+                self.kernel = "torch_mesh"
+        n_data = runtime.n_data
+
+        def score(x: np.ndarray) -> np.ndarray:
+            n = len(x)
+            x = pad_rows(np.ascontiguousarray(x, np.float32),
+                         -(-n // n_data) * n_data)
+            with torch.no_grad():
+                out = forward(torch.from_numpy(x).to(device))
+            return out.cpu().numpy()[:n]
+
+        return score
+
+    def _maybe_tp_score(self):
+        """Tensor-parallel scoring when the mesh has a real ``model``
+        axis: weights split Megatron-style over it, the batch over
+        ``data``. None — the replicated path — when the axis is 1, and,
+        with a ``tp_serving_unavailable`` warning, when the widths do
+        not divide the axis."""
+        from routest_tpu_torch.parallel.tensor import (make_tp_apply,
+                                                       shard_tp_params)
+
+        runtime = self._runtime
+        if runtime.mesh.shape[runtime.model_axis] <= 1:
+            return None
+        try:
+            tp_apply = make_tp_apply(self._model, runtime.mesh,
+                                     runtime.data_axis, runtime.model_axis)
+            params = shard_tp_params(self._params, self._model, runtime.mesh,
+                                     runtime.data_axis, runtime.model_axis)
+        except ValueError as e:
+            get_logger("routest_tpu_torch.serve").warning(
+                "tp_serving_unavailable", error=str(e))
+            return None
+        self.kernel = "torch_tp"
+
+        def forward(x):
+            return tp_apply(params, x)
+
+        return forward
 
     def _runtime_identity(self) -> Tuple[str, str]:
         """(backend, device name) a selection record must match:
@@ -877,6 +979,7 @@ class EtaService:
         self._score = self._score_fn()
         self._batcher = DynamicBatcher(
             self._score, cfg.batch_buckets, cfg.max_batch, cfg.max_wait_ms,
+            align=self._runtime.n_data if self._runtime is not None else 1,
             adaptive=cfg.adaptive_wait, min_wait_ms=cfg.min_wait_ms,
             device=self.device)
         # Self-check: an artifact can deserialize fine yet be unusable,
@@ -936,7 +1039,8 @@ class EtaService:
             _in_reload.flag = True
             try:
                 fresh = EtaService(self._cfg, model_path=self._path,
-                                   device=str(self.device))
+                                   device=str(self.device),
+                                   runtime=self._runtime)
             finally:
                 _in_reload.flag = False
             if not fresh.available:
@@ -1116,7 +1220,7 @@ class EtaService:
         mode)."""
         family = (None if self._model is None else
                   "eta_mlp" if self._packed is not None
-                  or self.kernel == "torch_export" else "xgboost")
+                  or self.kernel.startswith("torch_export") else "xgboost")
         info = {"family": family, "kernel": self.kernel,
                 "dtype": self.kernel_dtype, "device": str(self.device)}
         if self._packed is not None and self._win_provenance:
@@ -1124,9 +1228,12 @@ class EtaService:
         return info
 
     def mesh_info(self) -> dict:
-        """The replica's device topology (health's ``checks.engine.mesh``),
-        with the placement slice label the fleet supervisor stamped."""
-        info: dict = {"platform": self.device.type, "sharded": False}
+        """The replica's device topology (health's ``checks.engine.mesh``):
+        how many devices this process owns, whether batches are split
+        over a mesh and its axis shapes, and the placement slice label
+        the fleet supervisor stamped."""
+        info: dict = {"platform": self.device.type,
+                      "sharded": self._runtime is not None}
         if self.device.type == "cuda":
             info["devices"] = torch.cuda.device_count()
             info["device_name"] = torch.cuda.get_device_name(self.device)
@@ -1135,6 +1242,10 @@ class EtaService:
         label = os.environ.get("RTPU_FLEET_PLACEMENT_LABEL")
         if label:
             info["placement"] = label
+        if self._runtime is not None:
+            mesh = self._runtime.mesh
+            info["axis_shapes"] = {str(name): int(mesh.shape[name])
+                                   for name in mesh.axis_names}
         return info
 
     def predict_batch(self, rows: np.ndarray) -> Optional[np.ndarray]:

@@ -19,9 +19,17 @@ operations instead of ``torch.optim.AdamW``'s:
 The whole step stays on the device: the clip's branch is a ``where``,
 and the loss is read once per epoch. Shuffles are
 ``np.random.default_rng(seed + 1 + epoch)`` permutations, so an epoch
-shuffles identically whether or not the run was resumed; the last batch
-of an epoch is short (one device: no padding). Data parallelism over
-several cards (the JAX ``MeshRuntime`` path) waits for Queue A item 9.
+shuffles identically whether or not the run was resumed; on one device
+the last batch of an epoch is short.
+
+With a ``MeshRuntime`` (``core/mesh.py``) the steps are data-parallel,
+as the JAX ``MeshRuntime`` path: each batch is padded with zero-weight
+rows to a multiple of the data axis and split over it
+(``core/smap.py``), every shard computes its rows' weighted loss terms
+with the model's parameters, one ``psum`` of the sums gives the global
+loss, and autograd reduces the gradients over the shards (across
+processes too: ``core/distributed.py``). Only process 0 writes
+checkpoints; every process resumes from them.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ import torch
 
 from routest_tpu_torch.core import prng
 from routest_tpu_torch.core.config import TrainConfig, resolve_device
+from routest_tpu_torch.core.mesh import pad_to_multiple
 from routest_tpu_torch.data.features import batch_from_mapping
 from routest_tpu_torch.models.eta_mlp import EtaMLP, fit_normalizer
 from routest_tpu_torch.obs import get_registry
@@ -199,7 +208,15 @@ def loss_fn(model: EtaMLP, features: torch.Tensor, targets: torch.Tensor,
             weights: torch.Tensor) -> torch.Tensor:
     """Row-weighted mean loss: the pinball loss averaged over the heads
     for a quantile model, Huber (delta 10 minutes) for a point model."""
-    denom = torch.clamp_min(weights.sum(), 1.0)
+    total, count = _loss_terms(model, features, targets, weights)
+    return total / torch.clamp_min(count, 1.0)
+
+
+def _loss_terms(model: EtaMLP, features: torch.Tensor,
+                targets: torch.Tensor, weights: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(Σ weight · per-row loss, Σ weight): :func:`loss_fn`'s numerator
+    and denominator, which a sharded step sums over the shards."""
     if model.quantiles:
         pred = model.apply_quantiles(features)
         q = torch.tensor(model.quantiles, dtype=pred.dtype,
@@ -208,52 +225,123 @@ def loss_fn(model: EtaMLP, features: torch.Tensor, targets: torch.Tensor,
         per_row = torch.maximum(q * err, (q - 1.0) * err).mean(dim=-1)
     else:
         per_row = huber_loss(model(features), targets, 10.0)
-    return (per_row * weights).sum() / denom
+    return (per_row * weights).sum(), weights.sum()
 
 
-def make_train_step(model: EtaMLP, optimizer: AdamW) -> Callable:
+def _sharded(runtime, model: EtaMLP, terms: Callable) -> Callable:
+    """``terms(model, x, y, w) -> (a, b)`` as a data-parallel program
+    ``(x, y, w) -> (Σ a, Σ b)``: rows over the data axis, the sums over
+    every shard (and process)."""
+    from routest_tpu_torch.core import smap
+    from routest_tpu_torch.core.smap import P, shard_map
+
+    def per_shard(features, targets, weights):
+        replica = smap.replica_on(model, features.device)
+        a, b = terms(replica, features, targets, weights)
+        return (smap.psum(a, runtime.data_axis),
+                smap.psum(b, runtime.data_axis))
+
+    rows = P(runtime.data_axis)
+    return shard_map(per_shard, runtime.mesh, (rows, rows, rows),
+                     (P(), P()))
+
+
+def make_train_step(model: EtaMLP, optimizer: AdamW,
+                    runtime=None) -> Callable:
     """``step(features, targets, weights) -> loss``: one value-and-grad
-    and one optimizer update, all on the model's device."""
-    def step(features: torch.Tensor, targets: torch.Tensor,
-             weights: torch.Tensor) -> torch.Tensor:
-        loss = loss_fn(model, features, targets, weights)
+    and one optimizer update, on the model's device — data-parallel
+    over ``runtime``'s data axis when one is given (rows must divide
+    by it: pad with zero-weight rows)."""
+    if runtime is None:
+        def step(features: torch.Tensor, targets: torch.Tensor,
+                 weights: torch.Tensor) -> torch.Tensor:
+            loss = loss_fn(model, features, targets, weights)
+            grads = torch.autograd.grad(loss, optimizer.params)
+            optimizer.step(grads)
+            return loss.detach()
+        return step
+
+    from routest_tpu_torch.core import smap
+
+    terms = _sharded(runtime, model, _loss_terms)
+
+    def sharded_step(features: torch.Tensor, targets: torch.Tensor,
+                     weights: torch.Tensor) -> torch.Tensor:
+        total, count = terms(features, targets, weights)
+        loss = total / torch.clamp_min(count, 1.0)
         grads = torch.autograd.grad(loss, optimizer.params)
-        optimizer.step(grads)
+        optimizer.step(smap.sum_across_processes(runtime.mesh, grads))
         return loss.detach()
-    return step
+    return sharded_step
+
+
+def _sse_terms(model: EtaMLP, features: torch.Tensor,
+               targets: torch.Tensor, weights: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    err = (model(features) - targets) ** 2 * weights
+    return err.sum(), weights.sum()
+
+
+def make_eval_fn(model: EtaMLP, runtime=None) -> Callable:
+    """``(features, targets, weights) -> (masked Σ squared error,
+    Σ weights)``, for an exact RMSE over padded shards; data-parallel
+    over ``runtime``'s data axis when one is given."""
+    if runtime is None:
+        return lambda x, y, w: _sse_terms(model, x, y, w)
+    return _sharded(runtime, model, _sse_terms)
+
+
+def _pad_batch(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+               n_shards: int) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Zero rows (weight 0) up to a multiple of ``n_shards``."""
+    rows = pad_to_multiple(len(y), max(n_shards, 1))
+    pad = rows - len(y)
+    if not pad:
+        return x, y, w
+    return (torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))]),
+            torch.cat([y, y.new_zeros(pad)]), torch.cat([w, w.new_zeros(pad)]))
 
 
 def _minibatches(features: torch.Tensor, targets: torch.Tensor,
-                 batch_size: int, rng: np.random.Generator
+                 batch_size: int, rng: np.random.Generator,
+                 n_shards: int = 1
                  ) -> Iterator[Tuple[torch.Tensor, torch.Tensor,
                                      torch.Tensor]]:
     """One epoch of ``(features, targets, weights)`` batches in ``rng``'s
     permutation order, gathered on the tensors' device; the last batch
-    is short."""
+    is short, and with ``n_shards`` > 1 every batch is padded with
+    zero-weight rows to a multiple of it."""
     n = len(targets)
     perm = torch.from_numpy(rng.permutation(n)).to(targets.device)
     ones = torch.ones(min(batch_size, n), dtype=torch.float32,
                       device=targets.device)
     for start in range(0, n, batch_size):
         idx = perm[start:start + batch_size]
-        yield features[idx], targets[idx], ones[:len(idx)]
+        batch = features[idx], targets[idx], ones[:len(idx)]
+        yield _pad_batch(*batch, n_shards) if n_shards > 1 else batch
 
 
 @torch.no_grad()
 def rmse(model: EtaMLP, data: Dict[str, np.ndarray],
-         batch_size: int = 65536) -> float:
+         batch_size: int = 65536, runtime=None) -> float:
     """Exact RMSE of the model on a dataset dict (``data/synthetic.py``
-    schema), scored on the model's device in chunks."""
+    schema), scored on the model's device in chunks — data-parallel
+    over ``runtime``'s data axis when one is given."""
     device = model.norm_mean.device
     features = batch_from_mapping(data)
     targets = np.asarray(data["eta_minutes"], np.float32)
-    total_sse, total_n = 0.0, 0
+    eval_fn = make_eval_fn(model, runtime)
+    n_shards = runtime.n_data if runtime is not None else 1
+    total_sse, total_n = 0.0, 0.0
     for start in range(0, len(targets), batch_size):
         x = torch.from_numpy(features[start:start + batch_size]).to(device)
         y = torch.from_numpy(targets[start:start + batch_size]).to(device)
-        total_sse += float(((model(x) - y) ** 2).sum())
-        total_n += len(y)
-    return float(np.sqrt(total_sse / max(total_n, 1)))
+        w = torch.ones(len(y), dtype=torch.float32, device=device)
+        s, c = eval_fn(*_pad_batch(x, y, w, n_shards))
+        total_sse += float(s)
+        total_n += float(c)
+    return float(np.sqrt(total_sse / max(total_n, 1.0)))
 
 
 @dataclasses.dataclass
@@ -278,16 +366,20 @@ def _checkpoint_state(model: EtaMLP, optimizer: AdamW, epoch: int) -> Dict:
 
 def fit(model: EtaMLP, train_data: Dict[str, np.ndarray],
         eval_data: Dict[str, np.ndarray], cfg: Optional[TrainConfig] = None,
-        log_every: int = 0, device=None) -> FitResult:
+        log_every: int = 0, device=None, runtime=None) -> FitResult:
     """Full training run on a dataset dict: init from ``cfg.seed`` with
     the training set's normalizer, resume from ``cfg.checkpoint_dir``
     when it holds a checkpoint, train to ``cfg.epochs`` (or
     ``stop_after_epochs`` more), and score ``eval_data``. Trains on
-    ``device`` (default: the serving device, the card)."""
+    ``device`` (default: the serving device, the card), or data-parallel
+    over ``runtime`` (a ``MeshRuntime``: the model on its first
+    device)."""
+    from routest_tpu_torch.core import smap
     from routest_tpu_torch.train import checkpoint as ckpt
 
     cfg = cfg or TrainConfig()
-    dev = resolve_device(device, "fit")
+    dev = runtime.device if runtime is not None \
+        else resolve_device(device, "fit")
     features = batch_from_mapping(train_data)
     targets = np.asarray(train_data["eta_minutes"], np.float32)
     if len(targets) == 0:
@@ -320,7 +412,9 @@ def fit(model: EtaMLP, train_data: Dict[str, np.ndarray],
             raise ValueError("stop_after_epochs must be >= 0")
         end_epoch = min(cfg.epochs, start_epoch + cfg.stop_after_epochs)
 
-    step_fn = make_train_step(model, optimizer)
+    step_fn = make_train_step(model, optimizer, runtime)
+    n_shards = runtime.n_data if runtime is not None else 1
+    primary = runtime is None or runtime.is_primary
     x_dev = torch.from_numpy(features).to(dev)
     y_dev = torch.from_numpy(targets).to(dev)
     losses: List[float] = []
@@ -334,7 +428,8 @@ def fit(model: EtaMLP, train_data: Dict[str, np.ndarray],
     for epoch in range(start_epoch, end_epoch):
         t_epoch = time.perf_counter()
         rng = np.random.default_rng(cfg.seed + 1 + epoch)
-        for x, y, w in _minibatches(x_dev, y_dev, cfg.batch_size, rng):
+        for x, y, w in _minibatches(x_dev, y_dev, cfg.batch_size, rng,
+                                    n_shards):
             loss = step_fn(x, y, w)
         losses.append(float(loss))
         epoch_s = time.perf_counter() - t_epoch
@@ -347,17 +442,24 @@ def fit(model: EtaMLP, train_data: Dict[str, np.ndarray],
                       epoch_seconds=round(epoch_s, 3))
         if (cfg.checkpoint_dir and cfg.checkpoint_every_epochs
                 and (epoch + 1) % cfg.checkpoint_every_epochs == 0):
-            ckpt.save_checkpoint(cfg.checkpoint_dir, epoch + 1,
-                                 _checkpoint_state(model, optimizer,
-                                                   epoch + 1))
+            if primary:
+                ckpt.save_checkpoint(cfg.checkpoint_dir, epoch + 1,
+                                     _checkpoint_state(model, optimizer,
+                                                       epoch + 1))
+            if runtime is not None:
+                smap.barrier(runtime.mesh)
             saved_epoch = epoch + 1
 
     if (cfg.checkpoint_dir and cfg.stop_after_epochs is not None
             and saved_epoch != end_epoch):
         # A slice always persists its endpoint: ending between periodic
         # saves would make the next invocation redo this slice's work.
-        ckpt.save_checkpoint(cfg.checkpoint_dir, end_epoch,
-                             _checkpoint_state(model, optimizer, end_epoch))
+        if primary:
+            ckpt.save_checkpoint(cfg.checkpoint_dir, end_epoch,
+                                 _checkpoint_state(model, optimizer,
+                                                   end_epoch))
+        if runtime is not None:
+            smap.barrier(runtime.mesh)
 
     return FitResult(model=model, optimizer=optimizer, train_losses=losses,
-                     eval_rmse=rmse(model, eval_data))
+                     eval_rmse=rmse(model, eval_data, runtime=runtime))

@@ -14,7 +14,14 @@ a compressed diurnal curve. The record must show
   while the fleet grows — never a collapse),
 - the same seed reproducing the same offered-load schedule, and
 - a closed-loop vs open-loop comparison on the same overload exposing
-  the coordinated-omission gap in recorded p99.
+  the coordinated-omission gap in recorded p99, and
+- a generator that kept its pace: each open-loop run sends from a
+  process of its own (:func:`cuda_harness.run_open_loop_process`, paced
+  as phase 18 paces its generator), 2 s after its calibration, and a
+  scenario whose ``send_delay`` p99 exceeds the run's latency p50 is
+  recorded ``generator_lagged`` and fails (the closed-vs-open overload
+  arm is read over its arrivals before its backlog could hold half the
+  senders).
 
 Rates are CALIBRATED, not hardcoded: a short closed-loop phase
 measures one replica's capacity ``C`` on this card and host, then the
@@ -219,9 +226,10 @@ def scenario_flash_crowd(args) -> dict:
     """Base → 10× spike → base, autoscaler on. Pure Zipf predict
     traffic so the fast-lane cache sees realistic key skew (hit-rate delta
     recorded from registry snapshots)."""
-    from routest_tpu_torch.loadgen import (RateCurve, ZipfODWorkload, cache_delta,
-                                     fetch_metrics, poisson_schedule,
-                                     run_open_loop, summarize, timeline)
+    from routest_tpu_torch.loadgen import (RateCurve, ZipfODWorkload,
+                                           cache_delta, fetch_metrics,
+                                           poisson_schedule, summarize,
+                                           timeline)
 
     recorder_dir = tempfile.mkdtemp(prefix="autoscale-pm-")
     sup, gw, scaler, base = boot_fleet(args, autoscale=True,
@@ -230,7 +238,7 @@ def scenario_flash_crowd(args) -> dict:
         workload = ZipfODWorkload(s=args.zipf_s, seed=args.seed)
         warm(base, workload)
         capacity = measure_capacity(base, workload, args.calibrate_s)
-        time.sleep(1.0)          # calibration queue drains
+        time.sleep(harness.SETTLE_S)   # calibration queue drains
         scaler.start()           # every decision now belongs to the run
         base_rate = max(2.0, capacity / 8.0)
         spike_rate = base_rate * 10.0          # ≈ 1.25 × capacity
@@ -248,10 +256,10 @@ def scenario_flash_crowd(args) -> dict:
                                           seed=args.seed).sequence(64))
         requests = workload.sequence(len(offsets))
         metrics_before = fetch_metrics(base, replicas=True)
-        run_t0 = time.time()
         with FleetWatcher(gw) as watcher:
-            records = run_open_loop([base], offsets, requests,
-                                    workers=args.workers, timeout=35.0)
+            records, run_t0 = harness.run_open_loop_process(
+                [base], offsets, requests, workers=args.workers,
+                timeout=35.0)
             # Keep watching (and keep the SLO engine ticking) until the
             # fleet is back to min size or the wait budget lapses — the
             # "and back down" half of the acceptance bar.
@@ -311,7 +319,9 @@ def scenario_flash_crowd(args) -> dict:
                               if slo_states else False),
             },
         }
-        out["pass"] = bool(
+        out["pace"] = harness.pace_check(report)
+        out["generator_lagged"] = out["pace"]["generator_lagged"]
+        out["pass"] = harness.passed(
             len(ups_in_spike) >= 1
             and watcher.max_replicas() >= 2
             and len(downs) >= 1
@@ -319,7 +329,7 @@ def scenario_flash_crowd(args) -> dict:
             and report["error_rate"] <= args.max_error_rate
             and report["shed_rate"] <= args.max_shed_rate
             and out["slo"]["recovered"]
-            and reproducible)
+            and reproducible, out["pace"])
         return out
     finally:
         shutdown_fleet(sup, gw, scaler)
@@ -332,9 +342,9 @@ def scenario_diurnal(args) -> dict:
     subscribers held open across the whole curve. Pass = fleet size
     tracks the curve (up near the crest, back to min after the trough)
     with ~zero errors."""
-    from routest_tpu_torch.loadgen import (MixedWorkload, RateCurve, SseClients,
-                                     poisson_schedule, run_open_loop,
-                                     summarize, timeline)
+    from routest_tpu_torch.loadgen import (MixedWorkload, RateCurve,
+                                           SseClients, poisson_schedule,
+                                           summarize, timeline)
 
     recorder_dir = tempfile.mkdtemp(prefix="autoscale-pm-")
     sup, gw, scaler, base = boot_fleet(args, autoscale=True,
@@ -346,7 +356,7 @@ def scenario_diurnal(args) -> dict:
             s=args.zipf_s, seed=args.seed)
         warm(base, workload.od)
         capacity = measure_capacity(base, workload.od, args.calibrate_s)
-        time.sleep(1.0)
+        time.sleep(harness.SETTLE_S)
         scaler.start()
         period = args.diurnal_period_s
         curve = RateCurve.diurnal(base=max(1.0, capacity / 10.0),
@@ -358,8 +368,9 @@ def scenario_diurnal(args) -> dict:
         with FleetWatcher(gw) as watcher, \
                 SseClients(base, n=2,
                            channel=workload.sse_channel) as sse:
-            records = run_open_loop([base], offsets, requests,
-                                    workers=args.workers, timeout=35.0)
+            records, _ = harness.run_open_loop_process(
+                [base], offsets, requests, workers=args.workers,
+                timeout=35.0)
             settle_deadline = time.monotonic() + args.settle_s
             while time.monotonic() < settle_deadline:
                 with gw._lock:
@@ -391,14 +402,16 @@ def scenario_diurnal(args) -> dict:
             "slo": {"final_state": watcher.slo_states()[-1]
                     if watcher.samples else "n/a"},
         }
-        out["pass"] = bool(
+        out["pace"] = harness.pace_check(report)
+        out["generator_lagged"] = out["pace"]["generator_lagged"]
+        out["pass"] = harness.passed(
             len(ups) >= 1
             and watcher.max_replicas() >= 2
             and out["autoscale"]["final_replicas"] <= 1
             and report["error_rate"] <= args.max_error_rate
             and out["slo"]["final_state"] != "page"
             and sse_snap["connected"] == sse_snap["requested"]
-            and sse_snap["events"] > 0)
+            and sse_snap["events"] > 0, out["pace"])
         return out
     finally:
         shutdown_fleet(sup, gw, scaler)
@@ -413,8 +426,8 @@ def scenario_closed_vs_open(args) -> dict:
     charges every request its wait from the INTENDED send and exposes
     the real user-visible tail."""
     from routest_tpu_torch.loadgen import (RateCurve, ZipfODWorkload,
-                                     paced_schedule, run_closed_loop,
-                                     run_open_loop, summarize)
+                                           paced_schedule, run_closed_loop,
+                                           summarize)
 
     recorder_dir = tempfile.mkdtemp(prefix="autoscale-pm-")
     # Deep admission queue: THIS scenario wants the overload to QUEUE
@@ -436,11 +449,17 @@ def scenario_closed_vs_open(args) -> dict:
             run_closed_loop([base], workload.sequence(n), workers=8,
                             duration_s=dur, timeout=35.0),
             dur, n, loop="closed")
-        time.sleep(2.0)   # let the queue fully drain between arms
-        open_ = summarize(
-            run_open_loop([base], offsets, workload.sequence(n),
-                          workers=args.workers, timeout=35.0),
-            dur, n)
+        time.sleep(harness.SETTLE_S)   # the queue drains between arms
+        records, _ = harness.run_open_loop_process(
+            [base], offsets, workload.sequence(n), workers=args.workers,
+            timeout=35.0)
+        open_ = summarize(records, dur, n)
+        # 1.5 C into a deep queue backs up by design, and once the
+        # backlog holds the senders every arrival waits for one: the
+        # generator's own pace is read over the arrivals before the
+        # backlog (growing at over_rate - C) could hold half of them
+        window = min(dur, 0.5 * args.workers / (over_rate - capacity))
+        pace = harness.early_pace_check(records, window)
         closed_p99 = (closed.get("latency") or {}).get("p99_ms")
         open_p99 = (open_.get("latency") or {}).get("p99_ms")
         gap = round(open_p99 / closed_p99, 2) \
@@ -457,7 +476,10 @@ def scenario_closed_vs_open(args) -> dict:
                 "closed-loop arm self-throttles to the server's pace "
                 "(its own achieved rps is the tell) so its p99 hides "
                 "the backlog wait that open-loop accounting charges"),
-            "pass": bool(gap is not None and gap >= args.min_co_gap),
+            "pace": pace,
+            "generator_lagged": pace["generator_lagged"],
+            "pass": harness.passed(gap is not None
+                                   and gap >= args.min_co_gap, pace),
         }
     finally:
         shutdown_fleet(sup, gw, scaler)
@@ -558,7 +580,7 @@ def main() -> None:
         n: {kk: vv for kk, vv in s.items()
             if kk in ("pass", "wall_s", "capacity_rps_1_replica",
                       "coordinated_omission_p99_gap_x", "autoscale",
-                      "slo", "error")}
+                      "slo", "error", "pace")}
         for n, s in v.items()}) for k, v in record.items()}, indent=2))
     # a failed scenario fails the run
     sys.exit(0 if record["all_pass"] else 1)

@@ -16,7 +16,11 @@ The port's counterpart of ``scripts/bench_dispatch.py``, three parts:
   observations, never a side channel), the live metric flips, and the
   re-optimization loop must re-solve EXACTLY the affected dispatch and
   push ``plan_update`` over its SSE channel within a bounded window,
-  user SLO green throughout.
+  user SLO green throughout. The user load sends from a process of its
+  own (:func:`cuda_harness.open_loop`, paced as phase 18 paces its
+  generator); a scenario whose generator lagged (``send_delay`` p99
+  past the load's latency p50) is recorded ``generator_lagged`` and
+  fails.
 - ``wrong_plan_fault`` — one replica rolls onto seeded
   ``dispatch.solve:skew`` chaos (well-formed 200 plans, solved over a
   silently perturbed cost matrix). Nothing on the serving path can see
@@ -319,6 +323,7 @@ def scenario_corridor_jam(extract, cache_dir, rate, quick, device) -> dict:
     fleet = bp.Fleet(live=True, extract=extract, cache_dir=cache_dir,
                      work_dir=work, device=device)
     load_stop = threading.Event()
+    load_records: list = []
     taps, sweep, probe_fleet = [], None, None
     try:
         # Open-loop user load through the gateway for the run's length
@@ -327,11 +332,13 @@ def scenario_corridor_jam(extract, cache_dir, rate, quick, device) -> dict:
         def _load():
             while not load_stop.is_set():
                 try:
-                    bp.open_loop(fleet.base, rate, 10.0, stop=load_stop)
+                    load_records.extend(bp.open_loop(
+                        fleet.base, rate, 10.0, stop=load_stop))
                 except Exception:
                     pass
 
         load_thread = threading.Thread(target=_load, daemon=True)
+        t_load = time.monotonic()
         load_thread.start()
 
         # Corridor geometry: the jam rides a→b; the calm dispatch sits
@@ -435,6 +442,8 @@ def scenario_corridor_jam(extract, cache_dir, rate, quick, device) -> dict:
         if gw_slo is not None:
             gw_slo.tick()
             out["user_slo_state"] = gw_slo.worst_state()
+        out["user_load"] = _stop_load(load_stop, load_thread, load_records,
+                                      t_load)
         checks = {
             "clean_before_jam": not pre_jam,
             "plan_update_within_bound": detect_s is not None,
@@ -442,7 +451,8 @@ def scenario_corridor_jam(extract, cache_dir, rate, quick, device) -> dict:
             "user_slo_ok": out.get("user_slo_state", "ok") == "ok",
         }
         out["checks"] = checks
-        out["pass"] = all(checks.values())
+        out["generator_lagged"] = out["user_load"]["generator_lagged"]
+        out["pass"] = bp.passed(all(checks.values()), out["user_load"])
     finally:
         load_stop.set()
         for t in taps:
@@ -458,6 +468,20 @@ def scenario_corridor_jam(extract, cache_dir, rate, quick, device) -> dict:
         fleet.stop()
         shutil.rmtree(work, ignore_errors=True)
     return out
+
+
+def _stop_load(load_stop, load_thread, records, t_load) -> dict:
+    """Stop the background user load and read its pace: the open-loop
+    summary's figures with the harness's verdict (``generator_lagged``
+    past :data:`cuda_harness.PACE_LIMIT`)."""
+    from routest_tpu_torch.loadgen import summarize
+
+    load_stop.set()
+    load_thread.join(timeout=20)
+    rep = summarize(records, time.monotonic() - t_load, len(records))
+    return dict(bp.pace_check(rep), sent=rep["sent"], ok=rep["ok"],
+                errors=rep["errors"],
+                latency_p99_ms=(rep.get("latency") or {}).get("p99_ms"))
 
 
 # ── part 3: wrong-plan fault → dispatch probe pages ──────────────────
@@ -484,6 +508,7 @@ def scenario_wrong_plan_fault(extract, cache_dir, rate, quick,
     fleet = bp.Fleet(live=False, extract=extract, cache_dir=cache_dir,
                      work_dir=work, device=device)
     load_stop = threading.Event()
+    load_records: list = []
     try:
         # The dispatch probe judges plan cost under the TRUE matrix;
         # the /80 skew's divergence is ~2.4%, so pin the tolerance
@@ -495,11 +520,13 @@ def scenario_wrong_plan_fault(extract, cache_dir, rate, quick,
         def _load():
             while not load_stop.is_set():
                 try:
-                    bp.open_loop(fleet.base, rate, 10.0, stop=load_stop)
+                    load_records.extend(bp.open_loop(
+                        fleet.base, rate, 10.0, stop=load_stop))
                 except Exception:
                     pass
 
         load_thread = threading.Thread(target=_load, daemon=True)
+        t_load = time.monotonic()
         load_thread.start()
         deadline = time.time() + (30 if quick else 60)
         while time.time() < deadline:
@@ -528,6 +555,8 @@ def scenario_wrong_plan_fault(extract, cache_dir, rate, quick,
         if gw_slo is not None:
             gw_slo.tick()
             out["user_slo_state"] = gw_slo.worst_state()
+        out["user_load"] = _stop_load(load_stop, load_thread, load_records,
+                                      t_load)
         checks = {
             "baseline_dispatch_pass":
                 out["baseline_verdicts"].get("dispatch") == "pass",
@@ -535,7 +564,8 @@ def scenario_wrong_plan_fault(extract, cache_dir, rate, quick,
             "user_slo_ok": out.get("user_slo_state", "ok") == "ok",
         }
         out["checks"] = checks
-        out["pass"] = all(checks.values())
+        out["generator_lagged"] = out["user_load"]["generator_lagged"]
+        out["pass"] = bp.passed(all(checks.values()), out["user_load"])
     finally:
         load_stop.set()
         try:
@@ -625,9 +655,13 @@ def main() -> None:
                                    "error": f"{type(e).__name__}: {e}"}
             scenarios[name]["wall_s"] = round(time.perf_counter() - t, 1)
             checks[name] = bool(scenarios[name].get("pass"))
+            pace = scenarios[name].get("user_load") or {}
             print(f"  {name}: "
                   f"{'PASS' if checks[name] else 'FAIL'} "
-                  f"({scenarios[name]['wall_s']}s)", flush=True)
+                  f"({scenarios[name]['wall_s']}s; send_delay p99 "
+                  f"{pace.get('send_delay_p99_ms')} ms, limit "
+                  f"{pace.get('pace_limit_ms')} ms, lagged "
+                  f"{pace.get('generator_lagged')})", flush=True)
     record["scenarios"] = scenarios
 
     record.update({

@@ -11,7 +11,16 @@
   prober), the synthetic street extract it routes on
   (:func:`build_extract`), a blocking open-loop ``/api/predict_eta``
   load (:func:`open_loop`) and the flight recorder's correctness
-  bundles (:func:`correctness_bundles`, :func:`judge_fault_bundle`).
+  bundles (:func:`correctness_bundles`, :func:`judge_fault_bundle`);
+- the generator's pace: :func:`run_open_loop_process` runs the
+  open-loop senders in a process of their own (the gateway, autoscaler
+  and watchers of a scenario share this one's interpreter), paced as
+  ``chip_smoke.py``'s phase 18 paces its generator (:func:`paced`: a
+  short interpreter switch interval, the collector off);
+  :data:`SETTLE_S` lets a calibration's burst drain, and
+  :func:`pace_check` reads an open-loop run's ``send_delay`` p99
+  against :data:`PACE_LIMIT` — a run whose generator lagged is recorded
+  as ``generator_lagged`` and never passes (:func:`passed`).
 
 The harness of ``scripts/bench_probing.py`` on the port's modules:
 it imports no JAX.
@@ -19,6 +28,8 @@ it imports no JAX.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import os
 import shutil
@@ -39,6 +50,18 @@ SWAP_MAX_DIV_MIN = 30.0
 PROBE_INTERVAL_S = 1.0
 # Probe-scale SLO windows: pages after ~5 consecutive failing rounds.
 PROBE_FAST_S, PROBE_SLOW_S = 10.0, 30.0
+
+
+# The generator's threads hand the interpreter lock over within this
+# (phase 18 of chip_smoke.py: the default 5 ms let one sender's quick
+# socket calls keep the lock from a sender woken at its arrival).
+LOADGEN_SWITCH_S = 2e-4
+# A calibration's closed-loop burst drains before an open-loop run.
+SETTLE_S = 2.0
+# Phase 18's limit: an open-loop run kept its pace when the generator's
+# send_delay p99 is within the run's own latency p50 — past it, the
+# generator, not the servers, set the pace the run measured.
+PACE_LIMIT = "send_delay p99 <= latency p50 of the same open-loop run"
 
 
 # ── the card ─────────────────────────────────────────────────────────
@@ -115,6 +138,106 @@ def write_record(path: str, record: dict) -> None:
         os.makedirs(out_dir, exist_ok=True)
     with open(path, "w") as f:
         json.dump(record, f, indent=2)
+
+
+# ── the generator's pace ─────────────────────────────────────────────
+
+
+@contextlib.contextmanager
+def paced():
+    """Run the generator as phase 18 runs it: the heap collected and
+    frozen, the collector off and the switch interval at
+    :data:`LOADGEN_SWITCH_S`; the previous settings are restored on
+    exit, also when the body raises."""
+    gc.collect()
+    gc.freeze()
+    gc.disable()
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(LOADGEN_SWITCH_S)
+    try:
+        yield
+    finally:
+        sys.setswitchinterval(switch)
+        gc.enable()
+        gc.unfreeze()
+
+
+def _open_loop_child(bases, offsets, requests, workers, timeout, stop,
+                     out) -> None:
+    from routest_tpu_torch.loadgen import run_open_loop
+
+    with paced():
+        started = time.time()
+        records = run_open_loop(bases, offsets, requests, workers=workers,
+                                timeout=timeout, stop=stop)
+    out.put((records, started))
+
+
+def run_open_loop_process(bases, offsets, requests, *, workers: int,
+                          timeout: float = 30.0, stop=None):
+    """``loadgen.run_open_loop`` in a spawned process of its own, under
+    :func:`paced` → ``(records, started_unix)``, ``started_unix`` the
+    wall clock at the schedule's start. ``stop`` (an event of this
+    process) ends the run early, as it does in-process."""
+    import multiprocessing
+    import queue
+
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    child_stop = ctx.Event()
+    proc = ctx.Process(target=_open_loop_child, daemon=True,
+                       args=(list(bases), list(offsets), list(requests),
+                             workers, timeout, child_stop, out))
+    proc.start()
+    try:
+        while True:
+            if stop is not None and stop.is_set():
+                child_stop.set()
+            try:
+                return out.get(timeout=0.2)
+            except queue.Empty:
+                if not proc.is_alive():
+                    raise RuntimeError(f"the open-loop process exited "
+                                       f"with {proc.exitcode}")
+    finally:
+        child_stop.set()
+        proc.join(timeout=30)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+
+
+def pace_check(report: dict) -> dict:
+    """An open-loop summary's pace under :data:`PACE_LIMIT`:
+    ``send_delay_p99_ms``, ``pace_limit_ms`` (the run's latency p50) and
+    ``generator_lagged``. A run without either figure (nothing was
+    sent, or nothing answered) cannot show its pace and counts as
+    lagged."""
+    delay = (report.get("send_delay") or {}).get("p99_ms")
+    limit = (report.get("latency") or {}).get("p50_ms")
+    lagged = delay is None or limit is None or delay > limit
+    return {"send_delay_p99_ms": delay, "pace_limit_ms": limit,
+            "rule": PACE_LIMIT, "generator_lagged": bool(lagged)}
+
+
+def early_pace_check(records, window_s: float = 1.0) -> dict:
+    """:func:`pace_check` over the arrivals of a run's first
+    ``window_s``: in an overload arm built to back up, every sender
+    ends up waiting on the servers' queue (the whole run's
+    ``send_delay`` is then the backlog's), so the generator's own pace
+    shows before the backlog forms."""
+    from routest_tpu_torch.loadgen import summarize
+
+    early = [r for r in records if r.offset_s < window_s]
+    return dict(pace_check(summarize(early, window_s, len(early))),
+                window_s=window_s)
+
+
+def passed(ok: bool, pace: dict) -> bool:
+    """A scenario's verdict: its own checks, and a generator that kept
+    its pace — a lagged run measured the generator, so it never
+    passes."""
+    return bool(ok) and not pace["generator_lagged"]
 
 
 # ── HTTP ─────────────────────────────────────────────────────────────
@@ -338,9 +461,10 @@ def replica_launches(metrics: dict) -> dict:
 
 
 def open_loop(base: str, rate: float, duration_s: float, stop=None):
-    """Blocking open-loop predict_eta load (unique bodies) → records."""
+    """Blocking open-loop predict_eta load (unique bodies) → records,
+    from a generator process of its own."""
     from routest_tpu_torch.loadgen import (PlannedRequest, RateCurve,
-                                           paced_schedule, run_open_loop)
+                                           paced_schedule)
 
     offsets = paced_schedule(RateCurve.constant(rate), duration_s)
     requests = [PlannedRequest(
@@ -349,8 +473,8 @@ def open_loop(base: str, rate: float, duration_s: float, stop=None):
               "traffic": "Medium", "driver_age": 33,
               "pickup_time": "2026-08-05T18:00:00"},
         route="predict_eta") for i in range(len(offsets))]
-    return run_open_loop([base], offsets, requests, workers=8,
-                         timeout=30.0, stop=stop)
+    return run_open_loop_process([base], offsets, requests, workers=8,
+                                 timeout=30.0, stop=stop)[0]
 
 
 def correctness_bundles(recorder_dir: str):

@@ -24,7 +24,12 @@ before sending again) and their artifacts say so (``"loop":
 user-visible tail (coordinated omission). ``--open-loop --rate R``
 switches to the ``routest_tpu_torch/loadgen`` engine — a seeded arrival
 schedule fired independently of the server, Zipf-skewed OD keys,
-latency measured from intended send time. See docs/LOADGEN.md.
+latency measured from intended send time. See docs/LOADGEN.md. The
+open-loop run sends from a process of its own, paced as
+``chip_smoke.py``'s phase 18 paces its generator
+(``cuda_harness.run_open_loop_process``, after a 2 s settle); a run
+whose ``send_delay`` p99 exceeds its latency p50 is recorded
+``generator_lagged`` and exits 1.
 
 Records: ``artifacts/load_test_cuda.json`` (closed loop) and
 ``artifacts/load_test_open_loop_cuda.json`` (``--open-loop``) on the
@@ -554,7 +559,7 @@ def run_open_loop_mode(bases, args):
     from routest_tpu_torch.loadgen import (RateCurve, ZipfODWorkload,
                                            cache_delta, fetch_metrics,
                                            paced_schedule, poisson_schedule,
-                                           run_open_loop, summarize)
+                                           summarize)
 
     curve = RateCurve.constant(args.rate)
     if args.arrival == "poisson":
@@ -574,9 +579,12 @@ def run_open_loop_mode(bases, args):
         return {"replica_metrics": out}
 
     before = metrics_all()
-    records = run_open_loop(bases, offsets, requests,
-                            workers=args.open_workers)
+    time.sleep(harness.SETTLE_S)
+    records, _ = harness.run_open_loop_process(
+        bases, offsets, requests, workers=args.open_workers)
     report = summarize(records, args.duration, len(offsets))
+    report["pace"] = harness.pace_check(report)
+    report["generator_lagged"] = report["pace"]["generator_lagged"]
     report.update({
         "arrival": curve.spec | {"process": args.arrival},
         "workload": {"kind": "zipf_od", "s": args.zipf_s,
@@ -743,8 +751,13 @@ def main() -> None:
         out = args.out or os.path.join(
             REPO, where, f"load_test_open_loop_{suffix}.json")
         harness.write_record(out, report)
-        print(f"[load_test_cuda] open-loop report → {out}", file=sys.stderr)
-        sys.exit(1 if report["errors"] else 0)
+        pace = report["pace"]
+        print(f"[load_test_cuda] open-loop report → {out}; send_delay "
+              f"p99 {pace['send_delay_p99_ms']} ms, limit "
+              f"{pace['pace_limit_ms']} ms, generator lagged "
+              f"{pace['generator_lagged']}", file=sys.stderr)
+        sys.exit(1 if report["errors"] or pace["generator_lagged"]
+                 else 0)
 
     try:
         cores = os.cpu_count() or 1

@@ -9,8 +9,10 @@ one deliberate difference (the port pins ``ROUTEST_DEVICE=cpu`` where
 the JAX planner sets ``XLA_FLAGS``/``ROUTEST_FORCE_CPU``) and is pinned
 on its own. The port's inventory counts CUDA devices and raises with no
 card unless the CPU was asked for; planning imports neither ``jax`` nor
-``routest_tpu`` and creates no CUDA context; a replica refuses a slice
-of more than one device."""
+``routest_tpu`` and creates no CUDA context; a replica handed a slice
+of more than one device (``ROUTEST_MESH=1``) on a host with one device
+boots and serves single-device, as the JAX entry point does, and its
+health says so."""
 
 import json
 import os
@@ -207,22 +209,72 @@ def test_planning_imports_no_jax_and_creates_no_cuda_context():
                    "cuda_initialized": False}
 
 
-@pytest.mark.parametrize("chips,mesh,refused", [
-    (1, "0", False), (1, None, False), (2, "1", True), (1, "1", True),
-    (4, "0", True), ("x", None, True)])
-def test_a_replica_refuses_a_mesh_slice(chips, mesh, refused):
-    env = {"RTPU_FLEET_SLICE_CHIPS": str(chips)}
+@pytest.mark.parametrize("chips,mesh", [
+    (1, "0"), (1, None), (2, "1"), (1, "1"), (4, "0"), ("x", None)])
+def test_a_replica_on_one_device_serves_a_mesh_slice_single_device(chips,
+                                                                  mesh):
+    """``ROUTEST_MESH`` (auto, 1 or 0) builds a mesh only over more than
+    one device of the serving backend: this host's one CPU never gets
+    one, whatever the slice says."""
+    from routest_tpu_torch.core.config import load_config
+
+    env = {"RTPU_FLEET_SLICE_CHIPS": str(chips), "ROUTEST_DEVICE": "cpu"}
     if mesh is not None:
         env["ROUTEST_MESH"] = mesh
-    assert (tserve_main.mesh_slice_refusal(env) is not None) == refused
+    assert tserve_main.mesh_runtime(load_config(env), env) is None
 
 
-def test_a_two_device_slice_fails_the_replica_boot():
+def test_a_two_device_slice_boots_and_serves_single_device():
+    import signal
+    import time
+    import urllib.request
+
+    from routest_tpu_torch.serve.fleet.supervisor import free_port
+
     plan = tpl.plan_placement(tpl.DeviceInventory("cpu", 2, "env"),
                               spec="mesh", record_path="")
-    env = {**os.environ, **plan.slices[0].env, "PORT": "0"}
-    out = subprocess.run(
+    overlay = plan.slices[0].env
+    assert overlay["ROUTEST_MESH"] == "1"
+    assert overlay["RTPU_FLEET_SLICE_CHIPS"] == "2"
+    port = free_port()
+    env = {**os.environ, **overlay, "PORT": str(port),
+           "ROUTEST_WARM_BUCKETS": "0"}
+    proc = subprocess.Popen(
         [sys.executable, "-m", "routest_tpu_torch.serve"], cwd=REPO,
-        env=env, capture_output=True, text=True, timeout=120)
-    assert out.returncode == 2
-    assert '"event": "mesh_slice_refused"' in out.stderr
+        env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        text=True)
+    base = f"http://127.0.0.1:{port}"
+    try:
+        deadline = time.monotonic() + 120
+        while True:
+            assert proc.poll() is None, proc.stderr.read()[-2000:]
+            try:
+                with urllib.request.urlopen(f"{base}/api/ping",
+                                            timeout=2) as r:
+                    if r.status == 200:
+                        break
+            except OSError:
+                pass
+            assert time.monotonic() < deadline, "the replica never booted"
+            time.sleep(0.25)
+        req = urllib.request.Request(
+            f"{base}/api/predict_eta",
+            data=json.dumps({"summary": {"distance": 5000}}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=30) as r:
+            body = json.loads(r.read())
+        assert body["eta_minutes_ml"] > 0
+        with urllib.request.urlopen(f"{base}/api/health", timeout=30) as r:
+            mesh = json.loads(r.read())["checks"]["engine"]["mesh"]
+        assert mesh["devices"] == 1 and mesh["sharded"] is False
+        assert "axis_shapes" not in mesh
+        assert mesh["placement"] == overlay[tpl.PLACEMENT_LABEL_ENV]
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            _, err = proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            _, err = proc.communicate()
+    assert proc.returncode == 0, err[-2000:]
+    assert "mesh_slice_refused" not in err

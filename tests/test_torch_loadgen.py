@@ -19,6 +19,11 @@ against the JAX package's (``routest_tpu/loadgen/``).
 - The three port scripts: ``--help``; without a card and without
   ``--cpu`` each exits 2 naming the missing device; neither they nor
   ``routest_tpu_torch.loadgen`` import JAX or the JAX package.
+- Their harness's pace (``scripts/cuda_harness.py``): against a stub
+  replica, a generator made to lag (one sender behind a slow replica)
+  is reported ``generator_lagged`` and never passes, one that keeps up
+  is not; ``paced`` restores the interpreter's settings; the generator
+  in a process of its own returns every record and stops on request.
 
 Every server binds a free port; every thread a test starts is joined.
 """
@@ -671,6 +676,76 @@ def test_script_refuses_without_a_card(script, tmp_path):
     assert out.returncode == 2
     assert "no CUDA device" in out.stderr and "--cpu" in out.stderr
     assert not out_path.exists()
+
+
+def _cuda_harness():
+    """The harness as the scripts import it (by name, from ``scripts/``:
+    a spawned generator process imports it the same way)."""
+    import importlib
+
+    scripts = os.path.join(REPO, "scripts")
+    if scripts not in sys.path:
+        sys.path.append(scripts)
+    return importlib.import_module("cuda_harness")
+
+
+@pytest.mark.parametrize("lag", [True, False])
+def test_harness_reports_a_lagging_generator_and_never_passes_it(lag):
+    import gc
+
+    h = _cuda_harness()
+    # lagging: 40 arrivals in 0.2 s behind one sender and a 50 ms
+    # replica; keeping up: 10 arrivals in 1 s over eight senders
+    rate, span, workers = (200.0, 0.2, 1) if lag else (10.0, 1.0, 8)
+    offsets = tlg.paced_schedule(tlg.RateCurve.constant(rate), span)
+    requests = tlg.ZipfODWorkload(seed=3).sequence(len(offsets))
+    switch = sys.getswitchinterval()
+    stub = _StubServer(delay_s=0.05)
+    try:
+        with h.paced():
+            assert sys.getswitchinterval() == pytest.approx(
+                h.LOADGEN_SWITCH_S)
+            assert not gc.isenabled()
+            records = tlg.run_open_loop([stub.base], offsets, requests,
+                                        workers=workers, timeout=10.0)
+    finally:
+        stub.close()
+    assert sys.getswitchinterval() == switch and gc.isenabled()
+    rep = tlg.summarize(records, span, len(offsets))
+    assert rep["ok"] == len(offsets)
+    pace = h.pace_check(rep)
+    assert pace["send_delay_p99_ms"] == rep["send_delay"]["p99_ms"]
+    assert pace["pace_limit_ms"] == rep["latency"]["p50_ms"]
+    assert pace["generator_lagged"] is lag
+    assert h.passed(True, pace) is (not lag)
+    assert h.passed(False, pace) is False
+    # a run with nothing to read cannot show its pace
+    assert h.pace_check({})["generator_lagged"] is True
+
+
+def test_harness_runs_the_generator_in_a_process_of_its_own():
+    h = _cuda_harness()
+    offsets = tlg.paced_schedule(tlg.RateCurve.constant(50.0), 0.4)
+    requests = tlg.ZipfODWorkload(seed=4).sequence(len(offsets))
+    stub = _StubServer(delay_s=0.01)
+    try:
+        t0 = time.time()
+        records, started = h.run_open_loop_process(
+            [stub.base], offsets, requests, workers=4, timeout=10.0)
+        assert t0 <= started <= time.time()
+        rep = tlg.summarize(records, 0.4, len(offsets))
+        assert rep["ok"] == len(offsets) == len(records)
+        assert [r.offset_s for r in records] == [float(o) for o in offsets]
+        # a stop set before the run ends it with nothing sent
+        stop = threading.Event()
+        stop.set()
+        records, _ = h.run_open_loop_process(
+            [stub.base], tlg.paced_schedule(tlg.RateCurve.constant(50.0),
+                                            30.0),
+            requests * 40, workers=4, stop=stop)
+        assert len(records) < len(offsets)
+    finally:
+        stub.close()
 
 
 def test_loadgen_and_scripts_import_no_jax():
