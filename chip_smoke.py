@@ -292,7 +292,27 @@ of which fails the run:
    ``moe_apply_dense``; (e) ``core/distributed.py`` at world size 1
    over nccl; (f) 4096-row scoring ms at 1, 2 and 4 shards, TP scoring
    ms, and ring, Ulysses and full attention ms, beside the card's name
-   and power limit (shards sharing one card: no speed claim).
+   and power limit (shards sharing one card: no speed claim);
+20. the pages, run between phases 19 and 9: ``python -m
+   routest_tpu_torch.serve`` on the shipped artifact twice, on the card
+   (bf16, the kernel by the record) and with ``ROUTEST_DEVICE=cpu``; on
+   each, ``/ui``'s scripts run in the port's ``utils/jsdom.DomHost``
+   (its JS engine ``utils/minijs.py``) through a ``urllib`` client
+   (``_PageClient``): boot (21 locations, the four dots ``ok``),
+   Calculate with the warehouse and 10 malls on engine ``ml`` (route
+   cards, steps; ``rtpu_fused_launches`` must grow over it on the card),
+   Simulate with 3 frames of ``/api/realtime_feed`` read under a
+   deadline and fed to the page's EventSource (the driver head moves),
+   a history row redrawn from the stored geometry, the GeoJSON and CSV
+   exports, the ``/health`` page (cards ``engine``, ``redis``,
+   ``supabase``, ``model``, ``tpu``) and the mvp page picking two sites
+   and routing; the card's rendered texts, features and export rows
+   held to the CPU path's (``_same_page``; ``PAGES_STAMPS`` left out),
+   no launch on the CPU path; then ``python -m
+   routest_tpu_torch.analysis --gate`` on the card's host (its verdict
+   line printed); the phase's wall time, the JS ms of boot and of
+   Calculate and the server ms per request beside the card's name and
+   power limit.
 
 The lines before the last are one ``{"optimize": {...}}``, one
 ``{"road": {...}}``, one ``{"overlay": {...}}``, one ``{"live": {...}}``,
@@ -300,7 +320,8 @@ one ``{"selection": {...}}``, one ``{"dispatch": {...}}``, one
 ``{"serving_core": {...}}``, one
 ``{"train": {...}}``, one ``{"observability": {...}}``, one
 ``{"fleet": {...}}``, one ``{"regions": {...}}``, one
-``{"loadgen": {...}}``, one ``{"mesh": {...}}`` and one
+``{"loadgen": {...}}``, one ``{"mesh": {...}}``, one
+``{"pages": {...}}`` and one
 ``{"kernels": [...]}`` JSON object and the
 card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
@@ -2398,7 +2419,7 @@ def _live_serve(rng):
             live() if live().get("epoch", 0) >= 1 else None), 120, proc)
         status, health = _request(port, "GET", "/api/health")
         check(health["checks"]["engine"]["live"]["epoch"] >= 1
-              and health["checks"]["bus"]["backend"] == "memory",
+              and health["checks"]["redis"]["backend"] == "memory",
               f"live serving: health {health['checks']['engine'].get('live')}")
         routes, route_ms = [], []
         for r in range(LIVE_ROUTES):
@@ -3405,7 +3426,7 @@ def _persist_phase(artifact):
             check(status == 503 and one.get("degraded") is True,
                   f"persist: detail in the outage {status} {one}")
             _, health = _request(port, "GET", "/api/health")
-            journal = health["checks"]["store"]["resilience"]["journal_depth"]
+            journal = health["checks"]["supabase"]["resilience"]["journal_depth"]
             check(journal == 2 * PERSIST_OUTAGE_REQUESTS,
                   f"persist: journal depth {journal}")
             pg2, pg2_thread, _ = start_fake_postgrest(pg_port)
@@ -3413,7 +3434,7 @@ def _persist_phase(artifact):
             t_up = time.perf_counter()
             while True:
                 _, health = _request(port, "GET", "/api/health")
-                store = health["checks"]["store"]
+                store = health["checks"]["supabase"]
                 if store["status"] == "ok" and \
                         store["resilience"]["journal_depth"] == 0:
                     break
@@ -4651,7 +4672,7 @@ def _obs_chaos(rng, tmp):
                   f"store.http fault: {status} {props}")
             time.sleep(0.25)          # the breaker's cooldown
             status, health = _request(srv.port, "GET", "/api/health")
-            store = health["checks"]["store"]
+            store = health["checks"]["supabase"]
             check(store["status"] == "ok"
                   and store["resilience"]["journal_depth"] == 0,
                   f"store after recovery {store}")
@@ -6844,6 +6865,401 @@ def phase_mesh(smi_line):
     return record, launches
 
 
+# ── phase 20: the pages ─────────────────────────────────────────────
+
+PAGES_BOOT_S = 240.0         # bound on one server's boot
+PAGES_STOPS = 10             # the Calculate's malls (engine ml)
+PAGES_FRAMES = 3             # SSE frames fed to the tracker
+PAGES_FRAME_S = 60.0         # deadline on reading them (ticks are 2-5 s)
+# Values that are wall-clock stamps or fresh ids: the pages show them,
+# and the card-vs-CPU comparison leaves them out (the tracked ETA card,
+# a completion clock time, is not collected; an ``HH:MM:SS`` inside
+# panel text, as a history row's, is masked).
+PAGES_STAMPS = ("request_id", "created_at", "eta_completion_time_ml",
+                "overall_estimated_completion_time", "start_time")
+# Values scored by the MLP: the bf16 kernel on the card, f32 on the CPU
+# path, held to the bf16 class (TOL) plus the page's display step.
+PAGES_ETA = ("eta_minutes_ml", "c-eta")
+
+
+class _PageResponse:
+    """What ``DomHost`` reads of a response, in the werkzeug test
+    client's shape: ``status_code``, ``get_data``, ``headers.get``."""
+
+    def __init__(self, status, body, headers):
+        self.status_code = status
+        self.body = body
+        self.headers = headers
+
+    def get_data(self, as_text=False):
+        return self.body.decode("utf-8") if as_text else self.body
+
+
+class _PageClient:
+    """``DomHost``'s client over a live socket (``urllib``); every
+    request's round trip is timed (``server_s``)."""
+
+    def __init__(self, port):
+        self.port = port
+        self.server_s = 0.0
+        self.requests = 0
+        self.log = []             # (method path, round-trip ms)
+
+    def open(self, url, method="GET", headers=None, data=None):
+        import urllib.error
+        import urllib.request
+
+        body = data.encode("utf-8") if isinstance(data, str) else data
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{self.port}{url}", data=body, method=method,
+            headers={str(k): str(v) for k, v in (headers or {}).items()})
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                out = _PageResponse(resp.status, resp.read(), resp.headers)
+        except urllib.error.HTTPError as e:   # a 4xx/5xx is an answer
+            out = _PageResponse(e.code, e.read(), e.headers)
+        self.server_s += time.perf_counter() - t0
+        self.requests += 1
+        self.log.append((f"{method} {url.split('?')[0]}",
+                         (time.perf_counter() - t0) * 1e3))
+        return out
+
+    def get(self, url, **kw):
+        return self.open(url, "GET", **kw)
+
+    def frames(self, url, n):
+        """The first ``n`` frames of an SSE route from its start
+        (``Last-Event-ID: 0``, ``max_events=n``: the server closes after
+        them), read under ``PAGES_FRAME_S`` — the page's EventSource is
+        fed these, never a socket of its own."""
+        path = f"{url}{'&' if '?' in url else '?'}max_events={n}"
+        conn = http.client.HTTPConnection("127.0.0.1", self.port,
+                                          timeout=PAGES_FRAME_S)
+        t0 = time.perf_counter()
+        try:
+            conn.request("GET", path, headers={"Last-Event-ID": "0"})
+            resp = conn.getresponse()
+            check(resp.status == 200, f"pages: {path}: {resp.status}")
+            body = b""
+            while body.count(b"\ndata: ") + body.startswith(b"data: ") < n:
+                check(time.perf_counter() - t0 < PAGES_FRAME_S,
+                      f"pages: {n} frames of {path} in {PAGES_FRAME_S} s")
+                chunk = resp.read1(65536)
+                if not chunk:
+                    break
+                body += chunk
+        finally:
+            conn.close()
+        frames = [line[6:] for line in body.decode().split("\n")
+                  if line.startswith("data: ")]
+        check(len(frames) >= n, f"pages: {len(frames)} frames of {path}")
+        return frames[:n]
+
+
+def _js_ms(client, fn):
+    """(fn's result, the wall ms it spent outside the server)."""
+    s0, t0 = client.server_s, time.perf_counter()
+    out = fn()
+    return out, ((time.perf_counter() - t0) - (client.server_s - s0)) * 1e3
+
+
+def _page_rows(host, el_id):
+    return [c for c in host.by_id(el_id).children
+            if getattr(c, "tag", None) == "div"]
+
+
+def _page_flows(port, who):
+    """The glue flows of ``tests/test_dashboard_glue.py`` through the
+    port's ``DomHost`` against one live server. → (what the pages
+    rendered, timings, fused launches over the Calculate)."""
+    import re
+
+    from routest_tpu_torch.utils.jsdom import DomHost
+
+    client = _PageClient(port)
+    seen = {}
+    # boot: 21 locations in the origin select, 20 stop boxes, the dots
+    page = client.get("/ui").get_data(as_text=True)
+    host, boot_ms = _js_ms(client, lambda: _booted(DomHost(page, client)))
+    origin = host.by_id("origin")
+    opts = [c for c in origin.walk() if c.tag == "option"]
+    boxes = [el for el in host.by_id("stops").walk() if el.tag == "input"]
+    check(len(opts) == 21 and len(boxes) == 20,
+          f"pages {who}: boot lists {len(opts)} origins, {len(boxes)} stops")
+    locations = json.loads(client.get("/api/locations").get_data())
+    check(origin._select_value() == str(locations[0]["id"])
+          and "Warehouse" in locations[0]["name"]
+          and host.by_id("engine")._select_value() == "ml",
+          f"pages {who}: origin {origin._select_value()} engine "
+          f"{host.by_id('engine')._select_value()}")
+    dots = {k: host.by_id(f"d-{k}").props["className"]
+            for k in ("engine", "model", "redis", "supabase")}
+    check(set(dots.values()) == {"dot ok"}, f"pages {who}: dots {dots}")
+    seen["boot"] = {"origins": [o._text() for o in opts], "dots": dots}
+    # Calculate: the warehouse and 10 malls on engine ml
+    for b in boxes[:PAGES_STOPS]:
+        b.props["checked"] = True
+    before = _loadgen_launches(port)
+    _, calc_ms = _js_ms(client, lambda: host.click("calc"))
+    launches = _loadgen_launches(port) - before
+    check(host.text("error") == "", f"pages {who}: {host.text('error')}")
+    feature = host.interp.to_py(host.interp.get("FEATURE"))
+    props = feature["properties"]
+    check(len(props["optimized_order"]) == PAGES_STOPS
+          and props["eta_minutes_ml"] > 0
+          and host.by_id("cards").style.props["display"] == "grid"
+          and host.text("c-eta") == f"{props['eta_minutes_ml']:.0f}",
+          f"pages {who}: calculate rendered {host.text('cards')!r}")
+    steps = [c._text() for c in host.by_id("steps").walk()
+             if c.props.get("className") == "mi"]
+    check(steps and set(steps) <= {"⚑", "➤", "↩", "↰", "↱", "↑"},
+          f"pages {who}: step icons {steps}")
+    seen["calculate"] = {
+        "feature": feature,
+        "cards": {k: host.text(k) for k in ("c-dist", "c-dur", "c-eta",
+                                            "c-trips")},
+        "steps": host.text("steps"), "alts": host.text("alts")}
+    # Simulate: confirm_route, then 3 frames of the live feed move the
+    # driver head along the route
+    host.click("simulate")
+    check(any("/api/confirm_route" in u for u in host.fetch_log)
+          and host.event_sources, f"pages {who}: simulate opened no feed")
+    es = host.event_sources[-1]
+    heads = []
+    for frame in client.frames(es.url, PAGES_FRAMES):
+        check(json.loads(frame).get("remaining_routes"),
+              f"pages {who}: frame {frame[:200]}")
+        es.fire_message(frame)
+        head = [c for c in host.by_id("map").walk()
+                if c.attrs.get("id") == "driver"]
+        check(len(head) == 1, f"pages {who}: no driver head")
+        heads.append((head[0].attrs["cx"], head[0].attrs["cy"]))
+    check(len(set(heads)) > 1, f"pages {who}: the driver never moved")
+    check(re.fullmatch(r"\d\d:\d\d:\d\d", host.text("c-eta")),
+          f"pages {who}: tracked ETA {host.text('c-eta')!r}")
+    seen["simulate"] = {"heads": heads}
+    # a history row redraws from the stored geometry
+    host.interp.set_global("FEATURE", None)
+    host.by_id("map").children = []
+    rows = _page_rows(host, "historyRows")
+    check(rows, f"pages {who}: no history rows")
+    host._click(rows[0])
+    redrawn = host.interp.to_py(host.interp.get("FEATURE"))
+    check(redrawn and redrawn["geometry"]["coordinates"]
+          and any(c.tag == "path" for c in host.by_id("map").walk()),
+          f"pages {who}: history redraw")
+    seen["history"] = {"feature": redrawn, "rows": [
+        r._text() for r in rows]}
+    # the GeoJSON and CSV exports
+    host.click("export")
+    dl = host.downloads[-1]
+    check(dl["download"] == "route.geojson"
+          and json.loads(dl["content"]) == redrawn,
+          f"pages {who}: GeoJSON export")
+    host.click("csv")
+    dl_csv = host.downloads[-1]
+    csv_rows = [row.split(",") for row in dl_csv["content"].splitlines()]
+    check(dl_csv["download"] == "route_history.csv"
+          and csv_rows[0][0] == "request_id" and len(csv_rows) >= 2,
+          f"pages {who}: CSV export")
+    seen["exports"] = {"geojson": json.loads(dl["content"]),
+                       "csv": [dict(zip(csv_rows[0], r))
+                               for r in csv_rows[1:]]}
+    # the /health page
+    health = _booted(DomHost(client.get("/health").get_data(as_text=True),
+                             client))
+    names = {t._text() for card in _page_rows(health, "cards")
+             for t in card.select(".name")}
+    check(health.text("overall") == "ok"
+          and {"engine", "redis", "supabase", "model", "tpu"} <= names,
+          f"pages {who}: health {health.text('overall')} {sorted(names)}")
+    seen["health"] = {"overall": health.text("overall"),
+                      "names": sorted(names)}
+    # the mvp page: pick two sites and route
+    mvp = _booted(DomHost(client.get("/").get_data(as_text=True), client))
+    rows = _page_rows(mvp, "locList")
+    check(len(rows) == 21, f"pages {who}: mvp lists {len(rows)}")
+    mvp._click(rows[0])
+    mvp._click(_page_rows(mvp, "locList")[3])
+    mvp.click("route")
+    check(mvp.text("error") == ""
+          and mvp.by_id("result").style.props["display"] == "block"
+          and float(mvp.text("r-dist")) > 0,
+          f"pages {who}: mvp route {mvp.text('error')!r}")
+    seen["mvp"] = {k: mvp.text(k) for k in ("fromName", "toName", "r-dist",
+                                            "r-dur")}
+    timing = {"boot_js_ms": boot_ms, "calculate_js_ms": calc_ms,
+              "requests": client.requests,
+              "server_ms_per_request": client.server_s * 1e3
+              / client.requests,
+              "slowest_requests": sorted(client.log, key=lambda r: -r[1])[:3]}
+    return seen, timing, launches
+
+
+def _booted(host):
+    host.run_scripts()
+    return host
+
+
+def _same_page(got, want, path=""):
+    """The card's pages against the CPU path's: equal keys, texts,
+    orders and geometry; distances and durations within rtol 1e-5 plus
+    the page's rounding step; MLP-scored values within the bf16 class
+    plus the display step; ``PAGES_STAMPS`` left out; the engine tag
+    naming each device."""
+    import re
+
+    key = path.rsplit(".", 1)[-1]
+    eta = any(k in path for k in PAGES_ETA)
+    if any(k == key for k in PAGES_STAMPS):
+        return
+    if isinstance(want, dict):
+        check(isinstance(got, dict) and set(got) == set(want),
+              f"pages: {path}: keys {sorted(got)} != {sorted(want)}")
+        for k in want:
+            _same_page(got[k], want[k], f"{path}.{k}")
+    elif isinstance(want, (list, tuple)):
+        check(isinstance(got, (list, tuple)) and len(got) == len(want),
+              f"pages: {path}: length")
+        for i, (g, w) in enumerate(zip(got, want)):
+            _same_page(g, w, f"{path}[{i}]")
+    elif key == "engine" and str(want).startswith("backend:"):
+        check(got == want or (got, want) == ("backend:torch-cuda",
+                                             "backend:torch-cpu"),
+              f"pages: {path}: {got}")
+    elif isinstance(want, float) and isinstance(got, float):
+        _near_page(got, want, eta, 0.1 if key in _ROUNDED_KEYS else 0.0,
+                   path)
+    elif isinstance(want, str) and isinstance(got, str) and got != want:
+        # panel text: the words equal, each number within its class and
+        # the display step of its printed decimals
+        clock, num = r"\b\d\d:\d\d:\d\d\b", r"(-?\d+(?:\.\d+)?)"
+        g = re.split(num, re.sub(clock, "<clock>", got))
+        w = re.split(num, re.sub(clock, "<clock>", want))
+        check(len(g) == len(w) and g[::2] == w[::2],
+              f"pages: {path}: {got!r} != {want!r}")
+        for gn, wn in zip(g[1::2], w[1::2]):
+            step = 10.0 ** -len(wn.partition(".")[2])
+            _near_page(float(gn), float(wn), eta, step, path)
+    else:
+        check(got == want, f"pages: {path}: {got!r} != {want!r}")
+
+
+def _near_page(got, want, eta, step, path):
+    rtol, atol = TOL["bfloat16"] if eta else (1e-5, 0.0)
+    check(abs(got - want) <= atol + rtol * abs(want) + step + 1e-9,
+          f"pages: {path}: {got} vs {want}")
+
+
+def _page_server(device):
+    """``python -m routest_tpu_torch.serve`` on the shipped artifact
+    (bf16, the kernel by the record) on ``device``. → (proc, port, log,
+    boot s)."""
+    import tempfile
+
+    port = _free_port()
+    env = dict(os.environ, PORT=str(port), RTPU_HOST="127.0.0.1",
+               ROUTEST_DEVICE=device)
+    for var in ("ETA_MODEL_PATH", "RTPU_KERNEL_DTYPE", "ROUTEST_FUSED",
+                "REDIS_URL", "ROUTEST_AUTH", "RTPU_LIVE", "RTPU_WIRE"):
+        env.pop(var, None)
+    log = tempfile.TemporaryFile(mode="w+")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "routest_tpu_torch.serve"],
+                            cwd=ROOT, env=env, stdout=log,
+                            stderr=subprocess.STDOUT)
+    return proc, port, log, t0
+
+
+def _page_stop(proc, log, who):
+    import signal
+
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+    try:
+        rc = proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=30)
+        rc = "killed"
+    log.seek(0)
+    tail = log.read()[-2000:]
+    log.close()
+    check(rc in (0, -15), f"pages {who}: the server exited {rc}:\n{tail}")
+
+
+def phase_pages(smi_line):
+    """Phase 20, the pages on the card. → (record, fused launches over
+    the card server's page flows)."""
+    t_phase = time.perf_counter()
+    servers = {who: _page_server(dev)
+               for who, dev in (("card_path", CARD), ("cpu_path", "cpu"))}
+    record = {"card": smi_line, "stamps_left_out": list(PAGES_STAMPS)}
+    seen, boot_s = {}, {}
+    try:
+        # both boot at once: poll each until it answers
+        while len(boot_s) < len(servers):
+            for who, (proc, port, _, t0) in servers.items():
+                if who in boot_s:
+                    continue
+                check(proc.poll() is None, f"pages {who}: the server "
+                                           f"exited ({proc.returncode})")
+                try:
+                    up = _request(port, "GET", "/api/ping")[0] == 200
+                except OSError:
+                    up = False
+                if up:
+                    boot_s[who] = time.perf_counter() - t0
+                check(time.perf_counter() - t0 < PAGES_BOOT_S,
+                      f"pages {who}: no ping in {PAGES_BOOT_S} s")
+            time.sleep(0.1)
+        for who, (proc, port, log, t0) in servers.items():
+            status, health = _request(port, "GET", "/api/health")
+            scoring = health["checks"]["model"]["scoring"]
+            want = "cuda_fused" if who == "card_path" and CARD == "cuda" \
+                else "torch_plain"
+            check(status == 200 and scoring["kernel"] == want,
+                  f"pages {who}: scoring {scoring}")
+            launches0 = _loadgen_launches(port)
+            seen[who], timing, calc_launches = _page_flows(port, who)
+            timing["launches_calculate"] = calc_launches
+            timing["launches_flows"] = _loadgen_launches(port) - launches0
+            timing["server_boot_s"] = boot_s[who]
+            record[who] = timing
+            print(f"[pages] {who}: boot JS {timing['boot_js_ms']:.0f} ms, "
+                  f"Calculate JS {timing['calculate_js_ms']:.0f} ms, "
+                  f"{timing['server_ms_per_request']:.2f} ms per request "
+                  f"over {timing['requests']} requests (slowest "
+                  f"{timing['slowest_requests']}), boot "
+                  f"{timing['server_boot_s']:.1f} s, fused launches "
+                  f"{timing['launches_calculate']} over the Calculate "
+                  f"({timing['launches_flows']} over the flows) | {smi_line}")
+    finally:
+        for who, (proc, _, log, _) in servers.items():
+            _page_stop(proc, log, who)
+    check(record["card_path"]["launches_calculate"] > 0 or CARD != "cuda",
+          "pages: no fused launch over the Calculate")
+    check(record["cpu_path"]["launches_flows"] == 0,
+          "pages: the CPU path launched the kernel")
+    _same_page(seen["card_path"], seen["cpu_path"], "pages")
+    gate = subprocess.run(
+        [sys.executable, "-m", "routest_tpu_torch.analysis", "--gate"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    verdict = (gate.stdout.strip().splitlines() or [""])[-1]
+    check(gate.returncode == 0 and "GATE OK" in verdict,
+          f"pages: analysis gate rc {gate.returncode}:\n"
+          f"{gate.stdout[-3000:]}{gate.stderr[-2000:]}")
+    print(f"[pages] {verdict}")
+    record["gate"] = verdict
+    record["wall_s"] = time.perf_counter() - t_phase
+    print(f"[pages] held the card's pages to the CPU path's (stamps left "
+          f"out: {', '.join(PAGES_STAMPS)}); phase wall "
+          f"{record['wall_s']:.1f} s | {smi_line}")
+    print(json.dumps({"pages": record}))
+    return record, record["card_path"]["launches_flows"]
+
+
 def main() -> int:
     import torch
 
@@ -6897,6 +7313,8 @@ def main() -> int:
         _, loadgen_launches = phase_loadgen(smi_line)
         phase = "mesh"
         _, mesh_launches = phase_mesh(smi_line)
+        phase = "pages"
+        _, pages_launches = phase_pages(smi_line)
         phase = "times"
         table = phase_times(rng)
     except Exception as e:
@@ -6951,6 +7369,9 @@ def main() -> int:
     # ... and over phase 19's mesh service: none, as the JAX package
     # serves a mesh without its fused kernel
     kernels[0]["launches_mesh"] = mesh_launches
+    # ... and over phase 20's page flows on the card's server (another
+    # process): the dashboard's Calculate posts use_ml_eta
+    kernels[0]["launches_pages"] = pages_launches
     print(json.dumps({"kernels": kernels}))
     print(f"{smi_line}")
     print(json.dumps({"ok": True, "device": {

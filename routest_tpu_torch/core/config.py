@@ -1209,3 +1209,81 @@ def load_profile_config(
                                 60.0, float),
         device_trace=env.get("RTPU_PROFILE_DEVICE", "0") == "1",
     )
+
+
+# ---------------------------------------------------------------------------
+# Knob registry — the lazily-read long tail.
+#
+# Most knobs load through the typed dataclasses above (``ROUTEST_DEVICE``,
+# the port's device switch, is ``ServeConfig.device``'s). The ones below
+# are read at their use site instead (hot-path modules that must not pay
+# a full Config build at import, or reference-parity surfaces that
+# predate Config). They are DECLARED here so this file stays the single
+# registry of every RTPU_*/ROUTEST_* environment variable the port
+# responds to: the static-analysis gate (`python -m
+# routest_tpu_torch.analysis --rule env-knob-undeclared`) fails on any
+# env read whose name is missing from this file, so a new knob cannot
+# ship undeclared. The grouping is the JAX package's; knobs the port
+# never reads (its XLA compile cache, AOT buckets, forced virtual CPU
+# devices) are not declared, and the port's own knobs close the list.
+KNOWN_KNOBS: Mapping[str, str] = {
+    # Device/runtime selection.
+    "ROUTEST_MESH": "arm the serving device mesh (sharded scoring)",
+    "RTPU_CPU_COMPUTE": "compute-dtype policy override on the CPU",
+    "RTPU_COORDINATOR": "multi-process rendezvous address (host:port)",
+    "RTPU_NUM_PROCESSES": "multi-process world size",
+    "RTPU_PROCESS_ID": "this process's rank in the multi-process world",
+    # Serving kernel / scoring artifact.
+    "ROUTEST_FUSED": "fused CUDA kernel opt-in/out for scoring",
+    "ROUTEST_KERNEL_BENCH": "kernel selection-table path (bench record)",
+    "RTPU_KERNEL_DTYPE": "kernel weight/compute variant: bf16/f32/int8",
+    "ROUTEST_WARM_BUCKETS": "batch buckets warmed at serving bring-up",
+    # Road router / overlay / route fastlane (ROUTEST_HIER_* build
+    # knobs are part of the overlay cache fingerprint).
+    "ROUTEST_HIER_CACHE": "overlay cache directory (off = rebuild)",
+    "ROUTEST_HIER_CELL_TARGET": "partition ladder base cell size",
+    "ROUTEST_HIER_RATIO": "partition ladder growth ratio per level",
+    "ROUTEST_HIER_MAX_LEVELS": "overlay level cap",
+    "ROUTEST_HIER_MIN_NODES": "graph size below which no overlay builds",
+    "ROUTEST_HIER_CONTRACT": "degree-2 chain contraction cap",
+    "ROUTEST_HIER_LABELS": "hub-label stage opt-in/out",
+    "ROUTEST_HIER_PRUNE_SLACK": "boundary-clique prune slack",
+    "ROUTEST_POLISH_SWEEPS": "label-correcting polish sweep count",
+    "ROUTEST_ROUTER_BATCH": "cross-request solve batcher on/off",
+    "ROUTEST_ROUTER_BATCH_MAX": "solve batcher max merged sources",
+    "ROUTEST_ROUTER_BATCH_WINDOW_MS": "solve batcher merge window",
+    "ROUTEST_ROUTE_CACHE": "epoch-keyed route fastlane on/off",
+    "ROUTEST_ROUTE_CACHE_MB": "route fastlane byte budget",
+    "ROUTEST_ROUTE_CACHE_TTL_S": "route fastlane entry TTL",
+    "RTPU_ROAD_SWAP_MAX_DIV": "road-GNN verified-swap divergence bound",
+    # Resilient store (read by make_store without a Config build).
+    "RTPU_STORE_RETRIES": "store attempts per call before failing",
+    "RTPU_STORE_BACKOFF_MS": "store retry backoff base",
+    "RTPU_STORE_BREAKER_AFTER": "consecutive failures that open the breaker",
+    "RTPU_STORE_COOLDOWN_S": "breaker open time before the half-open probe",
+    "RTPU_STORE_JOURNAL": "write-behind journal depth bound",
+    # Bus.
+    "RTPU_NETBUS_RECONNECT_S": "self-healing subscription re-subscribe "
+                               "interval",
+    # Fleet placement plumbing (supervisor → replica env overlays; set
+    # by serve/fleet/placement.py, read by the child process).
+    "RTPU_FLEET_PLATFORM": "placement planner platform override (gpu "
+                           "plans CUDA_VISIBLE_DEVICES slices)",
+    "RTPU_FLEET_PLACEMENT_LABEL": "slice label the supervisor stamped on "
+                                  "this replica",
+    "RTPU_VERSION": "serving version label (rollouts, /api/version)",
+    # Reference-parity service surfaces.
+    "ROUTEST_AUTH": "'require' bearer-gates the destructive delete",
+    "ROUTEST_APP_KEY": "HMAC key for signed verify-email URLs",
+    "ROUTEST_SECURE_COOKIES": "force the Secure flag on session cookies",
+    "ROUTEST_FRONTEND_ORIGIN": "extra origin granted credentialed CORS",
+    "ROUTEST_MAIL_FILE": "mbox-JSONL mail transport path",
+    "RTPU_MAX_BODY_MB": "request body size limit (413 beyond)",
+    # Native helpers / data ingest.
+    "ROUTEST_NATIVE": "C accelerators opt-in/out",
+    "ROUTEST_NATIVE_CACHE": "native build cache directory",
+    "ROUTEST_NATIVE_OSM_MAX_BYTES": "OSM extract parse size bound",
+    # The port's own (no JAX counterpart).
+    "RTPU_KERNEL_CACHE": "directory of the nvcc-built kernel library "
+                         "(default build/kernels/)",
+}

@@ -111,8 +111,8 @@ class ContinuousTrainer:
             if fp == self._router._fingerprint:
                 model.policy = F32_POLICY
                 self._model = model
-        except Exception:  # warm start is best-effort: fresh init below
-            self._model = None
+        except Exception:  # rtpulint: disable=broad-except-unlogged -- warm-start is best-effort: any load failure falls back to fresh init
+            self._model = None  # fresh init below; reason irrelevant
         if self._model is None:
             self._model = RoadGNN(n_nodes=len(self._graph["node_coords"]),
                                   hidden=self.hidden, n_rounds=2,

@@ -90,6 +90,21 @@ _m_overlay_info = get_registry().gauge(
 _m_overlay_build = get_registry().gauge(
     "rtpu_router_overlay_build_seconds",
     "Overlay precompute seconds by level.", ("level",))
+# Request-path phases, as the JAX router labels them: ``snap`` (lat/lon
+# → node), ``solve`` (the device solve incl. its fetch), ``matrix`` (the
+# device duration table), ``walk`` (host predecessor walk per leg).
+_m_phase = get_registry().histogram(
+    "rtpu_router_phase_seconds",
+    "Road-router request-path phase latency.", ("phase",))
+_m_batch_dispatches = get_registry().counter(
+    "rtpu_router_batch_dispatches_total",
+    "Merged solve dispatches through the router batcher.")
+_m_batch_rows = get_registry().counter(
+    "rtpu_router_batch_rows_total",
+    "Source rows solved through merged dispatches.")
+_m_batch_merged = get_registry().counter(
+    "rtpu_router_batch_merged_requests_total",
+    "Requests that shared a dispatch with at least one other request.")
 
 
 def _road_swap_divergence() -> float:
@@ -317,6 +332,10 @@ class _SolveBatcher:
                     self._max_occupancy = max(self._max_occupancy, rows)
                     if len(batch) > 1:
                         self._merged_requests += len(batch)
+                _m_batch_dispatches.inc()
+                _m_batch_rows.inc(rows)
+                if len(batch) > 1:
+                    _m_batch_merged.inc(len(batch))
                 self._dispatch(batch)
         except BaseException as e:  # drain-loop bug: fail loudly, not hung
             drain_error = e
@@ -894,6 +913,7 @@ class RoadRouter:
         bucket = 1 << max(0, (n_src - 1)).bit_length()
         padded = np.full(bucket, source_nodes[0] if n_src else 0, np.int64)
         padded[:n_src] = source_nodes
+        t0 = time.perf_counter()
         sources = torch.from_numpy(padded).to(self.device)
         if live is not None and live.route:
             hier, solve, w = live.hier, live.solve, live.d_time_bf
@@ -903,7 +923,9 @@ class RoadRouter:
             # Overlay path: exact by construction (no exhaustion re-run),
             # and full_solve_fn already returns ORIGINAL edge ids.
             dist, pred = solve(*hier.prep_sources(padded), sources)
-            return self._fetch(dist[:n_src], pred[:n_src])
+            out = self._fetch(dist[:n_src], pred[:n_src])
+            _m_phase.labels(phase="solve").observe(time.perf_counter() - t0)
+            return out
         dist, pred, converged = _bellman_ford(
             self._bf_senders, self._bf_receivers, w, sources,
             n_nodes=self.n_nodes, max_iters=self.max_iters)
@@ -917,6 +939,7 @@ class RoadRouter:
                 self._bf_senders, self._bf_receivers, w,
                 sources, n_nodes=self.n_nodes, max_iters=self.n_nodes)
         dist, pred = self._fetch(dist[:n_src], pred[:n_src])
+        _m_phase.labels(phase="solve").observe(time.perf_counter() - t0)
         # sorted-edge ids → original edge ids
         pred = np.where(pred >= 0, self._bf_perm[np.maximum(pred, 0)], -1)
         return dist, pred
@@ -1090,10 +1113,12 @@ class RoadRouter:
         offsets = np.concatenate([[0], np.cumsum(sel_counts)])
         all_pts = np.concatenate([pts_list[i] for i in solve_idx], axis=0)
         # snap() builds an (M, N) haversine table: chunk its rows.
+        t0 = time.perf_counter()
         snap_chunk = max(1, (16 << 20) // max(self.n_nodes, 1))
         all_nodes = np.concatenate([
             self.snap(all_pts[i:i + snap_chunk])
             for i in range(0, len(all_pts), snap_chunk)])
+        _m_phase.labels(phase="snap").observe(time.perf_counter() - t0)
         # First/last mile: the point↔snapped-node gap is charged into
         # every leg (at collector free-flow for the duration).
         all_snap = haversine_np(
@@ -1210,8 +1235,10 @@ class RoadLegs:
         cached = self._cost_memo.get((i, j))
         if cached is not None:
             return cached
+        t0 = time.perf_counter()
         node_seq = self._r._walk(self._pred[i], int(self._nodes[i]),
                                  int(self._nodes[j]))
+        _m_phase.labels(phase="walk").observe(time.perf_counter() - t0)
         if not node_seq:
             out = ([], float("inf"), float("inf"))
         else:
@@ -1343,8 +1370,10 @@ class RoadLegs:
         table (``_time_table``), computed once per solve. Values match
         the per-pair walk to f32 rounding (the sums re-associate)."""
         if self._dur_rows is None:
+            t0 = time.perf_counter()
             self._dur_rows = self._r._tree_table(self._pred, self._time_s,
                                                  self._dist_rows)
+            _m_phase.labels(phase="matrix").observe(time.perf_counter() - t0)
         dur = self._dur_rows[:, self._nodes].astype(np.float64)
         dur = self._time_scale * (
             dur + (self._snap_m[:, None] + self._snap_m[None, :])

@@ -985,16 +985,24 @@ def create_app(config: Optional[Config] = None,
         overall = ("ok" if model_res["status"] == "ok"
                    and store_res["status"] == "ok"
                    and bus_res["status"] == "ok" else "degraded")
+        # The reference ABI's check names, as the JAX app answers: the
+        # pages read checks.redis / checks.supabase for their dots and
+        # render checks.tpu as the device card (here the scoring device).
         return {
             "backend": True,
             "checks": {
                 "engine": engine_res,
-                "bus": bus_res,
-                "store": store_res,
+                "redis": bus_res,
+                "supabase": store_res,
                 "model": model_res,
-                "device": {"batcher": eta.stats,
-                           "uptime_s": int(time.time() - started)},
+                "tpu": {"devices": _device_names(eta.device),
+                        "batcher": eta.stats,
+                        "uptime_s": int(time.time() - started)},
             },
+            "db": store_ok,
+            "osrm": engine_res["status"] in ("ok", "degraded"),
+            "redis": bus_ok,
+            "tiles": "static",  # the built-in SVG basemap needs no tiles
             "status": overall,
             "version": config.serve.version,
         }, 200  # always 200: degraded-not-down
@@ -1002,6 +1010,15 @@ def create_app(config: Optional[Config] = None,
     _mount_observability(app, config, eta, device)
     _warm_optimizer(device)
     return app
+
+
+def _device_names(device) -> list:
+    """The scoring device as the health card names it: ``cuda:0
+    (NVIDIA H100 80GB HBM3)`` on a card, ``cpu`` on the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return [str(device)]
+    return [f"{device} ({torch.cuda.get_device_name(device)})"]
 
 
 def _arm_observability(app: App, config: Config, bus) -> None:

@@ -764,7 +764,7 @@ class EtaService:
         try:
             self._model, self._params = load_xgboost_eta(
                 path, device=self.device)
-        except Exception:  # the RTPU1 loader's error is what health shows
+        except Exception:  # rtpulint: disable=broad-except-unlogged -- the primary loader's error (first_error) is what health surfaces
             self._error = first_error
             return
         self.kernel = "gbdt_gather"

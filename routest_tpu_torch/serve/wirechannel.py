@@ -129,8 +129,7 @@ def _send_message(sock: socket.socket, lock: threading.Lock, rid: int,
     total = len(head) + len(meta_b) + len(frame)
     msg = b"".join((_LEN.pack(total), head, meta_b, frame))
     with lock:
-        # The lock is the socket's write-serialization point: multiplexed
-        # senders must not interleave message bytes.
+        # rtpulint: disable=blocking-call-under-lock -- the lock IS the socket's write-serialization point: multiplexed senders must not interleave message bytes
         sock.sendall(msg)
 
 

@@ -292,7 +292,7 @@ def test_live_disabled_matches(clients):
 def test_health_bus_block(clients):
     jr, tr = _both(clients, "get", "/api/health")
     jbus = dict(jr.get_json()["checks"]["redis"])
-    tbus_block = dict(tr.get_json()["checks"]["bus"])
+    tbus_block = dict(tr.get_json()["checks"]["redis"])
     assert isinstance(tbus_block.pop("latency_ms"), int)
     jbus.pop("latency_ms")
     assert tbus_block == jbus == {"status": "ok", "backend": "memory"}

@@ -422,7 +422,7 @@ def test_store_http_faults_journal_then_recover(clients, apps, chaos_spec):
         store = app.state.store if hasattr(app, "state") else app.store
         store._inner._open_until = time.monotonic()
     jh, th = _both(clients, "get", "/api/health")   # ping closes it
-    tstore = th.get_json()["checks"]["store"]
+    tstore = th.get_json()["checks"]["supabase"]
     jstore = jh.get_json()["checks"]["supabase"]
     assert tstore["status"] == jstore["status"] == "ok"
     assert tstore["resilience"] == jstore["resilience"]

@@ -332,7 +332,7 @@ def _strip_ids(detail):
 def test_health_reports_the_store(clients):
     _, tclient = clients
     body = tclient.get("/api/health").get_json()
-    store = body["checks"]["store"]
+    store = body["checks"]["supabase"]
     assert store["status"] == "ok" and store["backend"] == "memory"
     assert isinstance(store["latency_ms"], int)
     assert body["status"] == "ok"

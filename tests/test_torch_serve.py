@@ -236,7 +236,8 @@ def test_health_reports_scoring_and_device(clients):
     assert model["scoring"] == {"family": "eta_mlp", "kernel": "torch_plain",
                                 "dtype": "float32", "device": "cpu"}
     assert body["checks"]["engine"]["mesh"]["platform"] == "cpu"
-    assert body["checks"]["device"]["batcher"]["flushes"] >= 1
+    assert body["checks"]["tpu"]["batcher"]["flushes"] >= 1
+    assert body["checks"]["tpu"]["devices"] == ["cpu"]
 
 
 @pytest.mark.parametrize("which", ["quantile", "point"])

@@ -484,7 +484,7 @@ def test_app_outage_journals_and_replays_every_acknowledged_write(
         assert r.get_json() == {"items": [], "degraded": True}
         r = c.get(f"/api/history/{acked[0]}")
         assert r.status_code == 503 and r.get_json()["degraded"] is True
-        health = c.get("/api/health").get_json()["checks"]["store"]
+        health = c.get("/api/health").get_json()["checks"]["supabase"]
         assert health["status"] == "error"
         assert health["resilience"]["breaker"] == "open"
         assert health["resilience"]["journal_depth"] == 6  # 3 × (req, res)
@@ -494,7 +494,7 @@ def test_app_outage_journals_and_replays_every_acknowledged_write(
         deadline = time.time() + 10
         while time.time() < deadline:
             time.sleep(0.25)
-            store = c.get("/api/health").get_json()["checks"]["store"]
+            store = c.get("/api/health").get_json()["checks"]["supabase"]
             if store["status"] == "ok":
                 break
         assert store["resilience"]["journal_depth"] == 0, store
