@@ -100,17 +100,24 @@ def run_open_loop(bases: Sequence[str], offsets: Sequence[float],
                   workers: int = 32, timeout: float = 30.0,
                   stop: Optional[threading.Event] = None,
                   on_record: Optional[Callable[[RequestRecord], None]]
-                  = None) -> List[RequestRecord]:
+                  = None, start: Optional[float] = None,
+                  spin_s: float = 0.0) -> List[RequestRecord]:
     """Fire ``requests[i]`` at ``t0 + offsets[i]``; return one record
     per arrival (schedule order). ``stop`` aborts early (remaining
     arrivals are simply not sent and not recorded); ``on_record`` is
-    called per completion on the worker thread (timeline builders)."""
+    called per completion on the worker thread (timeline builders).
+    ``start`` is ``t0`` as a ``time.perf_counter()`` instant (the
+    host's monotonic clock, one for all its processes), so several
+    sender processes can share one schedule; by default ``t0`` is 50 ms
+    after the call. ``spin_s`` > 0 ends each wait that much early and
+    spins to the instant (no wake-up latency at the send)."""
     n = min(len(offsets), len(requests))
     records: List[Optional[RequestRecord]] = [None] * n
     cursor = [0]
     lock = threading.Lock()
     stop = stop or threading.Event()
-    t0 = time.perf_counter() + 0.05   # small runway for thread start
+    # small runway for thread start
+    t0 = time.perf_counter() + 0.05 if start is None else start
 
     def worker(wid: int) -> None:
         client = KeepAliveClient(bases[wid % len(bases)], timeout=timeout)
@@ -124,11 +131,13 @@ def run_open_loop(bases: Sequence[str], offsets: Sequence[float],
                 target = t0 + offsets[i]
                 while True:
                     delta = target - time.perf_counter()
-                    if delta <= 0:
+                    if delta <= spin_s:
                         break
-                    if stop.wait(min(delta, 0.2)):
+                    if stop.wait(min(delta - spin_s, 0.2)):
                         return
                 sent = time.perf_counter()
+                while sent < target:
+                    sent = time.perf_counter()
                 status, err = -1, None
                 try:
                     status, _ = client.send(requests[i])

@@ -996,6 +996,7 @@ def create_app(config: Optional[Config] = None,
                 "supabase": store_res,
                 "model": model_res,
                 "tpu": {"devices": _device_names(eta.device),
+                        "memory": _device_memory(eta.device),
                         "batcher": eta.stats,
                         "uptime_s": int(time.time() - started)},
             },
@@ -1010,6 +1011,28 @@ def create_app(config: Optional[Config] = None,
     _mount_observability(app, config, eta, device)
     _warm_optimizer(device)
     return app
+
+
+def _device_memory(device) -> dict:
+    """The scoring device's memory gauge, as the JAX app's
+    ``_device_memory`` reports HBM residency: on a card the caching
+    allocator's bytes in use against the card's total; the CPU reports
+    none (``{}``), as JAX's CPU devices do. Never fails health."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return {}
+    try:
+        index = (device.index if device.index is not None
+                 else torch.cuda.current_device())
+        used = torch.cuda.memory_allocated(index)
+        _free, total = torch.cuda.mem_get_info(index)
+    except Exception as e:
+        _log.debug("device_memory_unavailable",
+                   error=f"{type(e).__name__}: {e}")
+        return {}
+    return {f"cuda:{index}": {"bytes_in_use": int(used),
+                              "bytes_limit": int(total),
+                              "utilization": round(used / total, 4)}}
 
 
 def _device_names(device) -> list:

@@ -104,7 +104,12 @@ class JsonLogger:
         line = json.dumps(record, default=str)
         with self._lock:
             try:
-                print(line, file=self._stream, flush=True)
+                # One write per line: print() writes the line and its
+                # newline separately, and on a pipe that several
+                # processes share (a fleet and its replicas) another
+                # process's line can land between the two.
+                self._stream.write(line + "\n")
+                self._stream.flush()
             except ValueError:
                 # The stream can be closed under us (pytest tears its
                 # capture stream down while daemon threads — SLO

@@ -10,13 +10,17 @@
   gateway, optionally the broker, live traffic and the blackbox
   prober), the synthetic street extract it routes on
   (:func:`build_extract`), a blocking open-loop ``/api/predict_eta``
-  load (:func:`open_loop`) and the flight recorder's correctness
-  bundles (:func:`correctness_bundles`, :func:`judge_fault_bundle`);
+  load (:func:`open_loop`), the flight recorder's correctness bundles
+  (:func:`correctness_bundles`, :func:`judge_fault_bundle`,
+  :func:`zero_pages`) and the wait for a correctness page
+  (:func:`wait_for_page`);
 - the generator's pace: :func:`run_open_loop_process` runs the
-  open-loop senders in a process of their own (the gateway, autoscaler
-  and watchers of a scenario share this one's interpreter), paced as
-  ``chip_smoke.py``'s phase 18 paces its generator (:func:`paced`: a
-  short interpreter switch interval, the collector off);
+  open-loop senders in processes of their own (the gateway, autoscaler
+  and watchers of a scenario share this one's interpreter), the
+  schedule dealt over :data:`SENDER_PROCESSES` of them and timed from
+  one instant, paced as ``chip_smoke.py``'s phase 18 paces its
+  generator (:func:`paced`: a short interpreter switch interval, the
+  collector off);
   :data:`SETTLE_S` lets a calibration's burst drain, and
   :func:`pace_check` reads an open-loop run's ``send_delay`` p99
   against :data:`PACE_LIMIT` — a run whose generator lagged is recorded
@@ -35,6 +39,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -58,6 +63,15 @@ PROBE_FAST_S, PROBE_SLOW_S = 10.0, 30.0
 LOADGEN_SWITCH_S = 2e-4
 # A calibration's closed-loop burst drains before an open-loop run.
 SETTLE_S = 2.0
+# The open-loop senders (scripts/bench_pace_cuda.py measured the layouts
+# on the card, PERF.md 5.16): four processes sharing the threads, each
+# at niceness -10 (a woken sender preempts the host's other work) and
+# spinning the last 0.5 ms before its arrival (no wake-up latency at the
+# send); the runway lets every sender start before offset 0.
+SENDER_PROCESSES = 4
+SENDER_SPIN_S = 5e-4
+SENDER_NICE = -10
+START_RUNWAY_S = 0.25
 # Phase 18's limit: an open-loop run kept its pace when the generator's
 # send_delay p99 is within the run's own latency p50 — past it, the
 # generator, not the servers, set the pace the run measured.
@@ -132,6 +146,29 @@ def free_port() -> int:
     return pick()
 
 
+def map_artifact(src: str, dst: str, fn) -> str:
+    """The ETA artifact ``src`` with ``fn`` applied to every weight
+    array, written to ``dst`` by the port's RTPU1 writer — the JAX
+    scripts' ``jax.tree_util.tree_map`` over ``load_model``'s params and
+    ``save_model``. → ``dst``."""
+    from routest_tpu_torch.models.eta_mlp import EtaMLP
+    from routest_tpu_torch.train.checkpoint import load_model, save_model
+
+    model, params = load_model(src)
+
+    def tree_map(tree):
+        if isinstance(tree, dict):
+            return {k: tree_map(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(tree_map(v) for v in tree)
+        return fn(tree)
+
+    save_model(dst, EtaMLP.from_numpy(tree_map(params), hidden=model.hidden,
+                                      quantiles=model.quantiles,
+                                      policy=model.policy))
+    return dst
+
+
 def write_record(path: str, record: dict) -> None:
     out_dir = os.path.dirname(path)
     if out_dir:
@@ -162,49 +199,143 @@ def paced():
         gc.unfreeze()
 
 
-def _open_loop_child(bases, offsets, requests, workers, timeout, stop,
-                     out) -> None:
+def _open_loop_child(part, bases, offsets, requests, workers, timeout,
+                     spin_s, cpus, nice, ready, t0, stop, out) -> None:
+    """One sender process: arrivals ``part`` of the schedule (global
+    indices), sent from the instant ``t0`` holds once it is set.
+    → ``out.put([(index, record), ...])``. ``t0`` and ``stop`` are
+    shared memory, polled: the senders wait on an event of this process
+    (a process-shared one puts a cross-process lock in every sender's
+    wake-up, and its ``set`` blocks on sleepers of exited processes)."""
     from routest_tpu_torch.loadgen import run_open_loop
 
+    # the threads started below inherit this thread's mask and niceness
+    if cpus:
+        os.sched_setaffinity(0, cpus)
+    if nice:
+        try:
+            os.setpriority(os.PRIO_PROCESS, 0, nice)
+        except OSError:
+            pass            # not permitted here: the default priority
     with paced():
-        started = time.time()
+        halt = threading.Event()
+
+        def watch():
+            while not stop.value and not halt.wait(0.05):
+                pass
+            halt.set()
+
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        ready.put(len(part))
+        while not t0.value and not stop.value:
+            time.sleep(0.001)
+        if stop.value:
+            halt.set()
         records = run_open_loop(bases, offsets, requests, workers=workers,
-                                timeout=timeout, stop=stop)
-    out.put((records, started))
+                                timeout=timeout, stop=halt, start=t0.value,
+                                spin_s=spin_s)
+        halt.set()
+        watcher.join()
+    # the engine returns the records it kept in schedule order: match
+    # each to its arrival (gaps only where ``stop`` cut the run)
+    indexed, j = [], 0
+    for rec in records:
+        while float(offsets[j]) != rec.offset_s \
+                or requests[j].route != rec.route:
+            j += 1
+        indexed.append((part[j], rec))
+        j += 1
+    out.put(indexed)
 
 
 def run_open_loop_process(bases, offsets, requests, *, workers: int,
-                          timeout: float = 30.0, stop=None):
-    """``loadgen.run_open_loop`` in a spawned process of its own, under
-    :func:`paced` → ``(records, started_unix)``, ``started_unix`` the
-    wall clock at the schedule's start. ``stop`` (an event of this
-    process) ends the run early, as it does in-process."""
+                          timeout: float = 30.0, stop=None,
+                          processes: int = None, spin_s: float = None,
+                          cpus=None, nice: int = None, started=None):
+    """``loadgen.run_open_loop`` in spawned processes of their own, under
+    :func:`paced` → ``(records, started_unix)``: ``records`` in arrival
+    order, as one sender gives them, ``started_unix`` the wall clock at
+    the schedule's start. The schedule is dealt round-robin over
+    ``processes`` senders (default :data:`SENDER_PROCESSES`; never more
+    than ``workers``) with ``workers`` threads in all, every process
+    timing its arrivals from one shared instant; each sender spins the
+    last ``spin_s`` (default :data:`SENDER_SPIN_S`) before its arrival,
+    on the CPUs ``cpus`` (default: any), at the niceness ``nice``
+    (default :data:`SENDER_NICE`; where the process may not raise its
+    priority it keeps the default). ``stop`` (an event of this process)
+    ends the run early, as it does in-process; ``started`` (an event of
+    this process) is set once every sender is up, :data:`START_RUNWAY_S`
+    before the schedule's offset 0 (spawning the senders takes seconds
+    on a slow host: a caller that acts under load waits for it)."""
     import multiprocessing
     import queue
 
+    n = min(len(offsets), len(requests))
+    procs_n = max(1, min(processes or SENDER_PROCESSES, workers, n or 1))
     ctx = multiprocessing.get_context("spawn")
-    out = ctx.Queue()
-    child_stop = ctx.Event()
-    proc = ctx.Process(target=_open_loop_child, daemon=True,
-                       args=(list(bases), list(offsets), list(requests),
-                             workers, timeout, child_stop, out))
-    proc.start()
-    try:
-        while True:
+    out, ready = ctx.Queue(), ctx.Queue()
+    t0, child_stop = ctx.RawValue("d", 0.0), ctx.RawValue("b", 0)
+    procs = []
+    for p in range(procs_n):
+        part = list(range(p, n, procs_n))
+        share = workers // procs_n + (p < workers % procs_n)
+        procs.append(ctx.Process(
+            target=_open_loop_child, daemon=True,
+            args=(part, list(bases), [offsets[i] for i in part],
+                  [requests[i] for i in part], share, timeout,
+                  SENDER_SPIN_S if spin_s is None else spin_s,
+                  sorted(cpus) if cpus else None,
+                  SENDER_NICE if nice is None else nice, ready, t0,
+                  child_stop, out)))
+    for proc in procs:
+        proc.start()
+
+    def alive():
+        # a sender that delivered exits 0; any other exit lost its part
+        codes = [proc.exitcode for proc in procs]
+        if any(code not in (None, 0) for code in codes):
+            raise RuntimeError(f"an open-loop process exited with {codes}")
+
+    def collect(q, count):
+        got = []
+        while len(got) < count:
             if stop is not None and stop.is_set():
-                child_stop.set()
+                child_stop.value = 1
             try:
-                return out.get(timeout=0.2)
+                got.append(q.get(timeout=0.2))
             except queue.Empty:
-                if not proc.is_alive():
-                    raise RuntimeError(f"the open-loop process exited "
-                                       f"with {proc.exitcode}")
+                alive()
+        return got
+
+    try:
+        collect(ready, procs_n)
+        # a runway for every sender to wake and start its threads
+        start = time.perf_counter() + START_RUNWAY_S
+        started_unix = time.time() + (start - time.perf_counter())
+        t0.value = start
+        if started is not None:
+            started.set()
+        merged = sorted((pair for part in collect(out, procs_n)
+                         for pair in part), key=lambda pair: pair[0])
+        return [rec for _, rec in merged], started_unix
     finally:
-        child_stop.set()
-        proc.join(timeout=30)
-        if proc.is_alive():
-            proc.kill()
-            proc.join()
+        child_stop.value = 1
+        for proc in procs:
+            proc.join(timeout=30)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+
+
+def pin_process(pid: int, cpus) -> None:
+    """Every thread of the process ``pid`` (one of this script's own)
+    onto ``cpus``; threads it starts later inherit the mask."""
+    for tid in os.listdir(f"/proc/{pid}/task"):
+        try:
+            os.sched_setaffinity(int(tid), cpus)
+        except (ProcessLookupError, OSError):
+            pass     # a thread that ended meanwhile
 
 
 def pace_check(report: dict) -> dict:
@@ -369,6 +500,27 @@ class Fleet:
         if live:
             self._wait_live_ready()
 
+    def start_probe_drivers(self) -> None:
+        """Seeded probe drivers publishing per-edge observations into
+        the fleet's broker, so the live metric flips for real; the
+        router they walk (on the CPU) is kept as ``oracle_router``."""
+        from routest_tpu_torch.data.osm import load_osm
+        from routest_tpu_torch.live.probes import ProbeFleet
+        from routest_tpu_torch.optimize.road_router import RoadRouter
+        from routest_tpu_torch.serve.netbus import NetBus
+
+        if self.probe_fleet is not None:
+            return
+        router = RoadRouter(graph=load_osm(self.env["ROAD_GRAPH_OSM"]),
+                            use_gnn=False, use_transformer=False,
+                            device="cpu")
+        self.oracle_router = router
+        bus = NetBus(f"tcp://127.0.0.1:{self.broker.port}")
+        self.probe_fleet = ProbeFleet(router.graph_dict(),
+                                      self._driver_count, bus.publish,
+                                      seed=42, obs_per_tick=6)
+        self.probe_fleet.start(tick_s=1.0)
+
     def _wait_live_ready(self, timeout: float = 300.0) -> None:
         deadline = time.time() + timeout
         for port in self.ports:
@@ -460,9 +612,11 @@ def replica_launches(metrics: dict) -> dict:
     return out
 
 
-def open_loop(base: str, rate: float, duration_s: float, stop=None):
+def open_loop(base: str, rate: float, duration_s: float, stop=None,
+              started=None):
     """Blocking open-loop predict_eta load (unique bodies) → records,
-    from a generator process of its own."""
+    from sender processes of their own (``started``: as
+    :func:`run_open_loop_process`)."""
     from routest_tpu_torch.loadgen import (PlannedRequest, RateCurve,
                                            paced_schedule)
 
@@ -474,7 +628,8 @@ def open_loop(base: str, rate: float, duration_s: float, stop=None):
               "pickup_time": "2026-08-05T18:00:00"},
         route="predict_eta") for i in range(len(offsets))]
     return run_open_loop_process([base], offsets, requests, workers=8,
-                                 timeout=30.0, stop=stop)[0]
+                                 timeout=30.0, stop=stop,
+                                 started=started)[0]
 
 
 def correctness_bundles(recorder_dir: str):
@@ -498,9 +653,13 @@ def correctness_bundles(recorder_dir: str):
     return out
 
 
-def judge_fault_bundle(bundles, faulty_rid: str) -> dict:
+def judge_fault_bundle(bundles, faulty_rid: str,
+                       require_dimensions=None) -> dict:
     """A correctness bundle must name the faulty replica and embed the
-    probe request, served answer, oracle/pinned answer, divergence."""
+    probe request, served answer, oracle/pinned answer, divergence.
+    ``require_dimensions`` additionally demands a skew failure on one
+    of the given dimensions (e.g. the stale-epoch scenario must be
+    identified AS an epoch skew, not only as a divergent answer)."""
     for b in bundles:
         ev = b["evidence"]
         if faulty_rid not in (ev.get("replicas") or []):
@@ -514,10 +673,46 @@ def judge_fault_bundle(bundles, faulty_rid: str) -> dict:
                              or f.get("dimensions") is not None))
             has_div = (f.get("divergence") is not None
                        or f.get("dimensions") is not None)
+            dims = sorted(f.get("dimensions") or ())
+            if require_dimensions is not None and \
+                    not (set(dims) & set(require_dimensions)):
+                continue
             if named and embedded and has_div:
                 return {"ok": True, "bundle": b["name"],
                         "verdict": f.get("verdict"),
                         "divergence": f.get("divergence"),
-                        "dimensions": sorted(f.get("dimensions") or ())}
+                        "dimensions": dims}
     return {"ok": False,
             "bundles_seen": [b["name"] for b in bundles]}
+
+
+def zero_pages(prober, recorder_dir: str) -> dict:
+    """No correctness objective off ``ok`` and no correctness bundle."""
+    snap = prober.slo.snapshot()
+    states = {k: v["state"] for k, v in snap["objectives"].items()}
+    bundles = correctness_bundles(recorder_dir)
+    return {"objective_states": states,
+            "correctness_bundles": len(bundles),
+            "ok": all(s == "ok" for s in states.values()) and not bundles}
+
+
+def wait_for_page(prober, bound_s: float) -> dict:
+    """Poll the prober's own SLO engine until any correctness objective
+    pages → ``{"paged", "objective", "detect_s"}``."""
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < bound_s:
+        snap = prober.slo.snapshot()
+        for name, obj in snap["objectives"].items():
+            if obj["state"] == "page":
+                return {"paged": True, "objective": name,
+                        "detect_s": round(time.monotonic() - t0, 2)}
+        time.sleep(0.2)
+    return {"paged": False, "detect_s": None}
+
+
+def p95_ms(records) -> float:
+    """p95 latency of a run's answered requests, ms (nan: none)."""
+    ok = sorted(r.latency_s for r in records if 200 <= r.status < 400)
+    if not ok:
+        return float("nan")
+    return ok[min(len(ok) - 1, int(0.95 * len(ok)))] * 1000.0

@@ -39,6 +39,7 @@ import threading
 import time
 import types
 import urllib.request
+import zlib
 from collections import Counter
 
 import numpy as np
@@ -746,6 +747,90 @@ def test_harness_runs_the_generator_in_a_process_of_its_own():
         assert len(records) < len(offsets)
     finally:
         stub.close()
+
+
+class _DigestStub(_Stub):
+    """Answers each POST by its body (429 for a quarter of the bodies):
+    an arrival's status names the request, whichever sender sent it."""
+
+    def do_POST(self):
+        n = int(self.headers.get("Content-Length") or 0)
+        body = self.rfile.read(n)
+        self._send(429 if zlib.crc32(body) % 4 == 0 else 200)
+
+
+def _digest_status(req):
+    if req.method != "POST":
+        return 200
+    return 429 if zlib.crc32(json.dumps(req.body).encode()) % 4 == 0 \
+        else 200
+
+
+@pytest.mark.parametrize("processes", [1, 3, 4])
+def test_sender_processes_give_one_senders_records_and_report(processes):
+    h = _cuda_harness()
+    offsets = tlg.paced_schedule(tlg.RateCurve.constant(80.0), 1.0)
+    requests = tlg.MixedWorkload(mix={"predict_eta": 0.7, "history": 0.3},
+                                 seed=5).sequence(len(offsets))
+    srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), _DigestStub)
+    srv.daemon_threads = True
+    srv.delay_s, srv.status = 0.0, 200
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_port}"
+    try:
+        one = tlg.run_open_loop([base], offsets, requests, workers=8,
+                                timeout=10.0)
+        many, _ = h.run_open_loop_process([base], offsets, requests,
+                                          workers=8, timeout=10.0,
+                                          processes=processes)
+        # a stop part-way keeps an arrival-ordered subset (the timer
+        # counts the senders' spawn too)
+        longer = tlg.paced_schedule(tlg.RateCurve.constant(80.0), 5.0)
+        stop = threading.Event()
+        timer = threading.Timer(3.0, stop.set)
+        timer.start()
+        cut, _ = h.run_open_loop_process(
+            [base], longer, requests * 5, workers=8, timeout=10.0,
+            processes=processes, stop=stop)
+        timer.join()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=5)
+
+    def key(r):
+        return (r.route, r.offset_s, r.status, r.error)
+
+    want = [(q.route, float(o), _digest_status(q), None)
+            for q, o in zip(requests, offsets)]
+    assert [key(r) for r in many] == [key(r) for r in one] == want
+    rep1 = tlg.summarize(one, 1.0, len(offsets))
+    repn = tlg.summarize(many, 1.0, len(offsets))
+    for k in ("offered", "sent", "ok", "shed", "errors", "other_4xx"):
+        assert repn[k] == rep1[k], k
+    assert {r: (v["sent"], v["ok"]) for r, v in repn["routes"].items()} \
+        == {r: (v["sent"], v["ok"]) for r, v in rep1["routes"].items()}
+    assert repn["shed"] > 0 and repn["ok"] > 0
+    assert 0 < len(cut) < len(longer)
+    assert [r.offset_s for r in cut] == sorted(r.offset_s for r in cut)
+    assert set(key(r) for r in cut) <= {
+        (q.route, float(o), _digest_status(q), None)
+        for q, o in zip(requests * 5, longer)}
+
+
+@pytest.mark.parametrize("delay,p50,lagged", [
+    (1.2, 1.5, False), (1.5, 1.5, False), (1.51, 1.5, True),
+    (7.34, 5.18, True), (None, 1.0, True), (0.5, None, True)])
+def test_pace_check_marks_a_generator_past_the_latency_p50(delay, p50,
+                                                          lagged):
+    h = _cuda_harness()
+    rep = {"send_delay": {} if delay is None else {"p99_ms": delay},
+           "latency": {} if p50 is None else {"p50_ms": p50}}
+    pace = h.pace_check(rep)
+    assert pace["generator_lagged"] is lagged
+    assert (pace["send_delay_p99_ms"], pace["pace_limit_ms"]) == (delay, p50)
+    assert h.passed(True, pace) is (not lagged)
 
 
 def test_loadgen_and_scripts_import_no_jax():

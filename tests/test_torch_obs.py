@@ -288,6 +288,35 @@ def test_log_lines_carry_trace_ids_and_reach_the_tee(tracers, capsys):
         [s.trace_id]
 
 
+def test_log_lines_stay_whole_on_a_shared_pipe():
+    """Two processes log through the port's logger into one pipe, as a
+    fleet and its replicas share their parent's stderr: every line
+    parses (a line and its newline written apart let the other
+    process's line land between them)."""
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("import sys\n"
+            f"sys.path.insert(0, {repo!r})\n"
+            "from routest_tpu_torch.utils.logging import JsonLogger\n"
+            "log = JsonLogger('pipe')\n"
+            "for i in range(1500):\n"
+            "    log.info('line', who=sys.argv[1], i=i, pad='x' * 200)\n")
+    read_end, write_end = os.pipe()
+    procs = [subprocess.Popen([sys.executable, "-c", code, who],
+                              stderr=write_end, stdout=subprocess.DEVNULL)
+             for who in ("a", "b")]
+    os.close(write_end)
+    with os.fdopen(read_end, "r") as pipe:
+        lines = pipe.read().splitlines()
+    assert [p.wait(timeout=60) for p in procs] == [0, 0]
+    records = [json.loads(line) for line in lines]
+    for who in ("a", "b"):
+        assert [r["i"] for r in records if r["who"] == who] == \
+            list(range(1500))
+
+
 def test_batcher_stage_spans_nest_under_concurrency(tracers, monkeypatch):
     from routest_tpu_torch.serve.ml_service import DynamicBatcher
 

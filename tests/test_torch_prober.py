@@ -154,6 +154,7 @@ class _StubHandler(http.server.BaseHTTPRequestHandler):
             d = _route_s(srv)
             return self._send(200, {"durations_s": [[0.0, d], [d, 0.0]]})
         if path.startswith("/api/dispatch"):
+            srv.dispatch_calls += 1
             # Solved by the port's host oracle (dispatch_skew perturbs
             # the costs the solve sees — the wrong-plan fault).
             from routest_tpu_torch.dispatch import plan_cost
@@ -193,6 +194,7 @@ class _Stubs:
         srv.fingerprint = "fp-a"
         srv.generation = 1
         srv.dispatch_skew = 0.0
+        srv.dispatch_calls = 0
         srv.epoch = 1
         srv.live_enabled = True
         srv.subgraph = subgraph or _CHAIN
@@ -717,6 +719,49 @@ def test_gateway_serve_arms_prober_from_env(pkg, monkeypatch, stubs):
             if drop is not None:
                 drop()
     assert gw.prober._stop is None
+
+
+def test_dispatch_retry_lands_on_the_healthy_replica_at_rest(
+        pkg, tmp_path, stubs, monkeypatch):
+    """ROADMAP Queue C 16, decided as the reference has it: the prober
+    re-probes a non-pass verdict once, through the gateway, whose
+    round-robin tie-break sends the retry to the other replica. Two
+    stub replicas, one answering the dispatch probe with a wrong plan:
+    at rest every round records a pass in both packages, though the
+    wrong replica answered dispatch probes and a bare probe of it is
+    divergent."""
+    monkeypatch.setenv("RTPU_TIMELINE", "0")
+    monkeypatch.setenv("RTPU_SLO", "0")
+    good, bad = stubs.start(), stubs.start()
+    bad.dispatch_skew = 1.0
+    bare, _rec = _mk_prober(pkg, tmp_path / "bare", [bad],
+                            route_tolerance_rel=1e-3)
+    assert bare._probe_dispatch()[0] == DIVERGENT
+    bad.dispatch_calls = 0
+    gw = pkg.gw.Gateway([("127.0.0.1", s.server_address[1])
+                         for s in (good, bad)],
+                        pkg.config.FleetConfig(hedge=False))
+    httpd = gw.serve("127.0.0.1", 0)
+    try:
+        cfg = pkg.config.ProberConfig(enabled=True, eta_tolerance=5.0,
+                                      timeout_s=5.0,
+                                      route_tolerance_rel=1e-3)
+        recorder = pkg.recorder.FlightRecorder(pkg.config.RecorderConfig(
+            dir=str(tmp_path / "pm"), min_interval_s=0.0))
+        targets = [("r0", _base(good)), ("r1", _base(bad))]
+        prober = pkg.prober.BlackboxProber(
+            cfg, gateway_base=f"http://127.0.0.1:{httpd.server_address[1]}",
+            targets_fn=lambda: targets, recorder=recorder)
+        verdicts = [prober.probe_round()["dispatch"] for _ in range(6)]
+    finally:
+        gw.drain(timeout=5)
+        for r in gw.replicas:
+            drop = getattr(r, "drop_conns", None)
+            if drop is not None:
+                drop()
+    assert verdicts == [PASS] * 6
+    assert bad.dispatch_calls >= 3 and good.dispatch_calls >= 3
+    assert not [f for f in prober._failures if f["probe"] == "dispatch"]
 
 
 # ── snapshot surface ─────────────────────────────────────────────────

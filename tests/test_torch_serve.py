@@ -240,6 +240,15 @@ def test_health_reports_scoring_and_device(clients):
     assert body["checks"]["tpu"]["devices"] == ["cpu"]
 
 
+def test_health_device_memory_gauge_matches_jax_on_the_cpu(clients):
+    # JAX's CPU devices report no memory stats: the gauge is {} in both
+    # apps on the CPU (on a card the port reads the caching allocator)
+    jclient, tclient = clients
+    jtpu = jclient.get("/api/health").get_json()["checks"]["tpu"]
+    ttpu = tclient.get("/api/health").get_json()["checks"]["tpu"]
+    assert jtpu["memory"] == ttpu["memory"] == {}
+
+
 @pytest.mark.parametrize("which", ["quantile", "point"])
 def test_service_batch_parity(which, quantile_services, point_services):
     jsvc, tsvc = quantile_services if which == "quantile" else point_services
