@@ -312,7 +312,32 @@ of which fails the run:
    routest_tpu_torch.analysis --gate`` on the card's host (its verdict
    line printed); the phase's wall time, the JS ms of boot and of
    Calculate and the server ms per request beside the card's name and
-   power limit.
+   power limit;
+21. the acceptance scripts (``scripts/bench_fleet_cuda.py`` and
+   ``bench_rollout_cuda.py``, quick) as subprocesses, run after phase 22;
+22. the Redis bus, run between phases 20 and 21: ``tests/fake_redis.py``
+   (loaded by path) with a password and a TLS listener; (a) two
+   ``python -m routest_tpu_torch.serve`` on the card at once on one
+   ``REDIS_URL=redis://default:<password>@…/0``, A with ``RTPU_LIVE=1``
+   on the default generated graph: both healths read the bus ``ok`` on
+   backend ``redis`` and scoring ``cuda_fused``; (b) B's
+   ``/api/realtime_feed`` on a driver's channel, then
+   ``/api/confirm_route`` on A: three frames on B, ``data:`` lines and
+   no ``id:`` line, each payload byte-equal to what the fake received,
+   then 20 ``/api/update_tracker`` posts on A timed from the fake's
+   receipt to B's frame; (c) 20 seeded ``/api/probe`` batches posted to
+   B fold into A's ingester and flip A's metric (epoch >= 1), then 5
+   ``use_ml_eta`` road routes on A priced ``live+`` with
+   ``rtpu_fused_launches`` growing over them; (d) the fake stopped and
+   restarted on its port: A's health reads ``error`` and then ``ok``,
+   A's ingester counts a resubscribe and is back on the server, and a
+   probe posted to B after it reaches A's ingester; (e) in this
+   process, ``make_bus("rediss://…")`` through the test CA
+   (``SSL_CERT_FILE``): one publish → subscribe round trip, and a wrong
+   password refused without being named; no server log names the
+   password; the boots, the publish → frame median, the s from the last
+   probe to the epoch and from the restart to the resubscribe beside
+   the card's name and power limit.
 
 The lines before the last are one ``{"optimize": {...}}``, one
 ``{"road": {...}}``, one ``{"overlay": {...}}``, one ``{"live": {...}}``,
@@ -321,7 +346,8 @@ one ``{"selection": {...}}``, one ``{"dispatch": {...}}``, one
 ``{"train": {...}}``, one ``{"observability": {...}}``, one
 ``{"fleet": {...}}``, one ``{"regions": {...}}``, one
 ``{"loadgen": {...}}``, one ``{"mesh": {...}}``, one
-``{"pages": {...}}`` and one
+``{"pages": {...}}``, one ``{"redis": {...}}``, one
+``{"acceptance": {...}}`` and one
 ``{"kernels": [...]}`` JSON object and the
 card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
@@ -7284,6 +7310,391 @@ def phase_pages(smi_line):
     return record, record["card_path"]["launches_flows"]
 
 
+# ── phase 22: the Redis bus ──────────────────────────────────────────
+
+REDIS_BOOT_S = 240.0         # bound on one server's boot
+REDIS_BOUND_S = 60.0         # each wait of the phase
+REDIS_TRACK_POINTS = 3       # confirm_route frames crossing to B
+REDIS_LAT_EVENTS = 20        # update_tracker events timed A → fake → B
+REDIS_PASSWORD = "smoke/p@ss:" + "7f3a9c"   # percent-encoded in the URLs
+
+
+def _redis_fake_module():
+    """``tests/fake_redis.py`` by path: an installed package named
+    ``tests`` would shadow the repository's."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "fake_redis", os.path.join(ROOT, "tests", "fake_redis.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _redis_server(url, live):
+    """``python -m routest_tpu_torch.serve`` on the card with
+    ``REDIS_URL=url`` (and ``RTPU_LIVE=1`` on the default generated
+    graph when ``live``). → (proc, port, log, t0)."""
+    import tempfile
+
+    port = _free_port()
+    extra = {"PORT": str(port), "RTPU_HOST": "127.0.0.1", "REDIS_URL": url,
+             "ROUTEST_DEVICE": CARD, "ROUTEST_HIER_CACHE": "0"}
+    if live:
+        extra.update(RTPU_LIVE="1", RTPU_LIVE_CUSTOMIZE_S="0.5")
+    env = _fleet_env(**extra)
+    env.pop("SSL_CERT_FILE", None)
+    log = tempfile.TemporaryFile(mode="w+")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "routest_tpu_torch.serve"],
+                            cwd=ROOT, env=env, stdout=log,
+                            stderr=subprocess.STDOUT)
+    return proc, port, log, t0
+
+
+class _SseReader:
+    """A GET of an SSE path on a thread: each frame's bytes with the
+    ``time.monotonic()`` instant its blank line arrived."""
+
+    def __init__(self, port, path):
+        self.frames, self.status, self.ctype, self.error = [], None, None, None
+        self._thread = threading.Thread(target=self._run, args=(port, path),
+                                        daemon=True)
+        self._thread.start()
+
+    def _run(self, port, path):
+        conn = http.client.HTTPConnection("127.0.0.1", port,
+                                          timeout=REDIS_BOUND_S)
+        try:
+            conn.request("GET", path)
+            resp = conn.getresponse()
+            self.status = resp.status
+            self.ctype = resp.getheader("Content-Type")
+            frame = b""
+            while True:
+                line = resp.readline()
+                if not line:
+                    return
+                frame += line
+                if line == b"\n":
+                    self.frames.append((time.monotonic(), frame))
+                    frame = b""
+        except Exception as e:  # read by the phase through ``error``
+            self.error = f"{type(e).__name__}: {e}"
+        finally:
+            conn.close()
+
+    def join(self, what):
+        self._thread.join(REDIS_BOUND_S)
+        check(not self._thread.is_alive() and self.error is None,
+              f"redis: {what}: the stream did not end in {REDIS_BOUND_S} s "
+              f"({self.error}; {len(self.frames)} frames)")
+        check(self.status == 200 and self.ctype == "text/event-stream",
+              f"redis: {what}: {self.status} {self.ctype}")
+        return [f for _, f in self.frames if not f.startswith(b":")]
+
+
+def _redis_metric(port, name):
+    """One counter of a server's registry (0 before its first count)."""
+    status, metrics = _request(port, "GET", "/api/metrics")
+    check(status == 200, f"redis: /api/metrics {status}")
+    series = (metrics["registry"].get(name) or {}).get("series") or []
+    return sum(float(s["value"]) for s in series)
+
+
+def _redis_health(port):
+    status, health = _request(port, "GET", "/api/health")
+    check(status == 200, f"redis: /api/health {status}")
+    return health["checks"]["redis"]
+
+
+def _redis_wait(what, fn, procs):
+    """``fn()`` until truthy, failing if a server exits or
+    ``REDIS_BOUND_S`` passes. → (value, s)."""
+    t0 = time.perf_counter()
+    while True:
+        for who, proc in procs.items():
+            check(proc.poll() is None, f"redis: server {who} exited "
+                                       f"({proc.returncode}) waiting for "
+                                       f"{what}")
+        try:
+            out = fn()
+        except OSError:
+            out = None
+        if out:
+            return out, time.perf_counter() - t0
+        check(time.perf_counter() - t0 < REDIS_BOUND_S,
+              f"redis: no {what} in {REDIS_BOUND_S} s")
+        time.sleep(0.05)
+
+
+def _redis_tls(fake_mod, fake):
+    """(e): ``make_bus("rediss://…")`` in this process through the test
+    CA, one publish → subscribe round trip, and a wrong password refused
+    without being named. → round trip ms."""
+    from urllib.parse import quote
+
+    from routest_tpu_torch.serve.bus import make_bus
+
+    old = os.environ.get("SSL_CERT_FILE")
+    os.environ["SSL_CERT_FILE"] = fake_mod.TLS_CA
+    try:
+        url = (f"rediss://default:{quote(REDIS_PASSWORD, safe='')}"
+               f"@localhost:{fake.tls_port}")
+        bus = make_bus(url)
+        check(bus.kind == "redis", f"redis: rediss:// gave {bus.kind}")
+        try:
+            with bus.subscribe("smoke-tls") as sub:
+                t0 = time.perf_counter()
+                n = bus.publish("smoke-tls", {"tls": True})
+                got = sub.get(timeout=5.0)
+                ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            bus.close()
+        check(n == 1 and got == {"tls": True},
+              f"redis: TLS round trip {n} {got}")
+        wrong = "wrong-" + REDIS_PASSWORD[::-1]
+        try:
+            make_bus(f"rediss://default:{quote(wrong, safe='')}"
+                     f"@localhost:{fake.tls_port}")
+        except RuntimeError as e:
+            check("WRONGPASS" in str(e) and wrong not in str(e)
+                  and quote(wrong, safe="") not in str(e),
+                  f"redis: a wrong password: {e}")
+        else:
+            check(False, "redis: a wrong password was accepted")
+    finally:
+        if old is None:
+            os.environ.pop("SSL_CERT_FILE", None)
+        else:
+            os.environ["SSL_CERT_FILE"] = old
+    return ms
+
+
+def phase_redis(smi_line):
+    """Phase 22, the Redis bus on the card: ``tests/fake_redis.py`` with
+    a password and a TLS listener; (a) two servers on the card on one
+    ``redis://`` URL, A with ``RTPU_LIVE=1``; (b) ``confirm_route`` on A
+    streamed over SSE on B (``data:`` lines, no ``id:``, each payload
+    the fake's), then 20 tracker events timed from the fake's receipt to
+    B's frame; (c) probes posted to B flip A's metric, and ``use_ml_eta``
+    routes on A are priced ``live+`` through the fused kernel; (d) the
+    fake stopped and restarted on its port: A's health reads it, A's
+    ingester resubscribes and takes a further probe; (e) ``rediss://``
+    in this process. → (record, A's fused launches over (c)'s routes)."""
+    import signal
+    from urllib.parse import quote
+
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    fake_mod = _redis_fake_module()
+    fake = fake_mod.FakeRedis(password=REDIS_PASSWORD, tls=True).start()
+    url = (f"redis://default:{quote(REDIS_PASSWORD, safe='')}"
+           f"@127.0.0.1:{fake.port}/0")
+    servers = {"A": _redis_server(url, live=True),
+               "B": _redis_server(url, live=False)}
+    procs = {who: s[0] for who, s in servers.items()}
+    a_port, b_port = servers["A"][1], servers["B"][1]
+    rng = np.random.default_rng(22)
+    rec, logs = {"card": smi_line}, {}
+    try:
+        # (a) both boot at once
+        boot_s = {}
+        while len(boot_s) < 2:
+            for who, (proc, port, _, t0) in servers.items():
+                if who in boot_s:
+                    continue
+                check(proc.poll() is None, f"redis: server {who} exited "
+                                           f"({proc.returncode}) at boot")
+                try:
+                    up = _request(port, "GET", "/api/ping")[0] == 200
+                except OSError:
+                    up = False
+                if up:
+                    boot_s[who] = time.perf_counter() - t0
+                check(time.perf_counter() - t0 < REDIS_BOOT_S,
+                      f"redis: server {who}: no ping in {REDIS_BOOT_S} s")
+            time.sleep(0.1)
+        rec["boot_s"] = boot_s
+        for who, port in (("A", a_port), ("B", b_port)):
+            status, health = _request(port, "GET", "/api/health")
+            bus_check = health["checks"]["redis"]
+            scoring = health["checks"]["model"]["scoring"]
+            check(bus_check["status"] == "ok"
+                  and bus_check["backend"] == "redis"
+                  and scoring["kernel"] == _fleet_kernel(),
+                  f"redis: {who}'s health: bus {bus_check}, scoring "
+                  f"{scoring}")
+        # (b) SSE across processes: B streams what A's simulation
+        # publishes
+        channel = "smoke-redis-driver"
+        reader = _SseReader(b_port, f"/api/realtime_feed?channel={channel}"
+                                    f"&max_events={REDIS_TRACK_POINTS}")
+        _redis_wait("B's subscription", lambda: fake.subscribers(channel),
+                    procs)
+        coords = [[121.0 + 0.004 * i, 14.55 + 0.003 * i]
+                  for i in range(REDIS_TRACK_POINTS)]
+        status, out = _request(a_port, "POST", "/api/confirm_route", {
+            "driver_details": {"driver_name": channel,
+                               "vehicle_type": "car"},
+            "route_details": {"geometry": {"coordinates": coords},
+                              "properties": {
+                                  "destinations": [{"lat": 14.55,
+                                                    "lon": 121.02}],
+                                  "summary": {"duration": 900.0,
+                                              "distance": 6000.0}}},
+            "sim_seed": 7})
+        check(status == 200 and out.get("status")
+              == "route simulation initialized.",
+              f"redis: /api/confirm_route on A: {status} {out}")
+        frames = reader.join("the tracked route")
+        sent = fake.payloads(channel)
+        check(len(frames) == REDIS_TRACK_POINTS
+              and frames == [b"data: " + p + b"\n\n" for p in sent],
+              f"redis: B's frames {frames} against the published {sent}")
+        check([len(json.loads(f[6:])["remaining_routes"]) for f in frames]
+              == list(range(REDIS_TRACK_POINTS, 0, -1)),
+              "redis: the tracked route's frames")
+        lat_channel = "smoke-redis-tracker"
+        reader = _SseReader(b_port, f"/api/realtime_feed?channel="
+                                    f"{lat_channel}&max_events="
+                                    f"{REDIS_LAT_EVENTS}")
+        _redis_wait("B's second subscription",
+                    lambda: fake.subscribers(lat_channel), procs)
+        for k in range(REDIS_LAT_EVENTS):
+            status, out = _request(a_port, "POST", "/api/update_tracker", {
+                "route_id": lat_channel, "route": [[121.0, 14.5],
+                                                   [121.01, 14.51]],
+                "destinations": [{"lat": 14.51, "lon": 121.01}],
+                "driver_name": lat_channel, "vehicle_type": "car",
+                "duration": 600.0 + k, "distance": 5000.0, "trips": 1,
+                "pickup_time": "2026-10-18T08:00:00"})
+            check(status == 200, f"redis: /api/update_tracker {status}")
+        frames = reader.join("the tracker events")
+        log = fake.publish_log(lat_channel)
+        check(len(frames) == REDIS_LAT_EVENTS
+              and frames == [b"data: " + p + b"\n\n" for _, p in log],
+              f"redis: {len(frames)} tracker frames against {len(log)}")
+        lat_ms = [(t_frame - t_pub) * 1e3 for (t_frame, _), (t_pub, _)
+                  in zip(reader.frames, log)]
+        rec["publish_to_frame_ms"] = {"median": _median(lat_ms),
+                                      "max": max(lat_ms),
+                                      "events": len(lat_ms)}
+        # (c) probes on B → A's ingester; live+ routes on A
+        def live():
+            return _request(a_port, "GET", "/api/live")[1]
+
+        snap, _ = _redis_wait("A's live ingester", lambda: (
+            live() if live().get("ready")
+            and fake.subscribers("rtpu.probes") else None), procs)
+        n_edges = snap["ingest"]["edges"]
+        for k in range(LIVE_PROBE_BATCHES):
+            edges = rng.integers(0, n_edges, LIVE_PROBE_OBS)
+            speeds = rng.uniform(1.5, 14.0, LIVE_PROBE_OBS)
+            status, out = _request(b_port, "POST", "/api/probe", {
+                "obs": [[int(e), round(float(v), 3)]
+                        for e, v in zip(edges, speeds)],
+                "t": time.time(), "hour": 8, "driver": f"redis{k}"})
+            check(status == 200 and out == {"status": "published",
+                                             "count": LIVE_PROBE_OBS},
+                  f"redis: /api/probe on B: {status} {out}")
+        snap, epoch_s = _redis_wait("A's epoch >= 1 over B's probes", lambda: (
+            live() if live().get("epoch", 0) >= 1
+            and live()["ingest"].get("batches") == LIVE_PROBE_BATCHES
+            else None), procs)
+        rec["last_probe_to_epoch_s"] = epoch_s
+        launches0 = _loadgen_launches(a_port)
+        route_ms, models = [], set()
+        for r in range(LIVE_ROUTES):
+            t0 = time.perf_counter()
+            status, out = _request(a_port, "POST", "/api/optimize_route",
+                                   _road_body(10, r, 5, **_ML))
+            route_ms.append((time.perf_counter() - t0) * 1e3)
+            props = (out or {}).get("properties") or {}
+            check(status == 200 and props.get("leg_cost_model", "")
+                  .startswith("live+"),
+                  f"redis: A's route {status} {props.get('leg_cost_model')}")
+            models.add(props["leg_cost_model"])
+        launches = _loadgen_launches(a_port) - launches0
+        if CARD == "cuda":
+            check(launches > 0, f"redis: no fused launch over "
+                                f"{LIVE_ROUTES} use_ml_eta routes on A")
+        rec.update(route_median_ms=_median(route_ms),
+                   leg_cost_model=sorted(models), fused_launches=launches)
+        # (d) the server stops and comes back on its port
+        resub0 = _redis_metric(a_port, "rtpu_live_resubscribes_total")
+        batches0 = live()["ingest"]["batches"]
+        t_stop = time.perf_counter()
+        fake.stop()
+        _, down_s = _redis_wait("A's health reading the outage", lambda:
+                                _redis_health(a_port)["status"] == "error",
+                                procs)
+        _redis_wait("A's ingester seeing the close", lambda: _redis_metric(
+            a_port, "rtpu_live_resubscribes_total") > resub0, procs)
+        rec["down_s"] = time.perf_counter() - t_stop
+        fake.start()
+        t_restart = time.perf_counter()
+        _, resub_s = _redis_wait("A's ingester back on the server",
+                                 lambda: fake.subscribers("rtpu.probes"),
+                                 procs)
+        _redis_wait("A's health after the restart", lambda:
+                    _redis_health(a_port)["status"] == "ok", procs)
+        epoch0 = live()["epoch"]
+        status, out = _request(b_port, "POST", "/api/probe", {
+            "obs": [[int(e), 3.0] for e in rng.integers(0, n_edges, 50)],
+            "t": time.time(), "hour": 8, "driver": "redis-after"})
+        check(status == 200, f"redis: a probe after the restart: {status} "
+                             f"{out}")
+        _redis_wait("A's epoch over the probe after the restart", lambda: (
+            live()["ingest"]["batches"] == batches0 + 1
+            and live()["epoch"] > epoch0), procs)
+        rec.update(health_error_after_s=down_s,
+                   restart_to_resubscribe_s=resub_s,
+                   resubscribes=_redis_metric(
+                       a_port, "rtpu_live_resubscribes_total") - resub0)
+        # (e) TLS and credentials, in this process
+        rec["tls_round_trip_ms"] = _redis_tls(fake_mod, fake)
+    finally:
+        for who, (proc, _, log, _) in servers.items():
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+            try:
+                rc = proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+                rc = "killed"
+            log.seek(0)
+            text = log.read()
+            log.close()
+            rec.setdefault("exit", {})[who] = rc
+            logs[who] = text
+            if rc not in (0, -signal.SIGTERM):
+                print(f"[redis] server {who} log tail:\n{text[-3000:]}")
+        fake.stop()
+    check(all(rc in (0, -signal.SIGTERM) for rc in rec["exit"].values()),
+          f"redis: the servers exited {rec['exit']} at SIGTERM")
+    for who, text in logs.items():
+        check(REDIS_PASSWORD not in text
+              and quote(REDIS_PASSWORD, safe="") not in text,
+              f"redis: server {who}'s log names the password")
+    rec["wall_s"] = time.perf_counter() - t_phase
+    print(f"[redis] two servers on one Redis (boot A {boot_s['A']:.1f} s, "
+          f"B {boot_s['B']:.1f} s): {REDIS_TRACK_POINTS} tracked frames A "
+          f"→ B byte-equal to the published; publish → B's frame median "
+          f"{rec['publish_to_frame_ms']['median']:.2f} ms over "
+          f"{REDIS_LAT_EVENTS}; B's probes flipped A {epoch_s:.2f} s after "
+          f"the last; {LIVE_ROUTES} {rec['leg_cost_model']} routes median "
+          f"{rec['route_median_ms']:.2f} ms, {launches} fused launches; "
+          f"outage read by A's health in {down_s:.2f} s, resubscribed "
+          f"{resub_s:.2f} s after the restart; TLS round trip "
+          f"{rec['tls_round_trip_ms']:.2f} ms; phase wall "
+          f"{rec['wall_s']:.1f} s | {smi_line}")
+    print(json.dumps({"redis": rec}))
+    return rec, launches
+
+
 # ── phase 21: the acceptance scripts ────────────────────────────────
 
 # bench_fleet_cuda.py at 1 and 2 replicas with its kill segment (36 s:
@@ -7444,7 +7855,7 @@ def _alone(name, repeat):
     script with no arguments."""
     phases = {"regions": phase_regions, "loadgen": phase_loadgen,
               "mesh": phase_mesh, "pages": phase_pages,
-              "acceptance": phase_acceptance}
+              "redis": phase_redis, "acceptance": phase_acceptance}
     _, smi_line = phase_device()
     phase_build()
     failed = []
@@ -7468,7 +7879,7 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description="The port on one card.")
     parser.add_argument("--alone", choices=("regions", "loadgen", "mesh",
-                                            "pages", "acceptance"),
+                                            "pages", "redis", "acceptance"),
                         help="run this phase alone (after phases 1-2)")
     parser.add_argument("--repeat", type=int, default=1,
                         help="with --alone: how many times")
@@ -7527,6 +7938,8 @@ def main() -> int:
         _, mesh_launches = phase_mesh(smi_line)
         phase = "pages"
         _, pages_launches = phase_pages(smi_line)
+        phase = "redis"
+        _, redis_launches = phase_redis(smi_line)
         phase = "acceptance"
         _, scripts_launches = phase_acceptance(smi_line)
         phase = "times"
@@ -7589,6 +8002,9 @@ def main() -> int:
     # ... and over phase 21's: the acceptance scripts' replicas (other
     # processes), read from their /api/metrics before and after
     kernels[0]["launches_scripts"] = scripts_launches
+    # ... and over phase 22's: server A's use_ml_eta live+ routes (another
+    # process on the Redis bus), read from its /api/metrics
+    kernels[0]["launches_redis"] = redis_launches
     print(json.dumps({"kernels": kernels}))
     print(f"{smi_line}")
     print(json.dumps({"ok": True, "device": {

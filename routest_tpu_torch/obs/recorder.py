@@ -53,7 +53,11 @@ _SECRET_MARKERS = ("KEY", "SECRET", "TOKEN", "PASSWORD", "CREDENTIAL")
 
 def _config_fingerprint() -> dict:
     """The serving-relevant environment, secrets redacted, plus a
-    stable digest — "were these two incidents the same config?"."""
+    stable digest — "were these two incidents the same config?". A
+    URL's ``user:password@`` (``REDIS_URL=rediss://default:…@``) is
+    written ``user:<redacted>@``, and the digest is over that form."""
+    from routest_tpu_torch.serve.resp import redact_url
+
     # The port's runtime knobs: CUDA_*, PYTORCH_* and TORCH_* where the
     # JAX package snapshots JAX_* and XLA_*.
     prefixes = ("RTPU_", "ROUTEST_", "CUDA_", "PYTORCH_", "TORCH_")
@@ -64,6 +68,8 @@ def _config_fingerprint() -> dict:
             continue
         if any(marker in key.upper() for marker in _SECRET_MARKERS):
             value = "<redacted>"
+        elif key.endswith("_URL"):
+            value = redact_url(value)
         env[key] = value
     digest = hashlib.sha1(
         json.dumps(env, sort_keys=True).encode()).hexdigest()[:16]

@@ -374,10 +374,14 @@ def test_hedged_requests_cut_slow_replica_tail(pkg, stubs):
             lat.append(time.perf_counter() - t0)
             assert status == 200
         snap = gw.snapshot()["fleet"]
-        assert snap["hedges"] >= 1
-        assert snap["hedge_wins"] >= 1
-        assert min(lat) < 0.3
-        assert sum(lat) < 6 * 0.7
+        # what a failure under load needs to be read: the latencies, the
+        # hedge counters and the delay the p95 of the replicas set
+        seen = (lat, snap["hedges"], snap["hedge_wins"],
+                gw._hedge_delay_s())
+        assert snap["hedges"] >= 1, seen
+        assert snap["hedge_wins"] >= 1, seen
+        assert min(lat) < 0.3, seen
+        assert sum(lat) < 6 * 0.7, seen
     finally:
         _stop_gateway(gw)
 

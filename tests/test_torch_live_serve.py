@@ -17,6 +17,7 @@ hang fails that test alone."""
 import datetime as dt
 import http.client
 import json
+import socket
 import threading
 import time
 import types
@@ -548,11 +549,26 @@ def test_sse_streams_through_the_stdlib_server(services):
                                  "rediss://cache.example:6380",
                                  "tcp://127.0.0.1:7000"])
 def test_make_bus_refuses_a_redis_url(url):
-    with pytest.raises(RuntimeError, match="REDIS_URL"):
+    """A configured bus that does not answer fails the boot; a Redis URL
+    is named with its password redacted."""
+    match = "REDIS_URL"
+    if url.startswith("redis"):
+        # a user and password, on a local port where nothing listens
+        scheme, rest = url.split("://", 1)
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        db = rest.partition("/")[2]
+        url = (f"{scheme}://default:s3cret-pw@localhost:{port}"
+               + (f"/{db}" if db else ""))
+        match = r"REDIS_URL='redis.*default:<redacted>@.*does not answer"
+    with pytest.raises(RuntimeError, match=match) as err:
         tbus.make_bus(url)
-    with pytest.raises(RuntimeError, match="REDIS_URL"):
+    assert "s3cret-pw" not in str(err.value)
+    with pytest.raises(RuntimeError, match=match) as err:
         create_app(Config(serve=ServeConfig(device="cpu", redis_url=url)),
                    eta_service=object(), store=object())
+    assert "s3cret-pw" not in str(err.value)
     assert isinstance(tbus.make_bus(None), tbus.InMemoryBus)
     assert isinstance(tbus.make_bus(""), tbus.InMemoryBus)
 
