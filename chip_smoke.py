@@ -314,7 +314,7 @@ of which fails the run:
    Calculate and the server ms per request beside the card's name and
    power limit;
 21. the acceptance scripts (``scripts/bench_fleet_cuda.py`` and
-   ``bench_rollout_cuda.py``, quick) as subprocesses, run after phase 22;
+   ``bench_rollout_cuda.py``, quick) as subprocesses, run after phase 23;
 22. the Redis bus, run between phases 20 and 21: ``tests/fake_redis.py``
    (loaded by path) with a password and a TLS listener; (a) two
    ``python -m routest_tpu_torch.serve`` on the card at once on one
@@ -337,7 +337,28 @@ of which fails the run:
    password refused without being named; no server log names the
    password; the boots, the publish → frame median, the s from the last
    probe to the epoch and from the restart to the resubscribe beside
-   the card's name and power limit.
+   the card's name and power limit;
+23. the per-bucket serving entries, run between phases 22 and 21: (a)
+   ``EtaService`` on the card from the shipped quantile and point
+   artifacts at bf16 and int8: ``scoring_info()`` reads ``aot: true``
+   and the six serving buckets, each bucket's CUDA graph replay bitwise
+   the eager kernel call on the same rows with one launch counted per
+   replay; requests at 1, 7, 8, 33, 64, 100 and 4096 rows add no
+   ``rtpu_replica_aot_compile_seconds`` observation; through the app,
+   health's ``aot`` keys and the card's identity and peaks, and
+   ``rtpu_fused_launches`` equal to the replays plus the eager launches
+   over a single row, a 4096-row batch (held to the plain version) and
+   two direct kernel calls; a hot swap under 8 threads of requests lands
+   with the fresh service's graphs and releases the old ones; a
+   ``torch.export`` artifact made on the card serves with its graphs;
+   each flush scorer's host ms with graphs and with ``RTPU_SERVE_AOT=0``
+   (information); (b) the metro overlay with one router on the card
+   under ``ROUTEST_ROUTER_AOT=2,16``, one under ``off`` and one on the
+   CPU: solves at 2, 16 and 3 sources bitwise across the three with the
+   same loops, sweeps and host checks, ``solver_info`` naming buckets 2
+   and 16 and their capture seconds, and ms, kernels, torch ops and
+   syncs per solve with graphs and with ``off`` (information); the
+   phase's wall time beside the card's name and power limit.
 
 The lines before the last are one ``{"optimize": {...}}``, one
 ``{"road": {...}}``, one ``{"overlay": {...}}``, one ``{"live": {...}}``,
@@ -347,7 +368,7 @@ one ``{"selection": {...}}``, one ``{"dispatch": {...}}``, one
 ``{"fleet": {...}}``, one ``{"regions": {...}}``, one
 ``{"loadgen": {...}}``, one ``{"mesh": {...}}``, one
 ``{"pages": {...}}``, one ``{"redis": {...}}``, one
-``{"acceptance": {...}}`` and one
+``{"aot": {...}}``, one ``{"acceptance": {...}}`` and one
 ``{"kernels": [...]}`` JSON object and the
 card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
@@ -7847,6 +7868,420 @@ def phase_acceptance(smi_line):
     return rec, rec["launches"]
 
 
+# ── phase 23: the per-bucket serving entries (CUDA graphs) ─────────────
+
+# Request lengths after startup that must add no capture: under, at and
+# over buckets, and the largest.
+AOT_LENGTHS = (1, 7, 8, 33, 64, 100, 4096)
+AOT_SWAP_THREADS = 8
+# The overlay solves: the two captured buckets and 3 sources (bucket 4,
+# not captured).
+AOT_ROUTER_KNOB = "2,16"
+AOT_SOLVES = (2, 16, 3)
+AOT_REPS = 20
+
+
+def _aot_services(rng):
+    """(a) first part: the shipped quantile and point artifacts at bf16
+    and int8, each replay bitwise the eager kernel on the same rows at
+    every bucket. → (the bf16 quantile service, record)."""
+    import numpy as np
+    import torch
+
+    from routest_tpu_torch.core.config import ServeConfig
+    from routest_tpu_torch.ops.fused_mlp import fused_eta_forward
+    from routest_tpu_torch.serve.ml_service import EtaService
+
+    keep, rec = None, {}
+    for name in ("eta_mlp.msgpack", "eta_mlp_point.msgpack"):
+        for dtype in ("bfloat16", "int8"):
+            if dtype == "int8":
+                os.environ["RTPU_KERNEL_DTYPE"] = "int8"
+            try:
+                svc = EtaService(ServeConfig(), device=CARD,
+                                 model_path=os.path.join(ROOT, "artifacts",
+                                                         name))
+            finally:
+                os.environ.pop("RTPU_KERNEL_DTYPE", None)
+            info = svc.scoring_info()
+            check(svc.available and info["kernel"] == "cuda_fused"
+                  and info["dtype"] == dtype,
+                  f"aot: {name} {dtype} serves {info} {svc.load_error}")
+            check(info["aot"] is True
+                  and info["aot_buckets"] == list(SERVING_BUCKETS),
+                  f"aot: {name} {dtype}: {info}")
+            n_q = len(svc.quantiles)
+            for b in SERVING_BUCKETS:
+                x = random_rows(rng, b)
+                before = fused_eta_forward.launches
+                got = svc._score(x)                 # the bucket's graph
+                replay_launches = fused_eta_forward.launches - before
+                want = fused_eta_forward(
+                    svc._packed, torch.from_numpy(x).to(CARD),
+                    n_q=n_q).cpu().numpy()
+                check(replay_launches == 1, f"aot: {name} {dtype} bucket "
+                      f"{b}: {replay_launches} launches counted")
+                check(got.shape == want.shape
+                      and got.tobytes() == want.tobytes(),
+                      f"aot: {name} {dtype} bucket {b}: the replay is not "
+                      f"bitwise the eager kernel")
+                check(not np.shares_memory(got, svc._graphs._graphs[b]
+                                           .h_out), "aot: a static alias")
+            rec[f"{name}:{dtype}"] = {"heads": n_q or 1, "bitwise": True}
+            print(f"[aot] {name} {dtype}: aot_buckets "
+                  f"{info['aot_buckets']}; every bucket's replay bitwise "
+                  f"the eager kernel, one launch counted per replay")
+            if name == "eta_mlp.msgpack" and dtype == "bfloat16":
+                keep = svc
+            else:
+                svc.close()
+    return keep, rec
+
+
+def _aot_compile_counts():
+    from routest_tpu_torch.serve import ml_service
+
+    return {b: ml_service._m_aot_compile.labels(bucket=b).count
+            for b in SERVING_BUCKETS}
+
+
+def _aot_swap(rng):
+    """(a): a hot swap (point → quantile artifact) under
+    ``AOT_SWAP_THREADS`` threads of requests: the fresh service captures
+    its own graphs while the threads serve, the swap lands with them and
+    the old graphs are released. → record."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from routest_tpu_torch.core.config import ServeConfig
+    from routest_tpu_torch.serve.ml_service import EtaService
+
+    tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    try:
+        path = os.path.join(tmp, "eta.msgpack")
+        shutil.copy(os.path.join(ROOT, "artifacts", "eta_mlp_point.msgpack"),
+                    path)
+        svc = EtaService(ServeConfig(), model_path=path, device=CARD)
+        check(svc.scoring_info()["aot_buckets"] == list(SERVING_BUCKETS),
+              f"aot swap: {svc.scoring_info()}")
+        old = svc._graphs
+        stop, errors, answers = threading.Event(), [], [0, 0]
+
+        def worker(seed):
+            r = np.random.default_rng(seed)
+            while not stop.is_set():
+                n = int(r.integers(1, 100))
+                try:
+                    minutes, _iso, bands = svc.predict_eta_batch(
+                        weather=["Sunny"] * n, traffic=["Low"] * n,
+                        distance_m=r.uniform(500, 20_000, n).tolist(),
+                        pickup_time="2026-10-16T08:30:00",
+                        driver_age=[30.0] * n, return_quantiles=True)
+                    if minutes is None or not np.isfinite(minutes).all():
+                        errors.append("non-finite or no answer")
+                    answers[1 if bands else 0] += 1
+                except Exception as e:
+                    errors.append(f"{type(e).__name__}: {e}")
+
+        threads = [threading.Thread(target=worker, args=(s,))
+                   for s in range(AOT_SWAP_THREADS)]
+        for t in threads:
+            t.start()
+        time.sleep(1.0)
+        new = os.path.join(tmp, "new.msgpack")
+        shutil.copy(os.path.join(ROOT, "artifacts", "eta_mlp.msgpack"), new)
+        os.replace(new, path)
+        t0 = time.perf_counter()
+        landed = svc.reload_if_changed()
+        swap_s = time.perf_counter() - t0
+        time.sleep(1.0)
+        stop.set()
+        for t in threads:
+            t.join(timeout=30)
+        check(not any(t.is_alive() for t in threads), "aot swap: a thread "
+                                                      "hung")
+        info = svc.scoring_info()
+        check(landed and svc.quantiles and info["aot"] is True
+              and info["aot_buckets"] == list(SERVING_BUCKETS)
+              and svc._graphs is not old,
+              f"aot swap: landed {landed}, {info}")
+        check(all(e.released for e in old._graphs.values()),
+              "aot swap: the old graphs were not released")
+        check(not errors, f"aot swap: {len(errors)} failed answers: "
+                          f"{errors[:3]}")
+        check(answers[1] > 0, "aot swap: no banded answer after the flip")
+        svc.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[aot] hot swap under {AOT_SWAP_THREADS} threads: landed in "
+          f"{swap_s:.3f} s with aot_buckets {info['aot_buckets']}, old "
+          f"graphs released; {answers[0]} point + {answers[1]} banded "
+          f"answers, none failed")
+    return {"swap_s": swap_s, "answers_point": answers[0],
+            "answers_banded": answers[1]}
+
+
+def _aot_export(rng):
+    """(a): a ``torch.export`` artifact made on the card serves with its
+    graphs. → record."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from routest_tpu_torch.core.config import ServeConfig
+    from routest_tpu_torch.core.dtypes import backend_compute_policy
+    from routest_tpu_torch.serve.ml_service import EtaService
+    from routest_tpu_torch.train.checkpoint import (export_serving_fn,
+                                                    load_model)
+
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        path = os.path.join(d, "eta.pt2")
+        model, _ = load_model(os.path.join(ROOT, "artifacts",
+                                           "eta_mlp.msgpack"))
+        model.policy = backend_compute_policy(model.policy,
+                                              torch.device(CARD))
+        export_serving_fn(path, model, CARD)
+        svc = EtaService(ServeConfig(), model_path=path, device=CARD)
+    info = svc.scoring_info()
+    check(svc.available and info["kernel"] == "torch_export"
+          and info["aot"] is True
+          and info["aot_buckets"] == list(SERVING_BUCKETS),
+          f"aot export: {info} {svc.load_error}")
+    bitwise, worst = True, 0.0
+    for b in (SERVING_BUCKETS[0], SERVING_BUCKETS[-1]):
+        x = random_rows(rng, b)
+        got = svc._score(x)
+        with torch.no_grad():
+            want = svc._model(torch.from_numpy(x).to(CARD)).cpu().numpy()
+        bitwise &= got.tobytes() == want.tobytes()
+        worst = max(worst, compare(torch.from_numpy(got),
+                                   torch.from_numpy(want),
+                                   TOL["bfloat16"], len(svc.quantiles))[0])
+    svc.close()
+    print(f"[aot] torch_export artifact made on the card: aot_buckets "
+          f"{info['aot_buckets']}; replays vs the program called eagerly "
+          f"max abs {worst:.3g} (bitwise: {bitwise})")
+    return {"kernel": info["kernel"], "aot_buckets": info["aot_buckets"],
+            "bitwise_vs_eager": bitwise, "max_abs_vs_eager": worst}
+
+
+def _aot_flush_ms(rng):
+    """Host ms of one flush's scorer per bucket (8 and 4096), with the
+    bucket graphs and with ``RTPU_SERVE_AOT=0``, in turns (graphs, off,
+    off, graphs). → record (for information)."""
+    from routest_tpu_torch.core.config import ServeConfig
+    from routest_tpu_torch.serve.ml_service import EtaService
+
+    artifact = os.path.join(ROOT, "artifacts", "eta_mlp.msgpack")
+    svcs = {"graphs": EtaService(ServeConfig(), model_path=artifact,
+                                 device=CARD),
+            "off": EtaService(ServeConfig(serve_aot=False),
+                              model_path=artifact, device=CARD)}
+    check(svcs["off"].scoring_info()["aot"] is False, "aot off: captured")
+    out = {}
+    for b in (SERVING_BUCKETS[0], SERVING_BUCKETS[-1]):
+        x = random_rows(rng, b)
+        runs = {k: [] for k in svcs}
+        for label in ("graphs", "off", "off", "graphs"):
+            runs[label].append(_cpu_ms(lambda: svcs[label]._score(x),
+                                       AOT_REPS))
+        out[b] = {k: _median(v) for k, v in runs.items()}
+    for svc in svcs.values():
+        svc.close()
+    return out
+
+
+def _aot_eta(rng, smi_line):
+    """(a) ETA scoring with the bucket graphs. → (record, fused launches
+    over the app's requests)."""
+    import numpy as np
+    import torch
+
+    from routest_tpu_torch.ops.fused_mlp import (fused_eta_forward,
+                                                 fused_eta_forward_plain)
+
+    svc, rec = _aot_services(rng)
+    counts = _aot_compile_counts()
+    check(all(c > 0 for c in counts.values()),
+          f"aot: a bucket has no capture observation: {counts}")
+    for n in AOT_LENGTHS:
+        got = svc.predict_batch(random_rows(rng, n))
+        check(got is not None and len(got) == n, f"aot: {n} rows")
+    check(_aot_compile_counts() == counts,
+          f"aot: a request captured: {counts} → {_aot_compile_counts()}")
+    print(f"[aot] requests at {list(AOT_LENGTHS)} rows added no "
+          f"rtpu_replica_aot_compile_seconds observation ({counts})")
+    # launch accounting: graph replays + eager launches = the count
+    # health's metrics read
+    replays = [0]
+    for entry in svc._graphs._graphs.values():
+        def counted(inner=entry._replay):
+            replays[0] += 1
+            inner()
+        entry._replay = counted
+    n = 4096
+    batch = _batch_body(rng, n)
+    rows = torch.from_numpy(_batch_rows(batch)).to(CARD)
+    with _Server(svc) as srv:
+        fused_eta_forward.launches = 0
+        status, health = _request(srv.port, "GET", "/api/health")
+        scoring = health["checks"]["model"]["scoring"]
+        check(status == 200 and scoring["aot"] is True
+              and scoring["aot_buckets"] == list(SERVING_BUCKETS),
+              f"aot health: {scoring}")
+        tpu = health["checks"]["tpu"]
+        check(tpu.get("device_kind") == torch.cuda.get_device_name(0)
+              and tpu.get("peak_tflops_bf16") == 989.0
+              and tpu.get("peak_hbm_gbps") == 3350.0,
+              f"aot health: device identity {tpu}")
+        status, one = _request(srv.port, "POST", "/api/predict_eta", {
+            "summary": {"distance": 12_500}, "weather": "Stormy",
+            "traffic": "Jam", "pickup_time": "2026-10-16T08:30:00+08:00",
+            "driver_age": 41})
+        check(status == 200 and np.isfinite(one["eta_minutes_ml"]),
+              f"aot predict_eta: {status} {one}")
+        status, out = _request(srv.port, "POST", "/api/predict_eta_batch",
+                               batch)
+        check(status == 200 and out.get("count") == n,
+              f"aot predict_eta_batch: {status}")
+        eta = _check_batch(out, n)
+        eager = 2
+        for _ in range(eager):
+            fused_eta_forward(svc._packed, rows, n_q=3)
+        torch.cuda.synchronize()
+        status, metrics = _request(srv.port, "GET", "/api/metrics")
+        gauge = int(metrics["registry"]["rtpu_fused_launches"]["series"][0]
+                    ["value"])
+        launches = fused_eta_forward.launches
+    check(replays[0] > 0 and gauge == launches == replays[0] + eager,
+          f"aot launches: metrics {gauge}, counter {launches}, replays "
+          f"{replays[0]} + eager {eager}")
+    want = fused_eta_forward_plain(svc._packed, rows, n_q=3)[:, 1]
+    err = compare(torch.from_numpy(eta), want.double(),
+                  PLAIN_TOL["bfloat16"], 0)
+    print(f"[aot] through the app: health aot {scoring['aot']} "
+          f"{scoring['aot_buckets']}, device {tpu['device_kind']} "
+          f"({tpu['peak_tflops_bf16']} TFLOP/s, {tpu['peak_hbm_gbps']} "
+          f"GB/s); rtpu_fused_launches {gauge} = {replays[0]} replays + "
+          f"{eager} eager; 4096-row batch vs plain max abs {err[0]:.3g}")
+    svc.close()
+    rec.update(no_capture_after_startup=True, replays=replays[0],
+               eager_launches=eager, metrics_launches=gauge,
+               batch_max_abs_vs_plain=err[0], swap=_aot_swap(rng),
+               export=_aot_export(rng), flush_host_ms=_aot_flush_ms(rng))
+    print(f"[aot] host ms per flush's scorer (graphs / off): " + ", ".join(
+        f"{b} rows {v['graphs']:.4f} / {v['off']:.4f}"
+        for b, v in rec["flush_host_ms"].items()) + f" | {smi_line}")
+    return rec, gauge - eager
+
+
+def _aot_overlay(rng, smi_line):
+    """(b) the metro overlay with the solve graphs: a router on the card
+    under ``ROUTEST_ROUTER_AOT=2,16``, one under ``off``, one on the
+    CPU. → record."""
+    from routest_tpu_torch.data.osm import load_osm
+    from routest_tpu_torch.optimize import hierarchy, road_router
+
+    def checks():
+        return (hierarchy._relax_ell.calls + hierarchy.relax_from.calls,
+                hierarchy._relax_ell.sweeps + hierarchy.relax_from.sweeps,
+                hierarchy._relax_ell.checks + hierarchy.relax_from.checks)
+
+    graph = load_osm(os.path.join(ROOT, METRO_OSM))
+    saved = {k: os.environ.get(k) for k in ("ROUTEST_ROUTER_AOT",
+                                            "ROUTEST_HIER_CACHE")}
+    os.environ["ROUTEST_HIER_CACHE"] = "0"
+    routers, build_s = {}, {}
+    try:
+        for label, knob, dev in (("graphs", AOT_ROUTER_KNOB, CARD),
+                                 ("off", "off", CARD), ("cpu", "off", "cpu")):
+            os.environ["ROUTEST_ROUTER_AOT"] = knob
+            t0 = time.perf_counter()
+            routers[label] = road_router.RoadRouter(
+                graph=graph, use_gnn=False, use_transformer=False,
+                device=dev)
+            build_s[label] = time.perf_counter() - t0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    g, off, cpu = routers["graphs"], routers["off"], routers["cpu"]
+    info = g.solver_info
+    check(info["solver"] == "hierarchy" and info["aot_buckets"] == [2, 16]
+          and info.get("aot_compile_s", 0) > 0, f"aot router: {info}")
+    check(off.solver_info["aot_buckets"] == []
+          and "aot_compile_s" not in off.solver_info,
+          f"aot router off: {off.solver_info}")
+    replays = {b: 0 for b in g._aot}
+    for b, og in g._aot.items():
+        def counted(padded, n, inner=og.solve, b=b):
+            replays[b] += 1
+            return inner(padded, n)
+        og.solve = counted
+    solves = {}
+    for n in AOT_SOLVES:
+        src = rng.integers(0, g.n_nodes, n)
+        c0 = checks()
+        gd, gp = g._solve_rows(src)
+        c1 = checks()
+        od, op = off._solve_rows(src)
+        c2 = checks()
+        cd, cp = cpu._solve_rows(src)
+        check(gd.tobytes() == od.tobytes() == cd.tobytes()
+              and gp.tobytes() == op.tobytes() == cp.tobytes(),
+              f"aot router: {n}-source solve differs between the graphs, "
+              f"off and the CPU")
+        loops = [a - b for a, b in zip(c1, c0)]
+        check(loops == [a - b for a, b in zip(c2, c1)],
+              f"aot router: {n} sources: loops/sweeps/checks {loops} vs "
+              f"eager {[a - b for a, b in zip(c2, c1)]}")
+        rec = {"bucket": 1 << (n - 1).bit_length(), "loops": loops,
+               "graphs": {"ms": _event_ms(lambda: g._solve_rows(src),
+                                          AOT_REPS),
+                          **_device_work(lambda: g._solve_rows(src))},
+               "off": {"ms": _event_ms(lambda: off._solve_rows(src),
+                                       AOT_REPS),
+                       **_device_work(lambda: off._solve_rows(src))}}
+        solves[n] = rec
+        print(f"[aot] metro {n:2d} sources (bucket {rec['bucket']}): "
+              f"bitwise graphs = off = CPU; {loops[2]} host checks each; "
+              f"graphs {rec['graphs']['ms']:.3f} ms (kernels "
+              f"{rec['graphs']['cuda_kernels']}, torch ops "
+              f"{rec['graphs']['aten_ops']}, syncs "
+              f"{rec['graphs']['syncs']}), off {rec['off']['ms']:.3f} ms "
+              f"(kernels {rec['off']['cuda_kernels']}, torch ops "
+              f"{rec['off']['aten_ops']}, syncs {rec['off']['syncs']}) | "
+              f"{smi_line}")
+    check(replays[2] > 0 and replays[16] > 0,
+          f"aot router: buckets not replayed {replays}")
+    return {"aot_buckets": info["aot_buckets"],
+            "aot_compile_s": info["aot_compile_s"], "build_s": build_s,
+            "replays": replays, "solves": solves}
+
+
+def phase_aot(smi_line):
+    """Phase 23, the per-bucket serving entries on the card: (a) ETA
+    scoring with a CUDA graph per batch bucket (``RTPU_SERVE_AOT``),
+    (b) the metro overlay's solve buckets (``ROUTEST_ROUTER_AOT``). →
+    (record, fused launches over (a)'s requests through the app)."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(23)
+    rec = {"card": smi_line}
+    rec["eta"], launches = _aot_eta(rng, smi_line)
+    rec["overlay"] = _aot_overlay(rng, smi_line)
+    rec["wall_s"] = time.perf_counter() - t_phase
+    print(f"[aot] phase wall {rec['wall_s']:.1f} s | {smi_line}")
+    print(json.dumps({"aot": rec}))
+    return rec, launches
+
+
 def _alone(name, repeat):
     """``--alone PHASE --repeat N``: phases 1–2 (the card, the kernel's
     build), then one of the later phases ``repeat`` times in this
@@ -7855,7 +8290,8 @@ def _alone(name, repeat):
     script with no arguments."""
     phases = {"regions": phase_regions, "loadgen": phase_loadgen,
               "mesh": phase_mesh, "pages": phase_pages,
-              "redis": phase_redis, "acceptance": phase_acceptance}
+              "redis": phase_redis, "aot": phase_aot,
+              "acceptance": phase_acceptance}
     _, smi_line = phase_device()
     phase_build()
     failed = []
@@ -7879,7 +8315,8 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description="The port on one card.")
     parser.add_argument("--alone", choices=("regions", "loadgen", "mesh",
-                                            "pages", "redis", "acceptance"),
+                                            "pages", "redis", "aot",
+                                            "acceptance"),
                         help="run this phase alone (after phases 1-2)")
     parser.add_argument("--repeat", type=int, default=1,
                         help="with --alone: how many times")
@@ -7940,6 +8377,8 @@ def main() -> int:
         _, pages_launches = phase_pages(smi_line)
         phase = "redis"
         _, redis_launches = phase_redis(smi_line)
+        phase = "aot"
+        _, aot_launches = phase_aot(smi_line)
         phase = "acceptance"
         _, scripts_launches = phase_acceptance(smi_line)
         phase = "times"
@@ -8005,6 +8444,9 @@ def main() -> int:
     # ... and over phase 22's: server A's use_ml_eta live+ routes (another
     # process on the Redis bus), read from its /api/metrics
     kernels[0]["launches_redis"] = redis_launches
+    # ... and over phase 23's requests through the app on the bucket
+    # graphs: one launch counted per replay (its eager launches apart)
+    kernels[0]["launches_aot"] = aot_launches
     print(json.dumps({"kernels": kernels}))
     print(f"{smi_line}")
     print(json.dumps({"ok": True, "device": {

@@ -88,6 +88,12 @@ class ServeConfig:
     # device batch is padded up to one of these, and each is warmed at
     # startup.
     batch_buckets: Tuple[int, ...] = (8, 64, 512, 1024, 2048, 4096)
+    # Per-bucket serving entry: on one card, the score program of every
+    # bucket (host→device copy, forward, device→host copy) is captured
+    # as a CUDA graph at bring-up and replayed per flush — the JAX
+    # package's per-bucket AOT compiles. ``RTPU_SERVE_AOT=0`` serves
+    # every flush eagerly.
+    serve_aot: bool = True
     # Serving fast lane: a content-addressed prediction cache +
     # singleflight in front of the batcher, and an adaptive flush window
     # inside it. Entries are keyed by (row bytes, model generation), so
@@ -771,6 +777,7 @@ def load_config(env: Optional[Mapping[str, str]] = None) -> Config:
         max_wait_ms=_float("RTPU_MAX_WAIT_MS", 2.0),
         batch_buckets=_buckets("RTPU_BATCH_BUCKETS",
                                ServeConfig.batch_buckets),
+        serve_aot=env.get("RTPU_SERVE_AOT", "1") != "0",
         fastlane_cache=env.get("RTPU_FASTLANE_CACHE", "1") != "0",
         fastlane_cache_size=_int("RTPU_FASTLANE_CACHE_SIZE", 8192),
         fastlane_cache_ttl_s=_float("RTPU_FASTLANE_CACHE_TTL_S", 300.0),
@@ -1224,8 +1231,8 @@ def load_profile_config(
 # routest_tpu_torch.analysis --rule env-knob-undeclared`) fails on any
 # env read whose name is missing from this file, so a new knob cannot
 # ship undeclared. The grouping is the JAX package's; knobs the port
-# never reads (its XLA compile cache, AOT buckets, forced virtual CPU
-# devices) are not declared, and the port's own knobs close the list.
+# never reads (its XLA compile cache, forced virtual CPU devices) are
+# not declared, and the port's own knobs close the list.
 KNOWN_KNOBS: Mapping[str, str] = {
     # Device/runtime selection.
     "ROUTEST_MESH": "arm the serving device mesh (sharded scoring)",
@@ -1238,6 +1245,8 @@ KNOWN_KNOBS: Mapping[str, str] = {
     "ROUTEST_KERNEL_BENCH": "kernel selection-table path (bench record)",
     "RTPU_KERNEL_DTYPE": "kernel weight/compute variant: bf16/f32/int8",
     "ROUTEST_WARM_BUCKETS": "batch buckets warmed at serving bring-up",
+    "RTPU_SERVE_AOT": "per-bucket CUDA graphs of the score program (0 = "
+                      "eager)",
     # Road router / overlay / route fastlane (ROUTEST_HIER_* build
     # knobs are part of the overlay cache fingerprint).
     "ROUTEST_HIER_CACHE": "overlay cache directory (off = rebuild)",
@@ -1249,6 +1258,8 @@ KNOWN_KNOBS: Mapping[str, str] = {
     "ROUTEST_HIER_LABELS": "hub-label stage opt-in/out",
     "ROUTEST_HIER_PRUNE_SLACK": "boundary-clique prune slack",
     "ROUTEST_POLISH_SWEEPS": "label-correcting polish sweep count",
+    "ROUTEST_ROUTER_AOT": "overlay solve buckets captured as CUDA "
+                          "graphs at router init",
     "ROUTEST_ROUTER_BATCH": "cross-request solve batcher on/off",
     "ROUTEST_ROUTER_BATCH_MAX": "solve batcher max merged sources",
     "ROUTEST_ROUTER_BATCH_WINDOW_MS": "solve batcher merge window",
@@ -1279,6 +1290,7 @@ KNOWN_KNOBS: Mapping[str, str] = {
     "ROUTEST_FRONTEND_ORIGIN": "extra origin granted credentialed CORS",
     "ROUTEST_MAIL_FILE": "mbox-JSONL mail transport path",
     "RTPU_MAX_BODY_MB": "request body size limit (413 beyond)",
+    "ROUTEST_TILE_URL": "external tile server probed by /api/health",
     # Native helpers / data ingest.
     "ROUTEST_NATIVE": "C accelerators opt-in/out",
     "ROUTEST_NATIVE_CACHE": "native build cache directory",

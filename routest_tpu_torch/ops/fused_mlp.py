@@ -428,7 +428,10 @@ def fused_eta_forward(packed: Packed, x: torch.Tensor, *, n_q: int = 0,
     tensor-core kernel's rows per block (16 or 32; default
     :func:`tile_rows`), for measuring and checking each one. An empty
     batch returns without a launch.
-    ``fused_eta_forward.launches`` counts kernel launches."""
+    ``fused_eta_forward.launches`` counts kernel launches; a call made
+    while the current stream is capturing a CUDA graph launches nothing
+    and counts in ``fused_eta_forward.captured`` instead — whoever
+    replays the graph counts its launches (``serve/ml_service.py``)."""
     if x.device.type == "cpu":
         return fused_eta_forward_plain(packed, x, n_q=n_q)
     if x.device.type != "cuda":
@@ -469,8 +472,12 @@ def fused_eta_forward(packed: Packed, x: torch.Tensor, *, n_q: int = 0,
         raise RuntimeError(
             f"fused_eta_forward launch failed: CUDA error {rc} "
             f"({lib.rtpu_cuda_error_string(rc).decode()})")
-    fused_eta_forward.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        fused_eta_forward.captured += 1
+    else:
+        fused_eta_forward.launches += 1
     return out
 
 
 fused_eta_forward.launches = 0
+fused_eta_forward.captured = 0

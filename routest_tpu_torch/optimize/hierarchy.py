@@ -10,7 +10,11 @@ packing, the cache file) are copies of the JAX package's numpy code;
 device parts are torch ops that the JAX package runs as ``jit``
 programs, called eagerly here. :meth:`HierarchicalIndex.customize`
 re-prices a built or loaded overlay against a live metric from the same
-structure. Left out: the per-bucket AOT programs.
+structure. The solve is a program of straight-line segments between its
+host-checked relax loops (:meth:`HierarchicalIndex.full_solve_steps`):
+run eagerly here, or captured per source bucket as CUDA graphs by the
+router on the card (``serve/graphs.py``), the JAX package's per-bucket
+AOT programs.
 
 Every float operation on the device is a min, a single float32 add or
 subtract, or the one multiply ``T * (1 + slack)`` of
@@ -49,6 +53,7 @@ import numpy as np
 import torch
 
 from routest_tpu_torch.core.config import resolve_device
+from routest_tpu_torch.serve.graphs import Loop, drive, run_steps
 
 _INF = 3e38
 _INF_NP = np.float32(3e38)
@@ -99,6 +104,19 @@ def _seg_min(values: torch.Tensor, index: torch.Tensor,
     return init.scatter_reduce(1, idx, values, "amin", include_self=True)
 
 
+def _bf_sweeps(dist: torch.Tensor, senders: torch.Tensor,
+               receivers: torch.Tensor, w: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_K_SWEEPS`` Bellman-Ford sweeps of the (S, N) table ``dist`` →
+    (new table, device flag: did any entry fall). One chunk of
+    :func:`relax_from`'s loop, and of a captured overlay solve's."""
+    new = dist
+    for _ in range(_K_SWEEPS):
+        proposals = new.index_select(1, senders) + w[None, :]
+        new = _seg_min(proposals, receivers, new)
+    return new, (new < dist).any()
+
+
 def relax_from(senders: torch.Tensor, receivers: torch.Tensor,
                w: torch.Tensor, dist0: torch.Tensor, *, max_iters: int
                ) -> Tuple[torch.Tensor, bool]:
@@ -110,22 +128,16 @@ def relax_from(senders: torch.Tensor, receivers: torch.Tensor,
     A sweep is ``min(dist, segment_min(dist[:, senders] + w))``; the
     ``segment_min`` is a ``scatter_reduce`` (``"amin"``, ``include_self``)
     into a copy of ``dist``, which absorbs JAX's empty-segment ``+inf``
-    the same way the ``min`` with ``dist`` does."""
-    relax_from.calls += 1
-    dist = dist0
-    it = 0
-    changed = True
-    while changed and it < max_iters:
-        new = dist
-        for _ in range(_K_SWEEPS):
-            proposals = new.index_select(1, senders) + w[None, :]
-            new = _seg_min(proposals, receivers, new)
-        relax_from.sweeps += _K_SWEEPS
-        relax_from.checks += 1
-        changed = bool((new < dist).any())
-        dist = new
-        it += _K_SWEEPS
-    return dist, not changed
+    the same way the ``min`` with ``dist`` does. The host checks once
+    per :func:`_bf_sweeps` chunk (:func:`drive`)."""
+    box = [dist0]
+
+    def chunk():
+        box[0], changed = _bf_sweeps(box[0], senders, receivers, w)
+        return changed
+
+    changed = drive(relax_from, max_iters, _K_SWEEPS, chunk)
+    return box[0], not changed
 
 
 relax_from.calls = 0
@@ -755,36 +767,50 @@ def _ell_pack(ie_cell: np.ndarray, ie_s: np.ndarray, ie_r: np.ndarray,
     return ell_s, ell_w, ell_r
 
 
+def _ell_prep(es: torch.Tensor, ew_: torch.Tensor, er: torch.Tensor,
+              c_max: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """ELL-packed cells (``es``/``ew_``: (S, m_max, W), ``er``: (S,
+    m_max)) → one block-diagonal layout over the flat (S*c_max,) table:
+    (sender ids, receiver minirow ids, (S*m_max, W) weights)."""
+    S, m_max, W = es.shape
+    offs = torch.arange(S, device=es.device) * c_max
+    return ((es + offs[:, None, None]).reshape(-1),
+            (er + offs[:, None]).reshape(-1),
+            ew_.reshape(S * m_max, W))
+
+
+def _ell_sweeps(dist: torch.Tensor, ell
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_K_SWEEPS`` sweeps of :func:`_relax_ell` over the flat table →
+    (new table, device flag: did any entry fall). Per sweep: a dense
+    (S*m, W) gather + lane min, then a scatter-min over the S*m
+    minirows into the table."""
+    s_flat, r_flat, w_flat = ell
+    new = dist
+    for _ in range(_K_SWEEPS):
+        prop = (new.index_select(0, s_flat).view(w_flat.shape)
+                + w_flat).amin(dim=1)
+        new = new.scatter_reduce(0, r_flat, prop, "amin",
+                                 include_self=True)
+    return new, (new < dist).any()
+
+
 def _relax_ell(es: torch.Tensor, ew_: torch.Tensor, er: torch.Tensor,
                dist0: torch.Tensor, *, c_max: int,
                max_iters: int) -> torch.Tensor:
     """Block-diagonal restricted Bellman-Ford over ELL-packed cells —
     the query layout (one selected cell per source). ``es``/``ew_``:
-    (S, m_max, W); ``er``: (S, m_max); ``dist0``: (S, c_max). Per sweep:
-    a dense (S*m, W) gather + lane min, then a scatter-min over the S*m
-    minirows into the table; a host check every ``_K_SWEEPS`` sweeps."""
-    _relax_ell.calls += 1
-    S, m_max, W = es.shape
-    offs = torch.arange(S, device=es.device) * c_max
-    s_flat = (es + offs[:, None, None]).reshape(-1)
-    r_flat = (er + offs[:, None]).reshape(-1)
-    w_flat = ew_.reshape(S * m_max, W)
-    dist = dist0.reshape(-1)
-    it = 0
-    changed = True
-    while changed and it < max_iters:
-        new = dist
-        for _ in range(_K_SWEEPS):
-            prop = (new.index_select(0, s_flat).view(S * m_max, W)
-                    + w_flat).amin(dim=1)
-            new = new.scatter_reduce(0, r_flat, prop, "amin",
-                                     include_self=True)
-        _relax_ell.sweeps += _K_SWEEPS
-        _relax_ell.checks += 1
-        changed = bool((new < dist).any())
-        dist = new
-        it += _K_SWEEPS
-    return dist.reshape(S, c_max)
+    (S, m_max, W); ``er``: (S, m_max); ``dist0``: (S, c_max). Chunks of
+    :func:`_ell_sweeps`, a host check after each (:func:`drive`)."""
+    ell = _ell_prep(es, ew_, er, c_max)
+    box = [dist0.reshape(-1)]
+
+    def chunk():
+        box[0], changed = _ell_sweeps(box[0], ell)
+        return changed
+
+    drive(_relax_ell, max_iters, _K_SWEEPS, chunk)
+    return box[0].reshape(dist0.shape[0], c_max)
 
 
 _relax_ell.calls = 0
@@ -1727,7 +1753,17 @@ class HierarchicalIndex:
     def _stages(self) -> List[Tuple[str, object]]:
         """The query pipeline as (name, fn) pairs over a carry dict —
         ONE decomposition shared by ``query_fn``, ``full_solve_fn`` and
-        ``timed_query`` (stage-by-stage timings)."""
+        ``timed_query`` (stage-by-stage timings). Each fn runs its
+        stage's program (:meth:`_stage_steps`) eagerly."""
+        return [(name, lambda c, steps=steps: run_steps(steps, c))
+                for name, steps in self._stage_steps()]
+
+    def _stage_steps(self) -> List[Tuple[str, list]]:
+        """The query pipeline as (name, program) pairs: each program a
+        list of segments (``carry → carry``) and host-checked relax
+        loops (``serve/graphs.py``'s ``Loop``, whose state rides in
+        ``carry["loop"]``), so a captured solve splits at exactly the
+        eager loops' host checks."""
         lvls = self.levels
         L = self.n_levels
         top_s, top_r, top_w = self._d_top_s, self._d_top_r, self._d_top_w
@@ -1738,6 +1774,24 @@ class HierarchicalIndex:
             return dst.scatter_reduce(1, index, values, "amin",
                                       include_self=True)
 
+        def ell_loop(l, d0: torch.Tensor, p: torch.Tensor) -> Dict:
+            # _relax_ell's prologue: the block-diagonal layout + state
+            return {"ell": _ell_prep(l.d_ell_s[p], l.d_ell_w[p],
+                                     l.d_ell_r[p], l.c_max),
+                    "loop": d0[:, :l.c_max].reshape(-1)}
+
+        def ell_steps(l, head, out_key: str) -> list:
+            """``head`` (carry → carry with "ell"/"loop"), the loop,
+            then the relaxed table under ``out_key``."""
+            def tail(c: Dict) -> Dict:
+                rest = {k: v for k, v in c.items()
+                        if k not in ("ell", "loop")}
+                return {**rest, out_key: c["loop"].reshape(-1, l.c_max)}
+
+            loop = Loop("loop", lambda c: _ell_sweeps(c["loop"], c["ell"]),
+                        l.c_max + _K_SWEEPS, _K_SWEEPS, _relax_ell)
+            return [head, loop, tail]
+
         def phase1(c: Dict) -> Dict:
             l = lvls[0]
             p = c["p_cells"][0]
@@ -1745,10 +1799,7 @@ class HierarchicalIndex:
             sv = c["seed_val"][0]
             S = sp.shape[0]
             d0 = scatter_min(_inf((S, l.c_max + 1), dev), sp, sv)
-            local = _relax_ell(l.d_ell_s[p], l.d_ell_w[p], l.d_ell_r[p],
-                               d0[:, :l.c_max], c_max=l.c_max,
-                               max_iters=l.c_max + _K_SWEEPS)
-            return {**c, "local0": local}
+            return {**c, **ell_loop(l, d0, p)}
 
         def make_ascend(k: int):
             lp, l = lvls[k - 1], lvls[k]
@@ -1777,12 +1828,11 @@ class HierarchicalIndex:
                 # Chain-interior sources whose second endpoint lands in
                 # a different cell below this level enter here.
                 d0 = scatter_min(d0, c["seed_pos"][k], c["seed_val"][k])
-                local = _relax_ell(l.d_ell_s[p], l.d_ell_w[p], l.d_ell_r[p],
-                                   d0[:, :l.c_max], c_max=l.c_max,
-                                   max_iters=l.c_max + _K_SWEEPS)
-                return {**c, f"local{k}": local}
+                return {**c, **ell_loop(l, d0, p)}
 
-            return ascend
+            if l.d_pt is not None:
+                return [ascend]
+            return ell_steps(l, ascend, f"local{k}")
 
         def top_bf(c: Dict) -> Dict:
             l = lvls[L - 1]
@@ -1792,10 +1842,16 @@ class HierarchicalIndex:
             seed = torch.gather(local, 1, l.d_bl[p])
             ovl0 = scatter_min(_inf((S, Bt + 1), dev), l.d_cbo[p], seed)
             ovl0 = scatter_min(ovl0, c["seed_pos"][L], c["seed_val"][L])
-            ovl, _ = relax_from(top_s, top_r, top_w,
-                                ovl0[:, :Bt].contiguous(),
-                                max_iters=Bt + _K_SWEEPS)
-            return {**c, "ovl": ovl}
+            return {**c, "loop": ovl0[:, :Bt].contiguous()}
+
+        def top_bf_out(c: Dict) -> Dict:
+            rest = {k: v for k, v in c.items() if k != "loop"}
+            return {**rest, "ovl": c["loop"]}
+
+        # relax_from's loop over the top overlay graph
+        top_bf_steps = [top_bf, Loop(
+            "loop", lambda c: _bf_sweeps(c["loop"], top_s, top_r, top_w),
+            Bt + _K_SWEEPS, _K_SWEEPS, relax_from), top_bf_out]
 
         d_labels = self._d_labels
 
@@ -1882,15 +1938,16 @@ class HierarchicalIndex:
                                         + fw[None, :])
             return {**c, "ovl": torch.clamp_max(out, _INF)}
 
-        stages: List[Tuple[str, object]] = [("phase1", phase1)]
+        stages: List[Tuple[str, list]] = [
+            ("phase1", ell_steps(lvls[0], phase1, "local0"))]
         for k in range(1, L):
             stages.append((f"ascend_l{k + 1}", make_ascend(k)))
-        stages.append(("top_labels", top_labels) if d_labels is not None
-                      else ("top_bf", top_bf))
+        stages.append(("top_labels", [top_labels]) if d_labels is not None
+                      else ("top_bf", top_bf_steps))
         for k in range(L - 1, -1, -1):
-            stages.append((f"descend_l{k + 1}", make_descend(k)))
+            stages.append((f"descend_l{k + 1}", [make_descend(k)]))
         if self._contracted:
-            stages.append(("expand", expand))
+            stages.append(("expand", [expand]))
         return stages
 
     def _build_query(self):
@@ -1907,8 +1964,25 @@ class HierarchicalIndex:
         return query
 
     def full_solve_fn(self, n_sweeps: int = 2):
-        """The router's solve: overlay query + polish + predecessor
-        recovery ON THE CONTRACTED GRAPH, then an exact synthesis of
+        """The router's solve, :meth:`full_solve_steps` run eagerly:
+        ``(p_cells, seed_pos, seed_val, src_full) -> (dist (S, N)
+        float32, pred (S, N) int64 original edge ids)`` on the index's
+        device."""
+        steps = self.full_solve_steps(n_sweeps)
+
+        def solve(p_cells: torch.Tensor, seed_pos: torch.Tensor,
+                  seed_val: torch.Tensor, src_full: torch.Tensor):
+            out = run_steps(steps, {"p_cells": p_cells, "seed_pos": seed_pos,
+                                    "seed_val": seed_val,
+                                    "src_full": src_full})
+            return out["dist"], out["pred"]
+
+        return solve
+
+    def full_solve_steps(self, n_sweeps: int = 2) -> list:
+        """The router's solve as a program (:meth:`_stage_steps`):
+        overlay query + polish + predecessor recovery ON THE CONTRACTED
+        GRAPH, then an exact synthesis of
         full-graph distances and ORIGINAL-edge predecessors from the
         chain fill structure. Synthesis rules (all exact):
 
@@ -1924,14 +1998,16 @@ class HierarchicalIndex:
           equals the seed offset take the chain's last hop as
           predecessor (no contracted edge carried that assignment).
 
-        Returns ``(p_cells, seed_pos, seed_val, src_full) -> (dist (S,
-        N) float32, pred (S, N) int64 original edge ids)`` on the
-        index's device."""
+        The program reads the carry keys ``p_cells``, ``seed_pos``,
+        ``seed_val`` (:meth:`prep_sources`) and ``src_full`` (the padded
+        sources) and leaves ``dist`` (S, N) float32 and ``pred`` (S, N)
+        int64 original edge ids."""
         if self._l0 is None or self._fill is None:
             raise ValueError("index lacks level-0/fill arrays (pre-v4 "
                              "cache or direct construction) — rebuild "
                              "the overlay")
-        stages = [st for st in self._stages() if st[0] != "expand"]
+        steps = [step for name, prog in self._stage_steps()
+                 if name != "expand" for step in prog]
         dev = self.device
         nc = self.n_contracted
         ell_s, ell_w, ell_t, ell_r = self._d_l0_ell
@@ -1952,12 +2028,8 @@ class HierarchicalIndex:
             close_ = torch.abs(val - cur) <= 4e-7 * val + 1e-6
             return finite & torch.where(close_, start < cur_start, val < cur)
 
-        def solve(p_cells: torch.Tensor, seed_pos: torch.Tensor,
-                  seed_val: torch.Tensor, src_full: torch.Tensor):
-            carry = {"p_cells": p_cells, "seed_pos": seed_pos,
-                     "seed_val": seed_val}
-            for _name, fn in stages:
-                carry = fn(carry)
+        def finish(carry: Dict) -> Dict:
+            src_full = carry["src_full"]
             dist_c = carry["ovl"]                    # (S, n_contracted)
             S = dist_c.shape[0]
             rows = torch.arange(S, device=dev)
@@ -2064,11 +2136,14 @@ class HierarchicalIndex:
                     best_start[rows, v] = torch.where(take, zero, cur_start)
             best = torch.clamp_max(best[:, :n_full], _INF)
             bpred = bpred[:, :n_full]
-            best[rows, src_full] = 0.0
-            bpred[rows, src_full] = -1
-            return best, bpred
+            # Device-side values: a Python scalar here would be staged
+            # on the host and copied in, which a captured solve refuses.
+            best[rows, src_full] = zero
+            bpred[rows, src_full] = torch.full((S,), -1, dtype=torch.int64,
+                                               device=dev)
+            return {"dist": best, "pred": bpred}
 
-        return solve
+        return steps + [finish]
 
     def timed_query(self, sources: np.ndarray
                     ) -> Tuple[np.ndarray, Dict[str, float]]:
@@ -2101,6 +2176,16 @@ class HierarchicalIndex:
         guarantees a seed that differs below level k is a level-k
         boundary node, so the entry position always exists (the top
         row of ``seed_pos`` holds raw overlay ids)."""
+        p_cells, seed_pos, seed_val = self.prep_sources_np(sources)
+        dev = self.device
+        return (_dev_i64(p_cells, dev), _dev_i64(seed_pos, dev),
+                _dev_f32(seed_val, dev))
+
+    def prep_sources_np(self, sources: np.ndarray
+                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """:meth:`prep_sources` on the host: (int64 (L, S), int64 (L+1,
+        S, 2), float32 (L+1, S, 2)) numpy arrays — what a captured
+        solve copies into its static inputs."""
         sources = np.asarray(sources, np.int64)
         S = len(sources)
         L = self.n_levels
@@ -2130,9 +2215,7 @@ class HierarchicalIndex:
             ok = remaining & (g >= 0)
             seed_pos[L][ok, j] = g[ok]
             seed_val[L][ok, j] = sw[ok, j]
-        dev = self.device
-        return (_dev_i64(p_cells, dev), _dev_i64(seed_pos, dev),
-                _dev_f32(seed_val, dev))
+        return p_cells, seed_pos, seed_val
 
 
 def build_params() -> Dict:

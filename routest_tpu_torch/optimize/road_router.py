@@ -35,9 +35,15 @@ files, and a changed road-GNN file goes live only after it prices every
 edge finitely and, when a GNN already serves, within
 ``RTPU_ROAD_SWAP_MAX_DIV`` edge-seconds (median) of it; a deleted file
 stops GNN pricing. Each swap bumps the model generation that keys the
-route cache. Not ported yet: the AOT solve buckets (for the distance
-and the live overlay alike), the overlay gauges, the trace spans and
-the efficiency ledger.
+route cache.
+
+On the card the distance overlay's solve is captured at init as CUDA
+graphs per source bucket (``ROUTEST_ROUTER_AOT``, :func:`router_aot_
+buckets`; the JAX router's AOT-compiled buckets) and replayed for
+solves of exactly that bucket (``_OverlayGraph``); other buckets, live
+overlays (compiled lazily by the JAX router) and the flat sweep solve
+eagerly. ``solver_info`` names the captured buckets and their capture
+seconds.
 """
 
 from __future__ import annotations
@@ -188,6 +194,74 @@ def _batcher_config() -> Tuple[bool, int, float]:
     except ValueError:
         window_ms = 0.0
     return enabled, max_rows, max(0.0, window_ms) / 1000.0
+
+
+def router_aot_buckets() -> List[int]:
+    """Source-bucket sizes whose overlay solve is captured at init, as
+    the JAX router's ``_aot_buckets``. ``ROUTEST_ROUTER_AOT``: "auto"
+    (default: the point-to-point bucket 2 and the 16-waypoint bucket),
+    "off"/"0" (and "", "false", "no") for none, or a comma list of
+    waypoint counts rounded up to their power-of-two buckets."""
+    raw = os.environ.get("ROUTEST_ROUTER_AOT", "auto").strip().lower()
+    if raw in ("", "0", "off", "false", "no"):
+        return []
+    if raw == "auto":
+        return [2, 16]
+    out = set()
+    for tok in raw.split(","):
+        tok = tok.strip()
+        if tok.isdigit() and int(tok) > 0:
+            out.add(1 << max(0, (int(tok) - 1).bit_length()))
+    return sorted(out)
+
+
+class _OverlayGraph:
+    """One source bucket's overlay solve captured as CUDA graphs
+    (``serve/graphs.py``'s ``CapturedProgram`` of
+    ``HierarchicalIndex.full_solve_steps`` plus the fetch buffer): the
+    static inputs are ``prep_sources``' triple and the padded sources.
+    A solve copies into them and replays under the bucket's lock — the
+    static buffers are not reentrant — and the host drives the relax
+    chunks as the eager loop does, so distances and predecessors are
+    the eager solve's, bit for bit."""
+
+    def __init__(self, hier: HierarchicalIndex, bucket: int,
+                 n_sweeps: int, device) -> None:
+        from routest_tpu_torch.serve.graphs import CapturedProgram
+
+        self._hier = hier
+        self.bucket = bucket
+        self.lock = threading.Lock()
+        # a valid solve to warm up on: every row node 0
+        zeros = np.zeros(bucket, np.int64)
+        inputs = {k: torch.from_numpy(a).to(device) for k, a in zip(
+            ("p_cells", "seed_pos", "seed_val"),
+            hier.prep_sources_np(zeros))}
+        inputs["src_full"] = torch.from_numpy(zeros).to(device)
+
+        def fetch(c: Dict) -> Dict:
+            # RoadRouter._fetch's buffer, over the whole bucket
+            return {**c, "both": torch.cat([c["dist"].view(torch.int32),
+                                            c["pred"].to(torch.int32)])}
+
+        self._program = CapturedProgram(
+            hier.full_solve_steps(n_sweeps) + [fetch], inputs, device)
+        self.seconds = self._program.seconds
+
+    def solve(self, padded: np.ndarray, n_src: int
+              ) -> Tuple[np.ndarray, np.ndarray]:
+        """(bucket,) padded sources → host (dist, pred) of the first
+        ``n_src`` rows, as ``RoadRouter._fetch`` returns them."""
+        host = dict(zip(("p_cells", "seed_pos", "seed_val"),
+                        self._hier.prep_sources_np(padded)))
+        host["src_full"] = np.asarray(padded, np.int64)
+        with self.lock:
+            inputs = self._program.inputs
+            for key, arr in host.items():
+                inputs[key].copy_(torch.from_numpy(arr))
+            both = self._program.run()["both"].cpu().numpy()
+        b = self.bucket
+        return both[:b][:n_src].view(np.float32), both[b:][:n_src]
 
 
 class _LiveMetric:
@@ -459,9 +533,15 @@ class RoadRouter:
                     self.coords, self.senders, self.receivers,
                     self.length_m, cache_path=cache,
                     fingerprint=self._fingerprint, device=self.device)
+        # The distance overlay's solve captured per source bucket on the
+        # card (the JAX router's AOT-compiled buckets).
+        self._aot: Dict[int, _OverlayGraph] = {}
+        self._aot_compile_s = 0.0
         if self._hier is not None:
             self._overlay_solve = self._make_overlay_solve(self._hier)
             self._publish_overlay_metrics()
+            if self.device.type == "cuda":
+                self._capture_solves()
 
         enabled, max_rows, window_s = _batcher_config()
         self._solve_batcher: Optional[_SolveBatcher] = (
@@ -495,6 +575,24 @@ class RoadRouter:
         self._live_installs = 0  # monotonic; part of the route-cache key
         self._live_lock = threading.Lock()  # serializes installs only
 
+    def _capture_solves(self) -> None:
+        """Capture the distance overlay's solve for every
+        :func:`router_aot_buckets` bucket. A capture that fails logs
+        ``aot_compile_unavailable`` with the bucket and the error, drops
+        every bucket's graphs and leaves the eager solve serving."""
+        t0 = time.perf_counter()
+        bucket = None
+        try:
+            for bucket in router_aot_buckets():
+                self._aot[bucket] = _OverlayGraph(
+                    self._hier, bucket, _polish_sweeps(), self.device)
+        except Exception as e:
+            _log.warning("aot_compile_unavailable", bucket=bucket,
+                         error=f"{type(e).__name__}: {e}")
+            self._aot = {}
+            return
+        self._aot_compile_s = round(time.perf_counter() - t0, 3)
+
     @property
     def leg_cost_model(self) -> str:
         """"gnn" when learned per-edge times serve requests, else
@@ -510,14 +608,18 @@ class RoadRouter:
         """Health's view of the solver: the overlay with its build stats
         and provenance, or the flat sweep with its bound; then the
         batcher's merge stats and the route cache's counters. The keys
-        are the JAX router's (``aot_buckets`` is always empty here)."""
+        are the JAX router's: ``aot_buckets`` the source buckets whose
+        solve was captured at init (none on the CPU), ``aot_compile_s``
+        the capture seconds when there are any."""
         if self._hier is not None:
             info = {"solver": "hierarchy",
                     "overlay": dict(self._hier.stats)}
             info["overlay"].setdefault("loaded_from_cache", False)
             info["overlay"]["cache_version"] = _CACHE_VERSION
             info["hub_labels"] = self._hier._labels is not None
-            info["aot_buckets"] = []
+            info["aot_buckets"] = sorted(self._aot)
+            if self._aot:
+                info["aot_compile_s"] = self._aot_compile_s
         else:
             info = {"solver": "flat_bf", "max_iters_bound": self.max_iters}
         if self._solve_batcher is not None:
@@ -914,11 +1016,18 @@ class RoadRouter:
         padded = np.full(bucket, source_nodes[0] if n_src else 0, np.int64)
         padded[:n_src] = source_nodes
         t0 = time.perf_counter()
-        sources = torch.from_numpy(padded).to(self.device)
         if live is not None and live.route:
             hier, solve, w = live.hier, live.solve, live.d_time_bf
         else:
             hier, solve, w = self._hier, self._overlay_solve, self._bf_length
+            graph = self._aot.get(bucket)
+            if graph is not None:
+                # captured bucket: the same solve, replayed
+                out = graph.solve(padded, n_src)
+                _m_phase.labels(phase="solve").observe(
+                    time.perf_counter() - t0)
+                return out
+        sources = torch.from_numpy(padded).to(self.device)
         if hier is not None:
             # Overlay path: exact by construction (no exhaustion re-run),
             # and full_solve_fn already returns ORIGINAL edge ids.

@@ -135,6 +135,7 @@ def create_app(config: Optional[Config] = None,
     started = time.time()
     app = App()
     app.eta = eta  # for tests / introspection
+    app.owns_eta = eta_service is None   # app.close() closes it
     app.store = store
     app.bus = bus
     app.auth = auth
@@ -917,6 +918,8 @@ def create_app(config: Optional[Config] = None,
         snapshot["registry"] = get_registry().snapshot()
         return snapshot, 200
 
+    tiles_cache = [0.0, None]   # (checked unix, result) of the probe
+
     @app.route("/api/health", methods=("GET",))
     def health(request):
         t0 = time.time()
@@ -998,12 +1001,13 @@ def create_app(config: Optional[Config] = None,
                 "tpu": {"devices": _device_names(eta.device),
                         "memory": _device_memory(eta.device),
                         "batcher": eta.stats,
-                        "uptime_s": int(time.time() - started)},
+                        "uptime_s": int(time.time() - started),
+                        **_device_identity(eta.device)},
             },
             "db": store_ok,
             "osrm": engine_res["status"] in ("ok", "degraded"),
             "redis": bus_ok,
-            "tiles": "static",  # the built-in SVG basemap needs no tiles
+            "tiles": _tiles_status(tiles_cache),
             "status": overall,
             "version": config.serve.version,
         }, 200  # always 200: degraded-not-down
@@ -1011,6 +1015,55 @@ def create_app(config: Optional[Config] = None,
     _mount_observability(app, config, eta, device)
     _warm_optimizer(device)
     return app
+
+
+def _tiles_status(cache: list):
+    """The JAX app's ``_tiles_status``: with no ``ROUTEST_TILE_URL`` the
+    built-in SVG basemap needs no tiles (``"static"``); otherwise the URL
+    is fetched with a 2 s timeout, ``True`` for a status from 200 to
+    399, ``False`` when the server is unreachable or does not speak
+    HTTP, and the answer is kept 30 s in ``cache`` so health polls do
+    not hammer the tile server."""
+    url = os.environ.get("ROUTEST_TILE_URL")
+    if not url:
+        return "static"
+    now = time.time()
+    checked, result = cache
+    if result is not None and now - checked < 30.0:
+        return result
+    import http.client
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=2.0) as resp:
+            ok = 200 <= resp.status < 400
+    except (urllib.error.URLError, http.client.HTTPException,
+            OSError, ValueError):
+        # unreachable, or a server speaking something other than HTTP:
+        # health stays degraded-not-down
+        ok = False
+    cache[:] = [now, ok]
+    return ok
+
+
+def _device_identity(device) -> dict:
+    """The chip-identity half of the JAX app's ``_tpu_roofline``: the
+    scoring device's kind (the card's name, ``cpu`` on the CPU) and, for
+    a card the port's peak table knows (``utils/cuda_timing.py``), its
+    ``peak_tflops_bf16`` and ``peak_hbm_gbps``. The ``last_bench`` half
+    waits for the port's own benchmark record."""
+    from routest_tpu_torch.utils.cuda_timing import chip_peaks
+
+    device = torch.device(device)
+    kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else device.type)
+    out = {"device_kind": kind}
+    peak_tflops, peak_hbm = chip_peaks(kind)
+    if peak_tflops is not None:
+        out["peak_tflops_bf16"] = peak_tflops
+        out["peak_hbm_gbps"] = peak_hbm
+    return out
 
 
 def _device_memory(device) -> dict:
@@ -1115,7 +1168,8 @@ def _arm_observability(app: App, config: Config, bus) -> None:
     def close() -> None:
         """Stop the app's background threads: the SLO and timeline
         tickers, the watchdog, the change-ledger tap and the dispatch
-        re-optimization loop."""
+        re-optimization loop; and close the ETA service when the app
+        built it (its reload watcher, its bucket graphs)."""
         for part in (app.slo, app.timeline, app.efficiency,
                      app.change_ledger):
             if part is not None:
@@ -1123,6 +1177,8 @@ def _arm_observability(app: App, config: Config, bus) -> None:
         dispatch = getattr(app, "dispatch", None)
         if dispatch is not None and dispatch.reopt is not None:
             dispatch.reopt.stop()
+        if app.owns_eta:
+            app.eta.close()
 
     app.close = close
 

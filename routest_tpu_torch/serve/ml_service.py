@@ -7,6 +7,16 @@ sizes. On the card a flush is scored by the hand-written fused kernel
 device, each flush copies its bucket slab host→device, launches the
 kernel and copies the result back.
 
+The JAX package compiles that score program per bucket ahead of time
+(``RTPU_SERVE_AOT``); here, on one card, each bucket's program — the
+copy in from a static pinned slab, the forward, the copy out — is
+captured as a CUDA graph at bring-up (``serve/graphs.py``) and a flush
+of exactly a bucket's rows replays it; other lengths score eagerly.
+Each capture observes ``rtpu_replica_aot_compile_seconds{bucket}``, and
+``scoring_info()`` reports ``aot`` / ``aot_buckets``. A capture that
+fails logs ``aot_compile_unavailable`` and the eager path serves; the
+CPU and a mesh capture nothing.
+
 ``ROUTEST_FUSED`` chooses the path, as in the JAX package: ``1`` and
 ``auto`` (the default) serve the kernel at every batch, ``0`` the
 kernel's plain PyTorch version on the card (an operator's explicit
@@ -130,6 +140,13 @@ _m_swaps = get_registry().counter(
 _m_generation = get_registry().gauge(
     "rtpu_model_generation",
     "Generation id of the live serving model (monotonic per process).")
+# One observation per bucket graph captured at bring-up (the JAX
+# package's per-bucket AOT compile, under its name): the per-bucket
+# count doubles as the "no capture after startup" check.
+_m_aot_compile = get_registry().histogram(
+    "rtpu_replica_aot_compile_seconds",
+    "AOT compile of the score program per batch bucket "
+    "(jit().lower().compile() at serving bring-up).", ("bucket",))
 _m_cold_start = get_registry().gauge(
     "rtpu_replica_cold_start_seconds",
     "Service-construction-to-ready wall time of the live serving state "
@@ -192,6 +209,20 @@ def _band_label(level: float) -> str:
     """Quantile level → response-field suffix: 0.1 → "p10", 0.975 →
     "p97.5"."""
     return f"p{level * 100:.10g}"
+
+
+def _launch_counter(per_replay: int):
+    """A bucket graph's ``on_replay``: each replay launches the fused
+    kernel as often as its capture recorded (``fused_eta_forward.
+    captured``), so ``fused_eta_forward.launches`` counts replays'
+    launches as it counts eager ones. None when the graph holds none."""
+    if not per_replay:
+        return None
+
+    def count() -> None:
+        fused_eta_forward.launches += per_replay
+
+    return count
 
 
 class _InReload(threading.local):
@@ -670,6 +701,11 @@ class EtaService:
         self._params = None
         self._packed = None
         self._score = None
+        # The per-bucket CUDA graphs (``serve/graphs.py``) and their
+        # buckets; none on the CPU, under a mesh or RTPU_SERVE_AOT=0.
+        self._graphs = None
+        self._aot_buckets: Tuple[int, ...] = ()
+        self._watcher_stop: Optional[threading.Event] = None
         self._error: Optional[str] = None
         self.kernel_dtype: Optional[str] = None
         self.kernel = ("cuda_fused" if self.device.type == "cuda"
@@ -770,33 +806,98 @@ class EtaService:
         self.kernel = "gbdt_gather"
         self.kernel_dtype = "float32"
 
-    def _score_fn(self):
-        """The scorer of THIS model: one bucket slab → host→device copy,
-        one forward (the fused kernel over this packing, or the tree
-        ensemble's gathers), result back to the host. It closes over
-        the model, so a batcher keeps scoring its own model after a hot
-        swap replaces the service's fields."""
+    def _score_fn(self, forward):
+        """The eager scorer of THIS model: one bucket slab → host→device
+        copy, ``forward`` (:meth:`_device_forward`'s), result back to the
+        host. It closes over the model, so a batcher keeps scoring its
+        own model after a hot swap replaces the service's fields."""
         device = self.device
-        if self._runtime is not None:
-            return self._mesh_scorer()
+
+        def score(x: np.ndarray) -> np.ndarray:
+            xt = torch.from_numpy(np.ascontiguousarray(x, np.float32))
+            with torch.no_grad():
+                return forward(xt.to(device)).cpu().numpy()
+
+        return score
+
+    def _device_forward(self):
+        """Single-device forward on a (B, 12) tensor on the device: the
+        exported program, the tree ensemble's gathers, or the packed
+        model's kernel (:meth:`_select_scorer`)."""
         if self.kernel == "torch_export":
-            program = self._model
-
-            def score(x: np.ndarray) -> np.ndarray:
-                xt = torch.from_numpy(np.ascontiguousarray(x, np.float32))
-                with torch.no_grad():
-                    return program(xt.to(device)).cpu().numpy()
-
-            return score
+            return self._model
         if self._packed is None:
             ensemble, params = self._model, self._params
-
-            def score(x: np.ndarray) -> np.ndarray:
-                xt = torch.from_numpy(np.ascontiguousarray(x, np.float32))
-                return ensemble.apply(params, xt.to(device)).cpu().numpy()
-
-            return score
+            return lambda xt: ensemble.apply(params, xt)
         return self._select_scorer()
+
+    def _capture_graphs(self, forward, eager):
+        """Capture the score program of every batch bucket as a CUDA
+        graph (``serve/graphs.py``): a copy from a static pinned input
+        slab, the forward, a copy into a static pinned output. Each
+        capture observes ``rtpu_replica_aot_compile_seconds{bucket}``.
+        → the table's scorer (exact bucket lengths replay, others run
+        ``eager``), or ``eager`` when this service captures nothing (the
+        CPU, a mesh, ``RTPU_SERVE_AOT=0``) or a capture fails — logged
+        ``aot_compile_unavailable`` with the bucket and the error, as
+        the JAX entry logs a bucket that does not compile."""
+        if not self._cfg.serve_aot or self.device.type != "cuda":
+            return eager
+        from routest_tpu_torch.serve.graphs import (BucketGraph, GraphTable,
+                                                    capture, replay_and_wait)
+
+        device = self.device
+        n_feat = self._model.n_features
+        graphs = {}
+        bucket = None
+        try:
+            for bucket in sorted(set(self._cfg.batch_buckets)):
+                t0 = time.perf_counter()
+                h_in = torch.zeros((bucket, n_feat), dtype=torch.float32,
+                                   pin_memory=True)
+                d_in = torch.empty((bucket, n_feat), dtype=torch.float32,
+                                   device=device)
+                h_out = []
+
+                def body(h_in=h_in, d_in=d_in, h_out=h_out):
+                    d_in.copy_(h_in, non_blocking=True)
+                    with torch.no_grad():
+                        out = forward(d_in)
+                    if not h_out:        # first warm-up: outside capture
+                        h_out.append(torch.empty(out.shape, dtype=out.dtype,
+                                                 pin_memory=True))
+                    h_out[0].copy_(out, non_blocking=True)
+                    return out
+
+                captured = fused_eta_forward.captured
+                graph, out = capture(body, device)
+                per_replay = fused_eta_forward.captured - captured
+                on_replay = _launch_counter(per_replay)
+                if on_replay is not None:
+                    on_replay()          # capture() replayed it once
+                graphs[bucket] = BucketGraph(
+                    bucket, h_in.numpy(), h_out[0].numpy(),
+                    replay_and_wait(graph), on_replay=on_replay,
+                    keep=(graph, h_in, d_in, h_out[0], out))
+                _m_aot_compile.labels(bucket=bucket).observe(
+                    time.perf_counter() - t0)
+        except Exception as e:
+            get_logger("routest_tpu_torch.serve").warning(
+                "aot_compile_unavailable", bucket=bucket,
+                error=f"{type(e).__name__}: {e}")
+            GraphTable(graphs, eager).release()
+            return eager
+        self._graphs = GraphTable(graphs, eager)
+        self._aot_buckets = self._graphs.buckets
+        return self._graphs
+
+    def _release_graphs(self) -> None:
+        """Free the bucket graphs' pools (close, a failed self-check, the
+        old service after a swap); flushes after this score eagerly."""
+        graphs, self._graphs = self._graphs, None
+        self._aot_buckets = ()
+        if graphs is not None:
+            graphs.release()
 
     def _mesh_scorer(self):
         """The scorer under a mesh (the module docstring): rows padded to
@@ -812,6 +913,11 @@ class EtaService:
             log.warning("fused_kernel_ignored",
                         reason="ROUTEST_FUSED=1 is single-device only; "
                                "mesh serving uses the sharded torch path")
+        if self._cfg.serve_aot:
+            log.warning("aot_compile_unavailable",
+                        reason="mesh shards are threads meeting at a "
+                               "rendezvous, which one CUDA graph cannot "
+                               "capture; the mesh scores eagerly")
         if self.kernel == "torch_export":
             # one loaded program per device of the mesh
             programs = {d: self._model if d == device
@@ -941,12 +1047,12 @@ class EtaService:
                     status="selected" if win >= max(tiles) else "plain_won")
 
     def _select_scorer(self):
-        """The packed model's scorer (the module docstring): the kernel
-        at every batch, or the plain version on the card where the
-        operator asked for it (``ROUTEST_FUSED=0``). Sets ``kernel`` and
-        the provenance health reports. Nothing here catches a kernel's
-        failure: the self-check sees it."""
-        device, packed = self.device, self._packed
+        """The packed model's device forward (the module docstring): the
+        kernel at every batch, or the plain version on the card where
+        the operator asked for it (``ROUTEST_FUSED=0``). Sets ``kernel``
+        and the provenance health reports. Nothing here catches a
+        kernel's failure: the self-check sees it."""
+        packed = self._packed
         n_q = len(self.quantiles)
         runtime = self._runtime_identity()
         forward = fused_eta_forward
@@ -967,16 +1073,17 @@ class EtaService:
             else:
                 self.kernel = "cuda_fused"
 
-        def score(x: np.ndarray) -> np.ndarray:
-            xt = torch.from_numpy(np.ascontiguousarray(x, np.float32))
-            return forward(packed, xt.to(device), n_q=n_q).cpu().numpy()
-
-        return score
+        return lambda xt: forward(packed, xt, n_q=n_q)
 
     def _finish_init(self) -> None:
-        """Batcher, one-row self-check, bucket warmup."""
+        """Bucket graphs, batcher, one-row self-check, bucket warmup."""
         cfg = self._cfg
-        self._score = self._score_fn()
+        if self._runtime is not None:
+            self._score = self._mesh_scorer()
+        else:
+            forward = self._device_forward()
+            self._score = self._capture_graphs(forward,
+                                               self._score_fn(forward))
         self._batcher = DynamicBatcher(
             self._score, cfg.batch_buckets, cfg.max_batch, cfg.max_wait_ms,
             align=self._runtime.n_data if self._runtime is not None else 1,
@@ -992,6 +1099,7 @@ class EtaService:
                 raise ValueError("self-check produced non-finite output")
         except Exception as e:
             self._error = f"model self-check failed: {type(e).__name__}: {e}"
+            self._release_graphs()
             self._model = None
             self._params = None
             self._packed = None
@@ -1044,6 +1152,7 @@ class EtaService:
             finally:
                 _in_reload.flag = False
             if not fresh.available:
+                fresh.close()
                 _m_swaps.labels(result="rejected").inc()
                 log.warning("model_reload_rejected", path=self._path,
                             fingerprint=fresh.fingerprint,
@@ -1058,6 +1167,7 @@ class EtaService:
             # BEFORE the generation flips.
             ok, verdict = self._verify_swap(fresh)
             if not ok:
+                fresh.close()
                 _m_swaps.labels(result="rejected").inc()
                 log.warning("model_swap_rejected", path=self._path,
                             fingerprint=fresh.fingerprint, **verdict)
@@ -1067,11 +1177,14 @@ class EtaService:
             # snapshot _serving once per request); the individual fields
             # follow for stats/health introspection.
             self._serving = fresh._serving
+            old_graphs = self._graphs
             self._model = fresh._model
             self._params = fresh._params
             self._packed = fresh._packed
             self._batcher = fresh._batcher
             self._score = fresh._score
+            self._graphs = fresh._graphs
+            self._aot_buckets = fresh._aot_buckets
             self.kernel = fresh.kernel
             self.kernel_dtype = fresh.kernel_dtype
             self._win_provenance = fresh._win_provenance
@@ -1090,6 +1203,11 @@ class EtaService:
             # now instead of at LRU/TTL time.
             if self._fastlane is not None:
                 self._fastlane.invalidate()
+            # The old graphs go under each bucket's lock: a replay in
+            # flight on the old batcher finishes first, later old
+            # flushes score eagerly.
+            if old_graphs is not None:
+                old_graphs.release()
             log.info("model_reloaded", path=self._path, kernel=self.kernel,
                      generation=self._serving.generation,
                      fingerprint=self.fingerprint, **verdict)
@@ -1142,6 +1260,13 @@ class EtaService:
                     return True, {"divergence": round(div, 4),
                                   "bound": bound}
         return True, {}
+
+    def close(self) -> None:
+        """Stop the reload watcher and free the bucket graphs' device
+        memory. Scoring after this runs eagerly."""
+        if self._watcher_stop is not None:
+            self._watcher_stop.set()
+        self._release_graphs()
 
     def start_reload_watcher(self, interval_s: float) -> threading.Event:
         """Poll the artifact mtime every ``interval_s`` seconds on a
@@ -1217,12 +1342,17 @@ class EtaService:
         which record stands behind the path (``win_bucket``: the
         record's path, backend, device, power limit, timestamp, its win
         bucket and tiles or why it was refused, and ``ROUTEST_FUSED``'s
-        mode)."""
+        mode). ``aot`` / ``aot_buckets``: the JAX keys — whether, and for
+        which batch buckets, the score program was captured as a CUDA
+        graph at bring-up (``false`` / ``[]`` on the CPU, under a mesh
+        and with ``RTPU_SERVE_AOT=0``)."""
         family = (None if self._model is None else
                   "eta_mlp" if self._packed is not None
                   or self.kernel.startswith("torch_export") else "xgboost")
         info = {"family": family, "kernel": self.kernel,
-                "dtype": self.kernel_dtype, "device": str(self.device)}
+                "dtype": self.kernel_dtype, "device": str(self.device),
+                "aot": bool(self._aot_buckets),
+                "aot_buckets": list(self._aot_buckets)}
         if self._packed is not None and self._win_provenance:
             info["win_bucket"] = self._win_provenance
         return info

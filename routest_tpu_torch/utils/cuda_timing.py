@@ -7,12 +7,32 @@ same way: CUDA events around many calls after a warm-up, either eager
 calls (:func:`time_ms`, which also gives the host's cost to enqueue
 one) or calls captured in one CUDA graph and replayed
 (:func:`graph_ms`, the device time with no host work between calls).
-Both need a card; ``torch`` is imported inside them.
+Both need a card; ``torch`` is imported inside them. :func:`chip_peaks`
+is the card's published peak table, which health reports.
 """
 
 from __future__ import annotations
 
 import time
+
+# Published peaks of the cards the port runs on, by a substring of
+# ``torch.cuda.get_device_name`` (lower case): (dense bf16 TFLOP/s, HBM
+# GB/s) from NVIDIA's H100 data sheet, SXM part at its 700 W limit — the
+# figures chip_smoke.py's bounds use.
+_CHIP_PEAKS = {
+    "h100 80gb hbm3": (989.0, 3350.0),
+    "h100 sxm": (989.0, 3350.0),
+}
+
+
+def chip_peaks(device_kind: str):
+    """(peak_tflops_bf16, peak_hbm_gbps) of a card by its name, or (None,
+    None) when the table does not know it (the CPU, another card)."""
+    kind = (device_kind or "").lower()
+    for key, peaks in _CHIP_PEAKS.items():
+        if key in kind:
+            return peaks
+    return None, None
 
 
 def time_ms(fn, iters):

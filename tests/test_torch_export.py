@@ -174,7 +174,8 @@ def test_serving_layer_runs_export(point, tmp_path, monkeypatch):
     assert svc.available and svc.kernel == "torch_export"
     assert svc.scoring_info() == {"family": "eta_mlp",
                                   "kernel": "torch_export",
-                                  "dtype": "float32", "device": "cpu"}
+                                  "dtype": "float32", "device": "cpu",
+                                  "aot": False, "aot_buckets": []}
     app = create_app(Config(serve=ServeConfig(device="cpu")),
                      eta_service=svc)
     try:

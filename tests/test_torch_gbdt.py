@@ -238,7 +238,8 @@ def test_service_serves_xgboost(apps):
     assert tsvc.quantiles == ()
     assert tsvc.scoring_info() == {"family": "xgboost",
                                    "kernel": "gbdt_gather",
-                                   "dtype": "float32", "device": "cpu"}
+                                   "dtype": "float32", "device": "cpu",
+                                   "aot": False, "aot_buckets": []}
     health = tclient.get("/api/health").get_json()
     assert health["checks"]["model"]["status"] == "ok"
     assert health["checks"]["model"]["scoring"]["family"] == "xgboost"

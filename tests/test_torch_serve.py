@@ -234,7 +234,8 @@ def test_health_reports_scoring_and_device(clients):
     assert model["status"] == "ok" and model["generation"] >= 0
     assert len(model["fingerprint"]) == 16
     assert model["scoring"] == {"family": "eta_mlp", "kernel": "torch_plain",
-                                "dtype": "float32", "device": "cpu"}
+                                "dtype": "float32", "device": "cpu",
+                                "aot": False, "aot_buckets": []}
     assert body["checks"]["engine"]["mesh"]["platform"] == "cpu"
     assert body["checks"]["tpu"]["batcher"]["flushes"] >= 1
     assert body["checks"]["tpu"]["devices"] == ["cpu"]
@@ -355,7 +356,7 @@ def test_int8_variant_serves_and_names_itself(int8_client):
     assert body["status"] == "ok"
     assert body["checks"]["model"]["scoring"] == {
         "family": "eta_mlp", "kernel": "torch_plain", "dtype": "int8",
-        "device": "cpu"}
+        "device": "cpu", "aot": False, "aot_buckets": []}
 
 
 INT8_BODIES = [b for b in BODIES if b[0] in (
