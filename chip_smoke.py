@@ -29,7 +29,7 @@ of which fails the run:
    same way;
 6. optimize: the port's app with route optimization on ``cuda`` (matrix,
    greedy VRP, refiners, candidate ranking on the card; the ETA of each
-   route through the fused kernel), 20 different bodies per kind:
+   route through the fused kernel), 5 different bodies per kind:
    ``/api/optimize_route`` at 1, 3 and 10 stops, with ``refine`` (a
    capacity that splits trips), ``top_k: 5`` and ``use_ml_eta``;
    ``/api/optimize_route_batch`` with 256 ten-stop problems and
@@ -43,15 +43,15 @@ of which fails the run:
    path's median are printed;
 7. road: ``road_graph: true`` through the port's app on ``cuda`` against
    the same app on the CPU, default deployment (generated 2048-node
-   graph, road GNN, route transformer — both asserted live): 20 bodies
+   graph, road GNN, route transformer — both asserted live): 5 bodies
    per kind of ``/api/optimize_route`` at 1, 3 and 10 stops, with
    ``refine`` (capacity 4), ``top_k: 5`` and ``use_ml_eta``,
-   ``/api/matrix`` at 64 points, and 3 of ``/api/optimize_route_batch``
+   ``/api/matrix`` at 64 points, and 2 of ``/api/optimize_route_batch``
    with 256 ten-stop problems and ``use_ml_eta``; orders, trips,
    alternatives, polylines and distances equal, durations within the
    bf16 class; solves bitwise and GNN edge times within the bf16 class
    against the CPU router; then the Manila arterials extract with its
-   GNN (``ROAD_GRAPH_OSM``/``ROAD_GNN_PATH``) at 5 bodies per kind;
+   GNN (``ROAD_GRAPH_OSM``/``ROAD_GNN_PATH``) at 3 bodies per kind;
    solve ms per source bucket, sweeps and syncs per solve, GNN and
    transformer forward ms;
 8. overlay: street routing at metro scale through the partition overlay
@@ -215,7 +215,7 @@ of which fails the run:
    ``RTPU_WIRE=1``), the gateway and a rollout controller, then
    ``scale_to(2)``: the grown slice is ``g1:1chip`` on
    ``CUDA_VISIBLE_DEVICES=0``, both replicas score ``cuda_fused`` on
-   ``cuda``; 200 single rows and 20 seeded 4096-row batches on 8 threads
+   ``cuda``; 100 single rows and 20 seeded 4096-row batches on 8 threads
    through the gateway, every answer bitwise a direct single-process
    app's, with fused launches on each replica (their ``/api/metrics``
    read through ``/api/metrics?replicas=1`` before and after); one RTW1
@@ -358,7 +358,16 @@ of which fails the run:
    same loops, sweeps and host checks, ``solver_info`` naming buckets 2
    and 16 and their capture seconds, and ms, kernels, torch ops and
    syncs per solve with graphs and with ``off`` (information); the
-   phase's wall time beside the card's name and power limit.
+   phase's wall time beside the card's name and power limit;
+24. the JAX package's acceptance proofs, run after phase 21: the four
+   twins (``scripts/bench_{chaos,slo_detection,efficiency,
+   live_traffic}_cuda.py``) at once as subprocesses on short scenarios
+   (``PROOF_RUNS``: the store outage and device burst of the chaos
+   matrix, SLO detection's device burst, the efficiency watchdog's
+   device slowdown, live traffic ``--quick`` at
+   ``PROOF_LIVE_DURATION_S``); every check of each record must pass,
+   its card must be this one, and nothing may answer >= 500 where the
+   JAX scenario allows none; the fused launches their replicas made.
 
 The lines before the last are one ``{"optimize": {...}}``, one
 ``{"road": {...}}``, one ``{"overlay": {...}}``, one ``{"live": {...}}``,
@@ -368,7 +377,8 @@ one ``{"selection": {...}}``, one ``{"dispatch": {...}}``, one
 ``{"fleet": {...}}``, one ``{"regions": {...}}``, one
 ``{"loadgen": {...}}``, one ``{"mesh": {...}}``, one
 ``{"pages": {...}}``, one ``{"redis": {...}}``, one
-``{"aot": {...}}``, one ``{"acceptance": {...}}`` and one
+``{"aot": {...}}``, one ``{"acceptance": {...}}``, one
+``{"proofs": {...}}`` and one
 ``{"kernels": [...]}`` JSON object and the
 card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
@@ -1075,9 +1085,9 @@ def phase_selection(name):
 
 
 # Requests per kind in the optimize phase (each body different, so the
-# ETA fast lane cannot answer a repeat from its cache). 10, not 20: the
-# later phases need the time limit's room.
-OPT_REPS = 10
+# ETA fast lane cannot answer a repeat from its cache). 5, not 20: the
+# later phases (phase 24 last) need the time limit's room.
+OPT_REPS = 5
 # Requests per kind replayed under torch's sync debug mode to count host
 # syncs.
 SYNC_REPS = 3
@@ -1404,12 +1414,12 @@ def phase_optimize():
 
 
 # Requests per road kind (each body different; the batch, 256 ten-stop
-# problems, takes seconds on the CPU path, so it repeats less). 10, not
+# problems, takes seconds on the CPU path, so it repeats less). 5, not
 # 20, as OPT_REPS.
-ROAD_REPS = 10
-ROAD_BATCH_REPS = 3
+ROAD_REPS = 5
+ROAD_BATCH_REPS = 2
 # Requests per kind through the real-data deployment.
-MANILA_REPS = 5
+MANILA_REPS = 3
 # Source-row buckets of the solve timings (a 1-stop route solves 2 rows,
 # the 64-point matrix 64 → its 32-row batcher chunks, a 10-stop route 11
 # → 16).
@@ -1784,8 +1794,8 @@ def phase_road():
 # route or the matrix's 32-row chunks, and the 64-point matrix solved
 # whole), timed reps per bucket, and requests per serving kind.
 OVERLAY_BUCKETS = (2, 16, 64)
-OVERLAY_REPS = 10
-OVERLAY_SERVE_REPS = {"default": 10}
+OVERLAY_REPS = 5
+OVERLAY_SERVE_REPS = {"default": 5}
 OVERLAY_KINDS = ("road_10_stops", "road_10_stops_ml_eta",
                  "road_10_stops_top_k5", "road_matrix_64")
 # The 50,066-node OSM-topology extract: intersections of the k=4 kNN
@@ -2133,7 +2143,7 @@ LIVE_TICKS = 12
 # A fixed clock: the fleet, the estimator and the customizer read no
 # wall time, so the card and the CPU path fold the same events.
 LIVE_NOW0 = 1_760_000_000.0
-LIVE_REPS = 10
+LIVE_REPS = 5
 # Over HTTP: probe batches posted, observations per batch, and
 # use_ml_eta road routes served under the live metric.
 LIVE_PROBE_BATCHES = 20
@@ -2604,7 +2614,7 @@ def phase_live():
 # default RTPU_DISPATCH_MAX_STOPS).
 DISPATCH_BATCHES = (1, 4, 16, 64)
 DISPATCH_STOPS = (12, 32)
-DISPATCH_REPS = 5
+DISPATCH_REPS = 3
 DISPATCH_CPU_REPS = 2
 # Over HTTP: concurrent matrix-mode requests, and geographic requests
 # with windows at 20 stops over SEED_LOCATIONS.
@@ -4275,7 +4285,7 @@ def phase_times(rng):
 OBS_BATCH = 4096
 OBS_SPLIT_REPS = 5           # untraced 4096-row requests for the split
 OBS_BURST = 8                # optimize requests in the store-error burst
-OBS_OVERHEAD_REPS = 200      # single-row requests per tracing setting
+OBS_OVERHEAD_REPS = 100      # single-row requests per tracing setting
 OBS_SPANS = ("replica.request", "replica.handler", "batcher.queue_wait",
              "batcher.flush", "batcher.pad", "batcher.device_compute")
 
@@ -4919,10 +4929,10 @@ def phase_obs(smi_line):
 # Phase 5's 4096-row body and the direct single-process answer to it;
 # phase 16 (a) holds the fleet's answer to the same body to it.
 _SERVING_ANSWER = {}
-FLEET_SINGLES = 200          # single-row requests through the gateway
+FLEET_SINGLES = 100          # single-row requests through the gateway
 FLEET_BATCHES = 20           # seeded 4096-row batches through it
 FLEET_THREADS = 8
-FLEET_OVERHEAD_REPS = 100    # sequential single rows, direct and gateway
+FLEET_OVERHEAD_REPS = 50     # sequential single rows, direct and gateway
 FLEET_RATE_BATCHES = 16      # 4096-row batches per preds/s reading
 FLEET_BOOT_S = 240.0         # bound on one replica's boot on the card
 FLEET_BAKE_S = 5.0
@@ -5286,7 +5296,7 @@ def _fleet_two(smi_line, rng):
                   == {"r0": "s0:1chip", "r1": "g1:1chip"}[rid],
                   f"fleet: {rid} mesh {health['checks']['engine']['mesh']}")
         record["boot_s"] = boot
-        # 8 threads: 200 single rows and 20 4096-row batches, every
+        # 8 threads: 100 single rows and 20 4096-row batches, every
         # answer bitwise the direct single-process answer
         _, m0 = _request(gw_port, "GET", "/api/metrics?replicas=1")
         before = _fleet_launches(m0)
@@ -5450,7 +5460,7 @@ def phase_fleet(smi_line):
 REGIONS = ("east", "west")
 REGION_BOOT_S = 300.0        # bound on the entry point's (and a fleet's) boot
 REGION_SINGLES = 20          # seeded single rows to each region
-REGION_HOP_REPS = 50         # sequential single rows, front and gateway
+REGION_HOP_REPS = 25         # sequential single rows, front and gateway
 REGION_WRITES = 8            # optimize writes taken during the outage
 REGION_JAM_POSTS = 4         # /api/probe posts of the jammed corridor
 REGION_BOUND_S = 60.0        # convergence, page, drain and detection bounds
@@ -7868,6 +7878,126 @@ def phase_acceptance(smi_line):
     return rec, rec["launches"]
 
 
+# ── phase 24: the acceptance proofs ────────────────────────────────────
+
+# The four proof twins on short, real scenarios, as subprocesses at
+# once (each its own fleet on the card): the chaos matrix's store outage
+# and device burst, SLO detection's device burst, the efficiency
+# watchdog's device slowdown, and live traffic at --quick for 30 s: at
+# 20 s every check passed on the card but with 3 metric flips, the
+# check's bound; 30 s gave 5 (PERF.md 5.19).
+PROOF_LIVE_DURATION_S = 30
+PROOF_RUNS = {
+    "chaos": ("bench_chaos_cuda.py",
+              ("--quick", "--scenarios", "store_outage",
+               "device_error_burst")),
+    "slo_detection": ("bench_slo_detection_cuda.py",
+                      ("--quick", "--scenarios", "device_error_burst")),
+    "efficiency": ("bench_efficiency_cuda.py",
+                   ("--quick", "--scenario", "device_slowdown")),
+    "live_traffic": ("bench_live_traffic_cuda.py",
+                     ("--quick", "--duration", str(PROOF_LIVE_DURATION_S))),
+}
+PROOF_TIMEOUT_S = 420
+
+
+def _proof_verdict(name, record):
+    """A proof run's checks and what it answered ≥ 500 where the JAX
+    scenario allows no such answer → (checks, answers >= 500)."""
+    if name == "chaos":
+        scen = record["scenarios"]
+        bad = sum(v for k, v in scen["store_outage"].get(
+            "statuses", {}).items() if int(k) >= 500 or int(k) < 0)
+        return dict(record["checks"]), bad
+    if name == "slo_detection":
+        return dict(record["checks"]), 0
+    if name == "efficiency":
+        scen = record["scenarios"]["device_slowdown"]
+        checks = dict(scen.get("checks") or {"ran": False})
+        return checks, int((scen.get("load") or {}).get("errors") or 0)
+    checks = dict(record["checks"])
+    checks["generator_kept_pace"] = not record["pace"]["generator_lagged"]
+    return checks, int(record["client_5xx"])
+
+
+def phase_proofs(smi_line):
+    """Phase 24, the JAX package's acceptance proofs on the card: the
+    four ``_cuda`` twins (``PROOF_RUNS``) at once as subprocesses, each
+    writing its record. Checks each record's card, every check of each
+    run, and no answer >= 500 where the JAX scenario allows none (the
+    store outage's writes, the efficiency load, live traffic's
+    clients); the device bursts' 503s are their point. → (record,
+    fused launches the runs' replicas made)."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="proofs-")
+    procs = {}
+    try:
+        for name, (script, args) in PROOF_RUNS.items():
+            cmd = [sys.executable, os.path.join(ROOT, "scripts", script),
+                   *args, "--out", os.path.join(tmp, f"{name}.json")]
+            if name in ("efficiency", "live_traffic"):
+                cmd += ["--cache-dir", os.path.join(tmp, f"cache_{name}")]
+            if CARD != "cuda":
+                cmd.append("--cpu")
+            log = open(os.path.join(tmp, f"{name}.log"), "w")
+            procs[name] = (subprocess.Popen(
+                cmd, cwd=ROOT, env=_fleet_env(), stdout=log,
+                stderr=subprocess.STDOUT), log, time.perf_counter())
+        rec, launches = {}, 0
+        deadline = time.perf_counter() + PROOF_TIMEOUT_S
+        for name, (proc, log, t0) in procs.items():
+            try:
+                rc = proc.wait(timeout=max(1.0,
+                                           deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                rc = proc.wait()
+            wall = time.perf_counter() - t0
+            log.close()
+            out = os.path.join(tmp, f"{name}.json")
+            if not os.path.exists(out):
+                with open(os.path.join(tmp, f"{name}.log")) as f:
+                    tail = f.read()[-1500:]
+                check(False, f"proofs: {PROOF_RUNS[name][0]} wrote no "
+                             f"record (rc {rc}): {tail}")
+            with open(out) as f:
+                record = json.load(f)
+            _accept_card(record, PROOF_RUNS[name][0], smi_line)
+            checks, bad = _proof_verdict(name, record)
+            rec[name] = {"rc": rc, "wall_s": wall, "checks": checks,
+                         "answers_ge_500_not_allowed": bad,
+                         "launches": int(record["launches"])}
+            launches += int(record["launches"])
+        for name, got in rec.items():
+            check(got["checks"] and all(got["checks"].values())
+                  and got["answers_ge_500_not_allowed"] == 0,
+                  f"proofs: {PROOF_RUNS[name][0]} "
+                  f"{' '.join(PROOF_RUNS[name][1])}: checks "
+                  f"{got['checks']}, answers >= 500 "
+                  f"{got['answers_ge_500_not_allowed']} (rc {got['rc']})")
+    finally:
+        for proc, log, _t0 in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if CARD == "cuda":
+        check(launches > 0, "proofs: no fused launch in the runs' replicas")
+    rec["launches"] = launches
+    rec["wall_s"] = time.perf_counter() - t_phase
+    print(f"[proofs] " + "; ".join(
+        f"{name} {got['wall_s']:.1f} s, {sum(got['checks'].values())}/"
+        f"{len(got['checks'])} checks, {got['launches']} launches"
+        for name, got in rec.items() if isinstance(got, dict))
+        + f"; phase wall {rec['wall_s']:.1f} s | {smi_line}")
+    print(json.dumps({"proofs": rec}))
+    return rec, launches
+
+
 # ── phase 23: the per-bucket serving entries (CUDA graphs) ─────────────
 
 # Request lengths after startup that must add no capture: under, at and
@@ -8291,7 +8421,7 @@ def _alone(name, repeat):
     phases = {"regions": phase_regions, "loadgen": phase_loadgen,
               "mesh": phase_mesh, "pages": phase_pages,
               "redis": phase_redis, "aot": phase_aot,
-              "acceptance": phase_acceptance}
+              "acceptance": phase_acceptance, "proofs": phase_proofs}
     _, smi_line = phase_device()
     phase_build()
     failed = []
@@ -8316,7 +8446,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description="The port on one card.")
     parser.add_argument("--alone", choices=("regions", "loadgen", "mesh",
                                             "pages", "redis", "aot",
-                                            "acceptance"),
+                                            "acceptance", "proofs"),
                         help="run this phase alone (after phases 1-2)")
     parser.add_argument("--repeat", type=int, default=1,
                         help="with --alone: how many times")
@@ -8381,6 +8511,8 @@ def main() -> int:
         _, aot_launches = phase_aot(smi_line)
         phase = "acceptance"
         _, scripts_launches = phase_acceptance(smi_line)
+        phase = "proofs"
+        _, proofs_launches = phase_proofs(smi_line)
         phase = "times"
         table = phase_times(rng)
     except Exception as e:
@@ -8447,6 +8579,9 @@ def main() -> int:
     # ... and over phase 23's requests through the app on the bucket
     # graphs: one launch counted per replay (its eager launches apart)
     kernels[0]["launches_aot"] = aot_launches
+    # ... and over phase 24's: the proof twins' replicas (other
+    # processes), read from their /api/metrics
+    kernels[0]["launches_proofs"] = proofs_launches
     print(json.dumps({"kernels": kernels}))
     print(f"{smi_line}")
     print(json.dumps({"ok": True, "device": {

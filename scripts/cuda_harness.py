@@ -600,6 +600,16 @@ def launch_delta(before: dict, after: dict) -> dict:
     return {rid: a[rid] - b.get(rid, 0) for rid in sorted(a)}
 
 
+def fleet_launches(base: str) -> int:
+    """Fused launches a gateway's live replicas made since they booted
+    (its ``/api/metrics?replicas=1``; 0 when it does not answer)."""
+    try:
+        return sum(replica_launches(
+            fetch(f"{base}/api/metrics?replicas=1")).values())
+    except OSError:
+        return 0
+
+
 def replica_launches(metrics: dict) -> dict:
     """``/api/metrics?replicas=1`` → {replica id: fused launches}; a
     replica that did not answer is left out."""

@@ -36,6 +36,7 @@ from routest_tpu_torch.core import config as tconfig
 from routest_tpu_torch.obs import prober as tprober
 from routest_tpu_torch.serve.fleet import gateway as tgw
 from routest_tpu_torch.serve.fleet import geofront as tgeo
+from tests import jax_probe_counts
 
 pytestmark = pytest.mark.filterwarnings("ignore::ResourceWarning")
 
@@ -50,6 +51,14 @@ PKGS = {
 @pytest.fixture(params=sorted(PKGS))
 def pkg(request):
     return PKGS[request.param]
+
+
+@pytest.fixture(autouse=True)
+def _jax_probe_counts_as_found():
+    """Each test leaves the JAX ``rtpu_probe_checks_total`` as it found
+    it (tests/test_prober.py reads it absolutely)."""
+    with jax_probe_counts.restored():
+        yield
 
 
 @pytest.fixture(scope="module", autouse=True)

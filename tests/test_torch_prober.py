@@ -47,6 +47,7 @@ from routest_tpu_torch.obs.export import TailSampler as TTailSampler
 from routest_tpu_torch.serve import ml_service as tml
 from routest_tpu_torch.serve import wsgi as twsgi
 from routest_tpu_torch.serve.fleet import gateway as tgw
+from tests import jax_probe_counts
 
 pytestmark = pytest.mark.filterwarnings("ignore::ResourceWarning")
 
@@ -81,6 +82,25 @@ def _no_threads_left():
     for t in left:
         t.join(timeout=max(0.0, deadline - time.monotonic()))
     assert not [t.name for t in left if t.is_alive()]
+
+
+# What the JAX probe verdict family held when this module started: the
+# module hands it back so (tests/test_prober.py reads it absolutely).
+_JAX_CHECKS_AT_START = {}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_checks_at_start():
+    _JAX_CHECKS_AT_START.update(jax_probe_counts.snapshot())
+    yield
+
+
+@pytest.fixture(autouse=True)
+def _jax_probe_counts_as_found():
+    """Each test leaves the JAX ``rtpu_probe_checks_total`` as it found
+    it (its ``jax`` cases count route verdicts, divergent ones too)."""
+    with jax_probe_counts.restored():
+        yield
 
 
 # ── stub replica: a controllable, correct-by-construction server ─────
@@ -885,3 +905,22 @@ def test_prober_dispatch_kind_stands_down_when_disabled(
             dir=str(tmp_path / "rec"), min_interval_s=0.0)))
     assert prober._dispatch_armed() is False
     assert "dispatch" not in prober.probe_round()
+
+
+def test_jax_probe_checks_left_as_found(tmp_path, stubs):
+    """Runs last: every earlier case of this module (the ``jax``
+    divergent-route one among them) left the JAX verdict family as the
+    module found it, and a divergent JAX round inside ``restored()``
+    counts while it runs and is gone after."""
+    assert jax_probe_counts.snapshot() == _JAX_CHECKS_AT_START
+    pkg = PKGS["jax"]
+    before = _counter(pkg, "route", DIVERGENT)
+    with jax_probe_counts.restored():
+        stub = stubs.start()
+        prober, _rec = _route_prober(pkg, tmp_path, [stub])
+        assert prober.probe_round()["route"] == PASS
+        stub.route_bias = 10.0
+        assert prober.probe_round()["route"] == DIVERGENT
+        assert _counter(pkg, "route", DIVERGENT) == before + 1
+    assert _counter(pkg, "route", DIVERGENT) == before
+    assert jax_probe_counts.snapshot() == _JAX_CHECKS_AT_START
