@@ -359,15 +359,21 @@ of which fails the run:
    and 16 and their capture seconds, and ms, kernels, torch ops and
    syncs per solve with graphs and with ``off`` (information); the
    phase's wall time beside the card's name and power limit;
-24. the JAX package's acceptance proofs, run after phase 21: the four
+24. the JAX package's acceptance proofs, run after phase 21: five
    twins (``scripts/bench_{chaos,slo_detection,efficiency,
-   live_traffic}_cuda.py``) at once as subprocesses on short scenarios
-   (``PROOF_RUNS``: the store outage and device burst of the chaos
-   matrix, SLO detection's device burst, the efficiency watchdog's
-   device slowdown, live traffic ``--quick`` at
-   ``PROOF_LIVE_DURATION_S``); every check of each record must pass,
-   its card must be this one, and nothing may answer >= 500 where the
-   JAX scenario allows none; the fused launches their replicas made.
+   live_traffic,incidents}_cuda.py``) at once as subprocesses on short
+   scenarios (``PROOF_RUNS``: the store outage and device burst of the
+   chaos matrix, SLO detection's device burst, the efficiency
+   watchdog's device slowdown, live traffic ``--quick`` at
+   ``PROOF_LIVE_DURATION_S``, incident attribution ``--quick``), then
+   ``scripts/bench_wire_cuda.py --quick --scenario micro`` alone
+   (``PROOF_ALONE``: its gates are throughput and latency ratios);
+   every check of each record must pass but those ROADMAP Queue C
+   records as failing on the card (``PROOF_RECORDED``: the wire path's
+   8-row speedup and gateway-added p95, printed), its card must be this
+   one, and nothing may answer >= 500 where the JAX scenario allows
+   none; the fused launches their replicas and services made, the wire
+   run's more than none.
 
 The lines before the last are one ``{"optimize": {...}}``, one
 ``{"road": {...}}``, one ``{"overlay": {...}}``, one ``{"live": {...}}``,
@@ -7880,12 +7886,13 @@ def phase_acceptance(smi_line):
 
 # ── phase 24: the acceptance proofs ────────────────────────────────────
 
-# The four proof twins on short, real scenarios, as subprocesses at
-# once (each its own fleet on the card): the chaos matrix's store outage
-# and device burst, SLO detection's device burst, the efficiency
-# watchdog's device slowdown, and live traffic at --quick for 30 s: at
-# 20 s every check passed on the card but with 3 metric flips, the
-# check's bound; 30 s gave 5 (PERF.md 5.19).
+# The proof twins on short, real scenarios, as subprocesses at once
+# (each its own fleet on the card): the chaos matrix's store outage and
+# device burst, SLO detection's device burst, the efficiency watchdog's
+# device slowdown, live traffic at --quick for 30 s (at 20 s every check
+# passed on the card but with 3 metric flips, the check's bound; 30 s
+# gave 5, PERF.md 5.19) and incident attribution at --quick (stub fleets
+# and one service on the card: mostly host work).
 PROOF_LIVE_DURATION_S = 30
 PROOF_RUNS = {
     "chaos": ("bench_chaos_cuda.py",
@@ -7897,8 +7904,32 @@ PROOF_RUNS = {
                    ("--quick", "--scenario", "device_slowdown")),
     "live_traffic": ("bench_live_traffic_cuda.py",
                      ("--quick", "--duration", str(PROOF_LIVE_DURATION_S))),
+    "incidents": ("bench_incidents_cuda.py", ("--quick",)),
 }
+# The wire proof runs alone once the block above has finished: its gates
+# are ratios of throughput and latency, which five fleets sharing the
+# host's cores would decide instead of the port.
+PROOF_ALONE = {"wire": ("bench_wire_cuda.py",
+                        ("--quick", "--scenario", "micro"))}
+PROOF_CACHED = ("efficiency", "live_traffic", "incidents", "wire")
+# Incident attribution's checks read no clock: it yields the host's
+# cores to the runs beside it whose checks read latencies.
+PROOF_NICE = {"incidents": 10}
+# Checks a proof run fails on the card against the JAX gate, each
+# recorded in ROADMAP Queue C with its readings and a pinning test: the
+# phase prints them and gates every other check.
+PROOF_RECORDED = {"wire": ("micro.speedup_small_batches_ge_2x",
+                           "micro.gateway_overhead_p95_lt_1ms")}
 PROOF_TIMEOUT_S = 420
+PROOF_ALONE_TIMEOUT_S = 300
+
+
+def _scenario_checks(record):
+    """Every scenario's checks of a record, as ``scenario.check``; a
+    scenario that raised has none and counts as one failed check."""
+    return {f"{scen}.{k}": bool(v)
+            for scen, got in record["scenarios"].items()
+            for k, v in (got.get("checks") or {"ran": False}).items()}
 
 
 def _proof_verdict(name, record):
@@ -7915,83 +7946,123 @@ def _proof_verdict(name, record):
         scen = record["scenarios"]["device_slowdown"]
         checks = dict(scen.get("checks") or {"ran": False})
         return checks, int((scen.get("load") or {}).get("errors") or 0)
+    if name == "incidents":
+        # the bad deploy's 500s are its canary's: the JAX scenario's point
+        return _scenario_checks(record), 0
+    if name == "wire":
+        micro = record["scenarios"].get("micro") or {}
+        bad = sum(int(mode["err"])
+                  for rows in (micro.get("throughput") or {}).values()
+                  for mode in (rows["json"], rows["binary"]))
+        bad += int((micro.get("sustained") or {}).get("errors") or 0)
+        return _scenario_checks(record), bad
     checks = dict(record["checks"])
     checks["generator_kept_pace"] = not record["pace"]["generator_lagged"]
     return checks, int(record["client_5xx"])
 
 
+def _proof_start(name, script, args, tmp):
+    """One proof twin as a subprocess writing its record into ``tmp`` →
+    (process, log file, start instant)."""
+    cmd = [sys.executable, os.path.join(ROOT, "scripts", script),
+           *args, "--out", os.path.join(tmp, f"{name}.json")]
+    if name in PROOF_CACHED:
+        cmd += ["--cache-dir", os.path.join(tmp, f"cache_{name}")]
+    if CARD != "cuda":
+        cmd.append("--cpu")
+    log = open(os.path.join(tmp, f"{name}.log"), "w")
+    nice = PROOF_NICE.get(name, 0)
+    return (subprocess.Popen(cmd, cwd=ROOT, env=_fleet_env(), stdout=log,
+                             stderr=subprocess.STDOUT,
+                             preexec_fn=(lambda: os.nice(nice)) if nice
+                             else None),
+            log, time.perf_counter())
+
+
+def _proof_finish(name, script, run, deadline, tmp, smi_line):
+    """Wait for one proof run (killed at ``deadline``) and read its
+    record → the phase's entry for it."""
+    proc, log, t0 = run
+    try:
+        rc = proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        rc = proc.wait()
+    wall = time.perf_counter() - t0
+    log.close()
+    out = os.path.join(tmp, f"{name}.json")
+    if not os.path.exists(out):
+        with open(os.path.join(tmp, f"{name}.log")) as f:
+            tail = f.read()[-1500:]
+        check(False, f"proofs: {script} wrote no record (rc {rc}): {tail}")
+    with open(out) as f:
+        record = json.load(f)
+    _accept_card(record, script, smi_line)
+    checks, bad = _proof_verdict(name, record)
+    recorded = {k: checks.pop(k) for k in PROOF_RECORDED.get(name, ())
+                if k in checks}
+    return {"rc": rc, "wall_s": wall, "checks": checks,
+            "recorded_in_queue_c": recorded,
+            "answers_ge_500_not_allowed": bad,
+            "launches": int(record["launches"])}
+
+
 def phase_proofs(smi_line):
     """Phase 24, the JAX package's acceptance proofs on the card: the
-    four ``_cuda`` twins (``PROOF_RUNS``) at once as subprocesses, each
-    writing its record. Checks each record's card, every check of each
-    run, and no answer >= 500 where the JAX scenario allows none (the
-    store outage's writes, the efficiency load, live traffic's
-    clients); the device bursts' 503s are their point. → (record,
-    fused launches the runs' replicas made)."""
+    ``_cuda`` twins of ``PROOF_RUNS`` at once as subprocesses, then
+    those of ``PROOF_ALONE`` one by one, each writing its record. Checks
+    each record's card, every check of each run, and no answer >= 500
+    where the JAX scenario allows none (the store outage's writes, the
+    efficiency load, live traffic's clients, the wire loads); the device
+    bursts' 503s and the bad deploy's 500s are their point. → (record,
+    fused launches the runs' replicas and services made)."""
     import shutil
     import tempfile
 
     t_phase = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="proofs-")
-    procs = {}
+    runs = {}
+    rec = {}
     try:
         for name, (script, args) in PROOF_RUNS.items():
-            cmd = [sys.executable, os.path.join(ROOT, "scripts", script),
-                   *args, "--out", os.path.join(tmp, f"{name}.json")]
-            if name in ("efficiency", "live_traffic"):
-                cmd += ["--cache-dir", os.path.join(tmp, f"cache_{name}")]
-            if CARD != "cuda":
-                cmd.append("--cpu")
-            log = open(os.path.join(tmp, f"{name}.log"), "w")
-            procs[name] = (subprocess.Popen(
-                cmd, cwd=ROOT, env=_fleet_env(), stdout=log,
-                stderr=subprocess.STDOUT), log, time.perf_counter())
-        rec, launches = {}, 0
+            runs[name] = _proof_start(name, script, args, tmp)
         deadline = time.perf_counter() + PROOF_TIMEOUT_S
-        for name, (proc, log, t0) in procs.items():
-            try:
-                rc = proc.wait(timeout=max(1.0,
-                                           deadline - time.perf_counter()))
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                rc = proc.wait()
-            wall = time.perf_counter() - t0
-            log.close()
-            out = os.path.join(tmp, f"{name}.json")
-            if not os.path.exists(out):
-                with open(os.path.join(tmp, f"{name}.log")) as f:
-                    tail = f.read()[-1500:]
-                check(False, f"proofs: {PROOF_RUNS[name][0]} wrote no "
-                             f"record (rc {rc}): {tail}")
-            with open(out) as f:
-                record = json.load(f)
-            _accept_card(record, PROOF_RUNS[name][0], smi_line)
-            checks, bad = _proof_verdict(name, record)
-            rec[name] = {"rc": rc, "wall_s": wall, "checks": checks,
-                         "answers_ge_500_not_allowed": bad,
-                         "launches": int(record["launches"])}
-            launches += int(record["launches"])
+        for name, (script, _) in PROOF_RUNS.items():
+            rec[name] = _proof_finish(name, script, runs[name], deadline,
+                                      tmp, smi_line)
+        for name, (script, args) in PROOF_ALONE.items():
+            runs[name] = _proof_start(name, script, args, tmp)
+            rec[name] = _proof_finish(
+                name, script, runs[name],
+                time.perf_counter() + PROOF_ALONE_TIMEOUT_S, tmp, smi_line)
+        scripts = {**PROOF_RUNS, **PROOF_ALONE}
         for name, got in rec.items():
             check(got["checks"] and all(got["checks"].values())
                   and got["answers_ge_500_not_allowed"] == 0,
-                  f"proofs: {PROOF_RUNS[name][0]} "
-                  f"{' '.join(PROOF_RUNS[name][1])}: checks "
+                  f"proofs: {scripts[name][0]} "
+                  f"{' '.join(scripts[name][1])}: checks "
                   f"{got['checks']}, answers >= 500 "
                   f"{got['answers_ge_500_not_allowed']} (rc {got['rc']})")
     finally:
-        for proc, log, _t0 in procs.values():
+        for proc, log, _t0 in runs.values():
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
             log.close()
         shutil.rmtree(tmp, ignore_errors=True)
+    launches = sum(got["launches"] for got in rec.values())
     if CARD == "cuda":
         check(launches > 0, "proofs: no fused launch in the runs' replicas")
+        for name in PROOF_ALONE:
+            check(rec[name]["launches"] > 0,
+                  f"proofs: no fused launch in the {name} run's replica")
     rec["launches"] = launches
     rec["wall_s"] = time.perf_counter() - t_phase
     print(f"[proofs] " + "; ".join(
         f"{name} {got['wall_s']:.1f} s, {sum(got['checks'].values())}/"
         f"{len(got['checks'])} checks, {got['launches']} launches"
+        + (f" (Queue C: {got['recorded_in_queue_c']})"
+           if got["recorded_in_queue_c"] else "")
         for name, got in rec.items() if isinstance(got, dict))
         + f"; phase wall {rec['wall_s']:.1f} s | {smi_line}")
     print(json.dumps({"proofs": rec}))

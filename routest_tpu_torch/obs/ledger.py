@@ -46,7 +46,7 @@ import os
 import socket
 import threading
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from routest_tpu_torch.core.config import LedgerConfig, load_ledger_config
 from routest_tpu_torch.obs.registry import MetricsRegistry, get_registry
@@ -426,10 +426,13 @@ def rank_suspects(events: Sequence[dict], now: float,
       outranks the offender's own, but stays visible at the bottom.
 
     Events outside the window never rank. Returns scored entries,
-    best first."""
+    best first; of entries equal in score and age (``ts`` keeps
+    milliseconds, and a fast host records a burst of changes within
+    one), the one recorded last ranks first — the JAX ranker keeps
+    ledger order there, which puts the oldest first."""
     scope = scope or {}
-    out: List[dict] = []
-    for rec in events:
+    out: List[Tuple[int, dict]] = []
+    for seq, rec in enumerate(events):
         ts = rec.get("ts")
         if not isinstance(ts, (int, float)):
             continue
@@ -453,14 +456,14 @@ def rank_suspects(events: Sequence[dict], now: float,
                 mismatched.append(key)
         score = proximity * (0.25 + float(len(matched)))
         score *= 0.1 ** len(mismatched)
-        out.append({"score": round(score, 6),
-                    "proximity": round(proximity, 4),
-                    "matched": matched,
-                    "mismatched": mismatched,
-                    "age_s": round(age, 3),
-                    "event": dict(rec)})
-    out.sort(key=lambda s: (-s["score"], s["age_s"]))
-    return out[:max(1, int(limit))]
+        out.append((seq, {"score": round(score, 6),
+                          "proximity": round(proximity, 4),
+                          "matched": matched,
+                          "mismatched": mismatched,
+                          "age_s": round(age, 3),
+                          "event": dict(rec)}))
+    out.sort(key=lambda p: (-p[1]["score"], p[1]["age_s"], -p[0]))
+    return [s for _, s in out[:max(1, int(limit))]]
 
 
 # ── cross-region bridge ──────────────────────────────────────────────

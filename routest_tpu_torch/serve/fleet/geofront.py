@@ -154,11 +154,13 @@ class RegionHandle:
 
 class _RegionState:
     __slots__ = ("up", "fails", "last_ok", "obs_total", "obs_advance_t",
-                 "staleness_s")
+                 "staleness_s", "kills")
 
     def __init__(self) -> None:
         self.up = True            # optimistic until the first poll says no
         self.fails = 0
+        self.kills = 0            # kill_region calls: a poll begun before
+        #                           the latest one is stale
         self.last_ok = 0.0
         self.obs_total = -1.0
         self.obs_advance_t = time.monotonic()
@@ -234,6 +236,8 @@ class GeoFront:
         st = self._state[r.name]
         m = _front_metrics()
         timeout = max(0.2, min(2.0, self.config.health_s * 2))
+        with self._lock:
+            kills = st.kills
         ok = False
         try:
             conn = _fresh_conn(r.host, r.port, timeout=timeout)
@@ -246,6 +250,10 @@ class GeoFront:
             ok = False
         came_up = went_down = False
         with self._lock:
+            if st.kills != kills:
+                # the region was killed while this poll was in flight: a
+                # reply its server sent on the way down is no rejoin
+                return
             if ok:
                 was_down = not st.up
                 st.fails = 0
@@ -400,6 +408,7 @@ class GeoFront:
             st = self._state[name]
             st.up = False
             st.fails = max(st.fails, self.config.unhealthy_after)
+            st.kills += 1
         _front_metrics()["up"].labels(region=name).set(0.0)
 
     def rejoin_region(self, name: str) -> None:

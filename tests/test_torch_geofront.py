@@ -340,6 +340,69 @@ def test_rejoin_region_respawns_and_health_returns(geo):
     assert ("/api/confirm_route", {"k": 1}) in stubs[-1].posts
 
 
+class _HeldConn:
+    """A health poll's connection whose ``/up`` answer (200) waits for
+    ``release``: a poll caught in flight."""
+
+    def __init__(self, sent, release):
+        self._sent, self._release = sent, release
+
+    def request(self, method, path):
+        self._sent.set()
+
+    def getresponse(self):
+        assert self._release.wait(10)
+        return types.SimpleNamespace(status=200,
+                                     read=lambda: b'{"enabled": false}')
+
+    def close(self):
+        pass
+
+
+def _region_kinds(ledger):
+    return [e["kind"] for e in ledger.events()
+            if e["kind"].startswith("region.")]
+
+
+def test_poll_in_flight_across_a_kill_is_no_rejoin(monkeypatch):
+    """A health poll sent before ``kill_region`` and answered after it
+    (the region's server replied on its way down) neither marks the
+    region up nor records a ``region.rejoin`` that would outrank the
+    kill as an incident's suspect; a poll sent after the kill still
+    brings a region that answers back. The JAX front applies such a
+    late reply (docs/torch/ROBUSTNESS.md)."""
+    from routest_tpu_torch.obs.ledger import (ChangeLedger,
+                                              configure_change_ledger)
+    from routest_tpu_torch.obs.registry import MetricsRegistry
+
+    ledger = ChangeLedger(config=tconfig.LedgerConfig(
+        enabled=True, capacity=64, window_s=900.0, max_suspects=5,
+        publish=False, channel="rtpu.changes", incidents_kept=8,
+        region=""), registry=MetricsRegistry())
+    prev = configure_change_ledger(ledger)
+    try:
+        sent, release = threading.Event(), threading.Event()
+        monkeypatch.setattr(tgeo, "_fresh_conn",
+                            lambda *a, **k: _HeldConn(sent, release))
+        front = tgeo.GeoFront([
+            tgeo.RegionHandle("east", "http://127.0.0.1:1", kill=lambda: 0),
+            tgeo.RegionHandle("west", "http://127.0.0.1:2")])
+        east = front.by_name["east"]
+        poll = threading.Thread(target=front._poll_region, args=(east,))
+        poll.start()
+        assert sent.wait(10)
+        front.kill_region("east")
+        release.set()
+        poll.join(10)
+        assert not front.healthy("east")
+        assert _region_kinds(ledger) == ["region.kill"]
+        front._poll_region(east)          # the region answers again
+        assert front.healthy("east")
+        assert _region_kinds(ledger) == ["region.kill", "region.rejoin"]
+    finally:
+        configure_change_ledger(prev)
+
+
 # ── cross-region fan-out prober: the reach dimension ─────────────────
 
 

@@ -122,6 +122,35 @@ def test_suspect_rankings_match(scope, window_s, limit):
     assert ranks["torch"]
 
 
+def test_a_burst_within_one_millisecond_ranks_its_last_change_first():
+    """Changes recorded within one millisecond (a fast host's customize
+    cycles, then a chaos jam) tie in score and age: the port ranks the
+    one recorded last first, the JAX ranker the first one — a legitimate
+    flip above the jam that paged (``bench_incidents_cuda.py``'s
+    ``jammed_customize`` on the card). Distinct ages rank alike."""
+    burst = ["live.flip"] * 8 + ["chaos.arm", "chaos.fire",
+                                 "live.customize_failed"]
+    kinds = {}
+    for k, (mod, cfg_cls, reg_cls, _) in PACKAGES.items():
+        led = mod.ChangeLedger(cfg_cls(publish=False), registry=reg_cls())
+        for kind in burst:
+            led.record(kind, ts=T0 - 0.002)
+        ranked = mod.rank_suspects(led.events(), T0, scope={},
+                                   limit=len(burst))
+        kinds[k] = [s["event"]["kind"] for s in ranked]
+    assert kinds["torch"] == burst[::-1]
+    assert kinds["jax"] == burst
+    apart = {}
+    for k, (mod, cfg_cls, reg_cls, _) in PACKAGES.items():
+        led = mod.ChangeLedger(cfg_cls(publish=False), registry=reg_cls())
+        for i, kind in enumerate(burst):
+            led.record(kind, ts=T0 - 0.5 + 0.01 * i)
+        apart[k] = mod.rank_suspects(led.events(), T0, scope={},
+                                     limit=len(burst))
+    assert apart["torch"] == apart["jax"]
+    assert apart["torch"][0]["event"]["kind"] == "live.customize_failed"
+
+
 def test_capacity_bounds_the_ring():
     for k in PACKAGES:
         led, _ = _ledger(k, capacity=4)
