@@ -359,21 +359,36 @@ of which fails the run:
    and 16 and their capture seconds, and ms, kernels, torch ops and
    syncs per solve with graphs and with ``off`` (information); the
    phase's wall time beside the card's name and power limit;
-24. the JAX package's acceptance proofs, run after phase 21: five
+24. the JAX package's acceptance proofs, run after phase 21: four
    twins (``scripts/bench_{chaos,slo_detection,efficiency,
-   live_traffic,incidents}_cuda.py``) at once as subprocesses on short
-   scenarios (``PROOF_RUNS``: the store outage and device burst of the
-   chaos matrix, SLO detection's device burst, the efficiency
-   watchdog's device slowdown, live traffic ``--quick`` at
-   ``PROOF_LIVE_DURATION_S``, incident attribution ``--quick``), then
-   ``scripts/bench_wire_cuda.py --quick --scenario micro`` alone
-   (``PROOF_ALONE``: its gates are throughput and latency ratios);
+   incidents}_cuda.py``) at once as subprocesses on short scenarios
+   (``PROOF_RUNS``: the store outage and device burst of the chaos
+   matrix, SLO detection's device burst, the efficiency watchdog's
+   device slowdown, incident attribution ``--quick``), then one by one
+   ``scripts/bench_live_traffic_cuda.py --quick`` at
+   ``PROOF_LIVE_DURATION_S`` and ``scripts/bench_wire_cuda.py --quick
+   --scenario micro`` (``PROOF_ALONE``: the one's generator must keep
+   its pace, the other's gates are throughput and latency ratios);
    every check of each record must pass but those ROADMAP Queue C
    records as failing on the card (``PROOF_RECORDED``: the wire path's
    8-row speedup and gateway-added p95, printed), its card must be this
    one, and nothing may answer >= 500 where the JAX scenario allows
    none; the fused launches their replicas and services made, the wire
-   run's more than none.
+   run's more than none;
+25. the road router's acceptance proofs, run after phase 24: the
+   ``_cuda`` twins of the JAX router scripts as subprocesses at the JAX
+   slow tests' arguments (``ROUTER_RUNS``): the batched-solve curve
+   ``--quick`` (a 50k extract, K merged against K scalar solves with
+   scipy's parity, 8 threads through the batcher) and then the scale
+   bench ``--quick --verify`` (2048 nodes flat, 24,000 on the overlay
+   against the flat sweep and a single level), beside metro routing
+   served ``--quick --compare-cache --rps 1.5`` at
+   ``ROUTER_SERVING_DURATION_S`` (one replica on the card behind the
+   gateway on a 50k extract, buckets 2/4/16/32 captured, cache on and
+   off under the same open-loop schedule); every check of each record
+   must pass but those ROADMAP Queue C records as failing on the card
+   (``ROUTER_RECORDED``, printed), its card must be this one, and the
+   served replicas' fused launches must be more than none.
 
 The lines before the last are one ``{"optimize": {...}}``, one
 ``{"road": {...}}``, one ``{"overlay": {...}}``, one ``{"live": {...}}``,
@@ -384,7 +399,7 @@ one ``{"selection": {...}}``, one ``{"dispatch": {...}}``, one
 ``{"loadgen": {...}}``, one ``{"mesh": {...}}``, one
 ``{"pages": {...}}``, one ``{"redis": {...}}``, one
 ``{"aot": {...}}``, one ``{"acceptance": {...}}``, one
-``{"proofs": {...}}`` and one
+``{"proofs": {...}}``, one ``{"router": {...}}`` and one
 ``{"kernels": [...]}`` JSON object and the
 card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
@@ -7889,11 +7904,8 @@ def phase_acceptance(smi_line):
 # The proof twins on short, real scenarios, as subprocesses at once
 # (each its own fleet on the card): the chaos matrix's store outage and
 # device burst, SLO detection's device burst, the efficiency watchdog's
-# device slowdown, live traffic at --quick for 30 s (at 20 s every check
-# passed on the card but with 3 metric flips, the check's bound; 30 s
-# gave 5, PERF.md 5.19) and incident attribution at --quick (stub fleets
-# and one service on the card: mostly host work).
-PROOF_LIVE_DURATION_S = 30
+# device slowdown and incident attribution at --quick (stub fleets and
+# one service on the card: mostly host work).
 PROOF_RUNS = {
     "chaos": ("bench_chaos_cuda.py",
               ("--quick", "--scenarios", "store_outage",
@@ -7902,14 +7914,21 @@ PROOF_RUNS = {
                       ("--quick", "--scenarios", "device_error_burst")),
     "efficiency": ("bench_efficiency_cuda.py",
                    ("--quick", "--scenario", "device_slowdown")),
-    "live_traffic": ("bench_live_traffic_cuda.py",
-                     ("--quick", "--duration", str(PROOF_LIVE_DURATION_S))),
     "incidents": ("bench_incidents_cuda.py", ("--quick",)),
 }
-# The wire proof runs alone once the block above has finished: its gates
-# are ratios of throughput and latency, which five fleets sharing the
-# host's cores would decide instead of the port.
-PROOF_ALONE = {"wire": ("bench_wire_cuda.py",
+# Live traffic at --quick for 30 s (at 20 s every check passed on the
+# card but with 3 metric flips, the check's bound; 30 s gave 5, PERF.md
+# 5.19), then the wire proof, each alone once the block above has
+# finished. Live traffic's generator must keep its pace: its send delay
+# p99 over 45 sends (about the worst one) under the run's latency p50 of
+# about 7 ms, which one scheduling stall among five fleets sharing the
+# host's cores broke. The wire proof's gates are ratios of throughput
+# and latency, which fleets beside it would decide instead of the port.
+PROOF_LIVE_DURATION_S = 30
+PROOF_ALONE = {"live_traffic": ("bench_live_traffic_cuda.py",
+                                ("--quick", "--duration",
+                                 str(PROOF_LIVE_DURATION_S))),
+               "wire": ("bench_wire_cuda.py",
                         ("--quick", "--scenario", "micro"))}
 PROOF_CACHED = ("efficiency", "live_traffic", "incidents", "wire")
 # Incident attribution's checks read no clock: it yields the host's
@@ -7935,6 +7954,9 @@ def _scenario_checks(record):
 def _proof_verdict(name, record):
     """A proof run's checks and what it answered ≥ 500 where the JAX
     scenario allows no such answer → (checks, answers >= 500)."""
+    if name in ROUTER_RUNS:
+        # the serving run's answers >= 500 count in its error-rate check
+        return dict(record["checks"]), 0
     if name == "chaos":
         scen = record["scenarios"]
         bad = sum(v for k, v in scen["store_outage"].get(
@@ -7961,9 +7983,10 @@ def _proof_verdict(name, record):
     return checks, int(record["client_5xx"])
 
 
-def _proof_start(name, script, args, tmp):
-    """One proof twin as a subprocess writing its record into ``tmp`` →
-    (process, log file, start instant)."""
+def _proof_start(name, script, args, tmp, **env):
+    """One proof twin as a subprocess writing its record into ``tmp``,
+    with ``env`` over :func:`_fleet_env`'s → (process, log file, start
+    instant)."""
     cmd = [sys.executable, os.path.join(ROOT, "scripts", script),
            *args, "--out", os.path.join(tmp, f"{name}.json")]
     if name in PROOF_CACHED:
@@ -7972,7 +7995,8 @@ def _proof_start(name, script, args, tmp):
         cmd.append("--cpu")
     log = open(os.path.join(tmp, f"{name}.log"), "w")
     nice = PROOF_NICE.get(name, 0)
-    return (subprocess.Popen(cmd, cwd=ROOT, env=_fleet_env(), stdout=log,
+    return (subprocess.Popen(cmd, cwd=ROOT, env=_fleet_env(**env),
+                             stdout=log,
                              stderr=subprocess.STDOUT,
                              preexec_fn=(lambda: os.nice(nice)) if nice
                              else None),
@@ -7999,12 +8023,16 @@ def _proof_finish(name, script, run, deadline, tmp, smi_line):
         record = json.load(f)
     _accept_card(record, script, smi_line)
     checks, bad = _proof_verdict(name, record)
-    recorded = {k: checks.pop(k) for k in PROOF_RECORDED.get(name, ())
+    recorded = {k: checks.pop(k) for k in {**PROOF_RECORDED,
+                                            **ROUTER_RECORDED}.get(name, ())
                 if k in checks}
     return {"rc": rc, "wall_s": wall, "checks": checks,
             "recorded_in_queue_c": recorded,
             "answers_ge_500_not_allowed": bad,
-            "launches": int(record["launches"])}
+            # the solve benches serve no ETA: their records count none
+            "launches": int(record.get("launches", 0)),
+            # live traffic's generator pace (send delay p99, its limit)
+            "pace": record["pace"] if name == "live_traffic" else None}
 
 
 def phase_proofs(smi_line):
@@ -8063,6 +8091,9 @@ def phase_proofs(smi_line):
         f"{len(got['checks'])} checks, {got['launches']} launches"
         + (f" (Queue C: {got['recorded_in_queue_c']})"
            if got["recorded_in_queue_c"] else "")
+        + (f", send delay p99 {got['pace']['send_delay_p99_ms']} ms "
+           f"(limit {got['pace']['pace_limit_ms']})"
+           if got.get("pace") else "")
         for name, got in rec.items() if isinstance(got, dict))
         + f"; phase wall {rec['wall_s']:.1f} s | {smi_line}")
     print(json.dumps({"proofs": rec}))
@@ -8483,6 +8514,144 @@ def phase_aot(smi_line):
     return rec, launches
 
 
+# ── phase 25: the road router's acceptance proofs ──────────────────────
+
+# The router twins at the JAX slow tests' arguments. The batched-solve
+# curve and the scale bench run one after the other (their checks are
+# solve-time ratios), beside the serving run (one replica on the card
+# behind the gateway), whose open loop is shortened from the slow test's
+# 45 s to fit the phase: same rate, same schedule seed.
+ROUTER_SERVING_DURATION_S = 20
+ROUTER_RUNS = {
+    "batch_solve": ("bench_batch_solve_cuda.py", ("--quick",)),
+    "router_scale": ("bench_router_scale_cuda.py", ("--quick", "--verify")),
+    "router_serving": ("bench_router_serving_cuda.py",
+                       ("--quick", "--compare-cache", "--rps", "1.5",
+                        "--duration", str(ROUTER_SERVING_DURATION_S))),
+}
+ROUTER_LANES = (("batch_solve", "router_scale"), ("router_serving",))
+# Checks a router run fails on the card against the JAX gate, each
+# recorded in ROADMAP Queue C with its readings and a pinning test: the
+# phase prints them and gates every other check. Queue C 32: on the card
+# the multi-level overlay's captured solve is about as fast as one
+# level's at 24,000 nodes (1.08 and 1.17x), under the JAX 1.2x. Queue C
+# 33: the route cache's mean speedup read 1.018 and 1.244 at 250k nodes
+# (1.725 and 1.239 here at 50k), about the JAX 1.1x.
+ROUTER_RECORDED = {"router_scale": ("multi_level_speedup_ge_1_2",),
+                   "router_serving": ("cache_speedup_mean_gt_1_1",)}
+ROUTER_TIMEOUT_S = 420
+
+
+def _router_summary(name, record):
+    """What phase 25 prints of a router run's record."""
+    if name == "batch_solve":
+        return {"nodes": record["nodes"],
+                "aot_buckets": record["aot_buckets"],
+                "speedup": {r["k"]: r["speedup"] for r in record["rows"]},
+                "merged_ms": {r["k"]: r["merged_ms"]
+                              for r in record["rows"]},
+                "threaded": {k: record["threaded"][k] for k in (
+                    "dispatches", "solves", "max_occupancy")}}
+    if name == "router_scale":
+        return {"rows": [{k: r.get(k) for k in (
+            "nodes", "solver", "router_init_s", "solve_cold_ms",
+            "solve_warm_ms", "flat_warm_ms", "overlay_speedup",
+            "single_level_warm_ms", "multi_level_speedup",
+            "oracle_max_rel_err")} for r in record["rows"]]}
+    road = record.get("road_router") or {}
+    return {"p95_ms": record["request_route_p95_ms"],
+            "cache_off_p95_ms": (record.get("cache_off") or {}).get(
+                "request_route_p95_ms"),
+            "cache_speedup_mean": record.get("cache_speedup_mean"),
+            "hit_rate": (record.get("route_cache") or {}).get("hit_rate"),
+            "aot_buckets": road.get("aot_buckets"),
+            "aot_compile_s": road.get("aot_compile_s"),
+            "warm_first_requests_s": record["warm_first_requests_s"],
+            "pace": record["pace"]}
+
+
+def phase_router(smi_line):
+    """Phase 25, the road router's acceptance proofs on the card: the
+    lanes of ``ROUTER_LANES`` at once, each running its twins in turn
+    as subprocesses writing their records. Checks each record's card and
+    every check of each run but those of ``ROUTER_RECORDED``, and that
+    the served replicas launched the kernel. → (record, fused launches
+    the serving run's replicas made)."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="router-")
+    rec = {}
+    runs = {}
+    errors = []
+    deadline = time.perf_counter() + ROUTER_TIMEOUT_S
+
+    def lane(names):
+        try:
+            for name in names:
+                script, args = ROUTER_RUNS[name]
+                # each run's overlay cache in the phase's directory
+                runs[name] = _proof_start(
+                    name, script, args, tmp,
+                    ROUTEST_HIER_CACHE=os.path.join(tmp, f"hier_{name}"))
+                rec[name] = _proof_finish(name, script, runs[name],
+                                          deadline, tmp, smi_line)
+                with open(os.path.join(tmp, f"{name}.json")) as f:
+                    rec[name].update(_router_summary(name, json.load(f)))
+        except Exception as e:       # re-raised below, after both lanes
+            errors.append(e)
+
+    try:
+        threads = [threading.Thread(target=lane, args=(names,))
+                   for names in ROUTER_LANES]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        for name, got in rec.items():
+            check(got["checks"] and all(got["checks"].values()),
+                  f"router: {ROUTER_RUNS[name][0]} "
+                  f"{' '.join(ROUTER_RUNS[name][1])}: failed "
+                  f"{sorted(k for k, v in got['checks'].items() if not v)} "
+                  f"(rc {got['rc']})")
+    finally:
+        for proc, log, _t0 in runs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = sum(got["launches"] for got in rec.values())
+    if CARD == "cuda":
+        check(rec["router_serving"]["launches"] > 0,
+              "router: no fused launch in the served replicas")
+    rec["launches"] = launches
+    rec["wall_s"] = time.perf_counter() - t_phase
+    bs, sc, sv = (rec["batch_solve"], rec["router_scale"],
+                  rec["router_serving"])
+    print(f"[router] batch solve {bs['wall_s']:.1f} s: {bs['nodes']:,} "
+          f"nodes, speedup by K {bs['speedup']}, threads "
+          f"{bs['threaded']}; scale {sc['wall_s']:.1f} s: warm ms "
+          f"{[r['solve_warm_ms'] for r in sc['rows']]}, overlay "
+          f"{[r['overlay_speedup'] for r in sc['rows']]}x flat, "
+          f"{[r['multi_level_speedup'] for r in sc['rows']]}x one level; "
+          f"serving {sv['wall_s']:.1f} s: p95 {sv['p95_ms']} ms (cache "
+          f"off {sv['cache_off_p95_ms']}), hit rate {sv['hit_rate']}, "
+          f"mean speedup {sv['cache_speedup_mean']}x, buckets "
+          f"{sv['aot_buckets']} captured in {sv['aot_compile_s']} s, "
+          f"{sv['launches']} launches"
+          + "".join(f"; Queue C ({name}): {got['recorded_in_queue_c']}"
+                    for name, got in rec.items()
+                    if isinstance(got, dict)
+                    and got.get("recorded_in_queue_c"))
+          + f"; phase wall {rec['wall_s']:.1f} s | {smi_line}")
+    print(json.dumps({"router": rec}))
+    return rec, launches
+
+
 def _alone(name, repeat):
     """``--alone PHASE --repeat N``: phases 1–2 (the card, the kernel's
     build), then one of the later phases ``repeat`` times in this
@@ -8492,7 +8661,8 @@ def _alone(name, repeat):
     phases = {"regions": phase_regions, "loadgen": phase_loadgen,
               "mesh": phase_mesh, "pages": phase_pages,
               "redis": phase_redis, "aot": phase_aot,
-              "acceptance": phase_acceptance, "proofs": phase_proofs}
+              "acceptance": phase_acceptance, "proofs": phase_proofs,
+              "router": phase_router}
     _, smi_line = phase_device()
     phase_build()
     failed = []
@@ -8517,7 +8687,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description="The port on one card.")
     parser.add_argument("--alone", choices=("regions", "loadgen", "mesh",
                                             "pages", "redis", "aot",
-                                            "acceptance", "proofs"),
+                                            "acceptance", "proofs",
+                                            "router"),
                         help="run this phase alone (after phases 1-2)")
     parser.add_argument("--repeat", type=int, default=1,
                         help="with --alone: how many times")
@@ -8584,6 +8755,8 @@ def main() -> int:
         _, scripts_launches = phase_acceptance(smi_line)
         phase = "proofs"
         _, proofs_launches = phase_proofs(smi_line)
+        phase = "router"
+        _, router_launches = phase_router(smi_line)
         phase = "times"
         table = phase_times(rng)
     except Exception as e:
@@ -8653,6 +8826,9 @@ def main() -> int:
     # ... and over phase 24's: the proof twins' replicas (other
     # processes), read from their /api/metrics
     kernels[0]["launches_proofs"] = proofs_launches
+    # ... and over phase 25's: the served metro replicas' predict_eta
+    # requests (other processes), read from their /api/metrics
+    kernels[0]["launches_router"] = router_launches
     print(json.dumps({"kernels": kernels}))
     print(f"{smi_line}")
     print(json.dumps({"ok": True, "device": {

@@ -394,6 +394,43 @@ def post(url: str, body: dict, timeout: float = 120.0):
 # ── the street extract ───────────────────────────────────────────────
 
 
+def metro_streets(n_nodes: int, min_intersections: int = 1024) -> dict:
+    """The OSM-topology network of about ``n_nodes`` nodes that the JAX
+    router scripts build (``scripts/bench_{batch_solve,router_scale,
+    router_serving}.py``): a k=4 street graph of ``max(1024, n_nodes /
+    5.86)`` intersections from seed 0, two bends per street and a tenth
+    one-way. The probing twins' :func:`build_extract` floors at 512
+    intersections, as ``scripts/bench_probing.py`` does."""
+    from routest_tpu_torch.data.road_graph import (generate_road_graph,
+                                                   subdivide_graph)
+
+    n_int = max(min_intersections, int(n_nodes / 5.86))
+    base = generate_road_graph(n_nodes=n_int, k=4, seed=0)
+    return subdivide_graph(base, bends_per_edge=2, oneway_frac=0.1, seed=0)
+
+
+def oracle_max_rel_err(router, sources, dist) -> float:
+    """Max relative error of a solve's ``dist`` rows against scipy's
+    float64 Dijkstra from ``sources`` over the router's graph, as the
+    JAX router scripts check it; infinite on a reachability disagreement
+    in either direction."""
+    import numpy as np
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import dijkstra
+
+    n = router.n_nodes
+    adj = sp.coo_matrix(
+        (router.length_m, (router.senders, router.receivers)),
+        shape=(n, n)).tocsr()
+    want = dijkstra(adj, directed=True,
+                    indices=np.asarray(sources, np.int64))
+    finite = np.isfinite(want)
+    if (dist[finite] > 1e37).any() or (dist[~finite] < 1e37).any():
+        return float("inf")
+    err = np.abs(dist[finite] - want[finite]) / np.maximum(want[finite], 1.0)
+    return float(err.max())
+
+
 def build_extract(n_nodes: int, cache_dir: str) -> str:
     """Synthetic street extract, cached across scenarios and runs; the
     overlay is prebuilt (on the CPU) into ``ROUTEST_HIER_CACHE`` so
@@ -402,15 +439,9 @@ def build_extract(n_nodes: int, cache_dir: str) -> str:
     if os.path.exists(path):
         return path
     from routest_tpu_torch.data.osm import load_osm, save_osm
-    from routest_tpu_torch.data.road_graph import (generate_road_graph,
-                                                   subdivide_graph)
     from routest_tpu_torch.optimize.road_router import RoadRouter
 
-    n_int = max(512, int(n_nodes / 5.86))
-    base = generate_road_graph(n_nodes=n_int, k=4, seed=0)
-    streets = subdivide_graph(base, bends_per_edge=2, oneway_frac=0.1,
-                              seed=0)
-    save_osm(path, streets)
+    save_osm(path, metro_streets(n_nodes, min_intersections=512))
     t0 = time.perf_counter()
     RoadRouter(graph=load_osm(path), use_gnn=False, use_transformer=False,
                device="cpu")
